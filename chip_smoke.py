@@ -9,9 +9,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. the card (``nvidia-smi`` name and power limit), CUDA version, and
    TF32 switched off for matmuls and cuDNN so f32 means f32;
-2. build every kernel of the decode-serving path from ``csrc/``;
+2. build every kernel of the serving and training paths from ``csrc/``;
 3. the flash-forward kernel against ``flash_attention_reference`` (out
-   and lse) at the prefill shapes, non-causal, offsets, ragged T, bf16;
+   and lse) at the prefill shapes, non-causal, offsets, ragged T, bf16,
+   and the training shape in bf16; out is held both in absolute terms
+   and row by row, relative to each row's largest entry;
+3b. the flash-backward kernels (dq; dk/dv) against
+   ``flash_bwd_reference`` at the training shape in bf16 and f32,
+   non-causal, offsets with dead rows, ragged T, D=32/64, a nonzero lse
+   cotangent; then ``torch.autograd.grad`` through the kernels against
+   autograd through plain attention;
 4. the paged-decode kernel against ``paged_attention_reference`` at the
    decode-ladder slot counts, lengths 0 / partial page / page boundary
    / full extent;
@@ -22,7 +29,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    each kernel launched at least once; no KV page leaked after drain;
 6. timing at the engine's shapes: each kernel, its plain version, the
    library yardstick where one exists (timed here only — the port never
-   calls it), and the engine's tokens/s and TTFT p50.
+   calls it), and the engine's tokens/s and TTFT p50;
+7. training at full width (the ``bench_transformer_tp`` config, bf16,
+   causal): one step's loss and every gradient through the kernels
+   against the same step with plain attention (bf16, then f32); 10
+   adam steps through ``make_tp_train_step``, every loss finite and
+   each attention kernel launched once per layer per step; tokens/s,
+   one step's host wall beside its device time; then ``remat="mlp"``
+   against ``remat=False`` at the long-context example's size;
+8. timing at the training shape: the three attention kernels in bf16,
+   each held again against its plain version on the timed inputs, their
+   plain versions' times, and scaled_dot_product_attention's forward
+   and backward as the library yardsticks.
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -51,8 +69,17 @@ PROMPT_LENS = (5, 40, 64, 100, 200, 256, 700, 1000)
 STREAMED = 3          # index of the request sent with "stream": true
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
+TRAIN_MODEL = dict(input_dim=32, seq_len=2048, d_model=768, n_heads=6,
+                   n_layers=4, d_ff=3072, n_classes=2)   # bench_transformer_tp
+TRAIN_BATCH = 16
+TRAIN_STEPS = 10
+LONG_SEQ, LONG_BATCH = 8192, 2      # examples/long_context.py defaults
+STEP_BF16_TOL = 3e-2        # per-leaf relative norm error, kernel vs plain
+STEP_F32_TOL = 1e-3
+REMAT_TOL = 1e-5
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
-PEAK_F32_FLOPS_S = 67e12    # f32 outside the tensor cores
+PEAK_FLOPS_S = {"float32": 67e12,     # f32 outside the tensor cores
+                "bfloat16": 989e12}   # bf16 tensor cores, dense
 
 
 class SmokeFailure(RuntimeError):
@@ -98,11 +125,11 @@ def time_ms(fn, reps=20, trials=7, sleep_ms=10):
     return float(np.median(times))
 
 
-def bound_ms(nbytes, flops):
-    """The least time the card could take for f32 work moving ``nbytes``
-    and doing ``flops``: -> (ms, "bytes" or "operations")."""
+def bound_ms(nbytes, flops, dtype="float32"):
+    """The least time the card could take for work moving ``nbytes`` and
+    doing ``flops`` in ``dtype``: -> (ms, "bytes" or "operations")."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS_S * 1e3
+    t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -123,6 +150,9 @@ def check_flash(fa, rng, dev):
         (2, 77, 130, 4, 64, False, 0, 0, torch.float32),     # ragged
         (1, 93, 93, 8, 32, True, 0, 0, torch.float32),
         (1, 1024, 1024, 6, 128, True, 0, 0, torch.bfloat16),
+        (TRAIN_BATCH, TRAIN_MODEL["seq_len"], TRAIN_MODEL["seq_len"],
+         TRAIN_MODEL["n_heads"], TRAIN_MODEL["d_model"]
+         // TRAIN_MODEL["n_heads"], True, 0, 0, torch.bfloat16),  # training
     ]
     for b, tq, tk, h, d, causal, qo, ko, dtype in cases:
         q = torch.from_numpy(rng.standard_normal((b, tq, h, d),
@@ -135,19 +165,144 @@ def check_flash(fa, rng, dev):
         ref, ref_lse = fa.flash_attention_reference(
             q, k, v, causal=causal, q_offset=qo, kv_offset=ko)
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
+        err = max_abs_err(out, ref)
+        rerr = row_rel_err(out, ref)
         lerr = float((lse - ref_lse).abs().max())
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         name = (f"B={b} Tq={tq} Tk={tk} H={h} D={d} causal={causal} "
                 f"q_off={qo} kv_off={ko} {str(dtype)[6:]}")
         print(f"  flash_fwd {name}: out max_abs_err={err:.3e} "
-              f"lse max_abs_err={lerr:.3e} (tol {tol:g})")
-        require(err <= tol and lerr <= tol,
+              f"row-relative={rerr:.3e} lse max_abs_err={lerr:.3e} "
+              f"(tol {tol:g})")
+        require(err <= tol and rerr <= tol and lerr <= tol,
                 f"flash_fwd disagrees with its plain version at {name}")
         if ko > qo:
             dead = ko - qo
             require(float(out[:, :dead].abs().max()) == 0.0,
                     "flash_fwd: dead rows are not exact zeros")
+        del out, ref, lse, ref_lse
+
+
+def max_abs_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|, in f32."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def row_rel_err(got, want):
+    """The largest, over rows, of a row's max |got - want| over its max
+    |want|.  Causal attention's late rows average many values and are
+    small (|out| ~ 0.03 at T=2048), so a limit relative to each row's own
+    scale catches a wrong late kv tile that an absolute limit, or one
+    relative to the largest entry, would pass.  Rows that are exactly 0
+    in ``want`` (dead rows) count as 0 when ``got`` is 0 there too."""
+    want = want.float()
+    err = (got.float() - want).abs().amax(-1)
+    return float((err / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def bwd_inputs(fa, rng, dev, b, tq, tk, h, d, causal, qo, ko, dtype, g_lse):
+    """q, k, v, dO and the forward's lse, and dl = g_lse - rowsum(dO*O)
+    as the autograd function forms it."""
+    import torch
+
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape, np.float32)).to(dev, dtype)
+    q, k, v, do = mk(b, tq, h, d), mk(b, tk, h, d), mk(b, tk, h, d), \
+        mk(b, tq, h, d)
+    out, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5, qo, ko)
+    dl = -(do.float() * out.float()).sum(-1).transpose(1, 2)
+    if g_lse:
+        dl = dl + torch.from_numpy(
+            rng.standard_normal((b, h, tq), np.float32)).to(dev)
+    return q, k, v, do, lse, dl.contiguous()
+
+
+# -- phase 3b: flash backward ----------------------------------------------
+def check_flash_bwd(fa, rng, dev):
+    import torch
+
+    cases = [
+        # (B, Tq, Tk, H, D, causal, q_offset, kv_offset, dtype, g_lse)
+        (16, 2048, 2048, 6, 128, True, 0, 0, torch.bfloat16, False),
+        (16, 2048, 2048, 6, 128, True, 0, 0, torch.float32, False),
+        (2, 512, 768, 6, 128, False, 0, 0, torch.float32, False),
+        (1, 256, 256, 6, 128, True, 0, 96, torch.float32, False),  # dead
+        (1, 256, 512, 6, 128, True, 256, 0, torch.float32, True),
+        (1, 1000, 1000, 6, 128, True, 0, 0, torch.float32, False),  # ragged
+        (2, 300, 300, 8, 64, True, 0, 0, torch.float32, False),
+        (2, 300, 300, 8, 32, True, 0, 0, torch.float32, False),
+        (1, 1024, 1024, 6, 128, True, 0, 0, torch.float32, True),
+        (1, 1024, 1024, 6, 128, True, 0, 0, torch.bfloat16, True),
+    ]
+    for b, tq, tk, h, d, causal, qo, ko, dtype, g_lse in cases:
+        q, k, v, do, lse, dl = bwd_inputs(fa, rng, dev, b, tq, tk, h, d,
+                                          causal, qo, ko, dtype, g_lse)
+        scale = d ** -0.5
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, dl, causal, scale, qo, ko)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dl, causal, scale, qo,
+                                  ko)
+        want = fa.flash_bwd_reference(q, k, v, do, lse, dl, causal, scale,
+                                      qo, ko)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip((dq, dk, dv), want)]
+        del want
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        name = (f"B={b} Tq={tq} Tk={tk} H={h} D={d} causal={causal} "
+                f"q_off={qo} kv_off={ko} g_lse={'random' if g_lse else 0} "
+                f"{str(dtype)[6:]}")
+        print(f"  flash_bwd {name}: relative max_abs_err dq={errs[0]:.3e} "
+              f"dk={errs[1]:.3e} dv={errs[2]:.3e} (tol {tol:g})")
+        require(max(errs) <= tol,
+                f"flash_bwd disagrees with its plain version at {name}")
+        require(all(x.dtype == dtype for x in (dq, dk, dv)),
+                "flash_bwd: outputs not in the input dtype")
+        if ko > qo:
+            require(float(dq[:, :ko - qo].abs().max()) == 0.0,
+                    "flash_bwd: dead rows' dq is not exact zeros")
+
+
+def check_flash_grad(fa, rng, dev):
+    """torch.autograd.grad through the kernels (FlashAttentionCore)
+    against autograd through the plain attention_with_lse, with a
+    nonzero lse cotangent."""
+    import torch
+
+    from dist_keras_tpu_torch.ops.attention import attention_with_lse
+
+    b, t, h, d = 2, 1024, 6, 128
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, t, h, d), np.float32)).to(dev, dtype).requires_grad_()
+            for _ in range(3))
+        w = torch.from_numpy(rng.standard_normal((b, t, h, d),
+                                                 np.float32)).to(dev)
+
+        def loss(fn):
+            out, lse = fn(q, k, v, causal=True)
+            return (out.float() * w).sum() + torch.sin(lse).sum()
+
+        before = (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
+        got = torch.autograd.grad(loss(fa.flash_attention_with_lse),
+                                  (q, k, v))
+        require((fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
+                == (before[0] + 1, before[1] + 1),
+                "the autograd function did not launch K2 and K3 once each")
+        want = torch.autograd.grad(loss(
+            lambda *a, **kw: attention_with_lse(*a, p_dtype=dtype, **kw)),
+            (q, k, v))
+        errs = [rel_err(g, x) for g, x in zip(got, want)]
+        print(f"  autograd B={b} T={t} H={h} D={d} causal "
+              f"{str(dtype)[6:]}: relative max_abs_err dq={errs[0]:.3e} "
+              f"dk={errs[1]:.3e} dv={errs[2]:.3e} (tol {tol:g})")
+        require(max(errs) <= tol,
+                "the flash autograd function disagrees with autograd "
+                "through plain attention")
 
 
 # -- phase 4: paged decode -------------------------------------------------
@@ -418,6 +573,242 @@ def time_step(engine, dev, gpu):
           f"{max(0.0, 1 - device_ms / wall_ms):.0%} of the step")
 
 
+# -- phase 7: training -----------------------------------------------------
+def plain_block(q, k, v, causal=False):
+    """The ring of one block with PLAIN attention (autograd through
+    attention_with_lse, p rounded to the input dtype as the kernels do)."""
+    from dist_keras_tpu_torch.ops.attention import attention_with_lse
+
+    return attention_with_lse(q, k, v, causal=causal, p_dtype=v.dtype)[0]
+
+
+def train_data(rng, dev, batch, seq):
+    import torch
+
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, seq, TRAIN_MODEL["input_dim"]), np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, TRAIN_MODEL["n_classes"], batch)
+                         ).to(dev)
+    return x, y
+
+
+def compare_grads(label, got, want, tol):
+    """Loss and per-leaf relative norm error of two (loss, grads)."""
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    (loss, grads), (wloss, wgrads) = got, want
+    errs = [float((g - w).norm() / w.norm().clamp_min(1e-30))
+            for g, w in zip(tree_leaves(grads), tree_leaves(wgrads))]
+    lerr = abs(float(loss) - float(wloss)) / abs(float(wloss))
+    print(f"  {label}: loss {float(loss):.6f} vs {float(wloss):.6f} "
+          f"(relative {lerr:.3e}); {len(errs)} gradient leaves, largest "
+          f"relative norm error {max(errs):.3e} (tol {tol:g})")
+    require(lerr <= tol and max(errs) <= tol, f"{label}: disagree")
+    require(all(np.isfinite(e) for e in errs), f"{label}: non-finite grads")
+
+
+def train(fa, rng, dev, gpu):
+    import torch
+
+    from dist_keras_tpu_torch.models.transformer import transformer_config
+    from dist_keras_tpu_torch.parallel import make_tp_train_step
+    from dist_keras_tpu_torch.parallel.transformer_tp import loss_and_grads
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    cfg = transformer_config(**TRAIN_MODEL)
+    factory, init_fn = make_tp_train_step(
+        cfg, causal=True, compute_dtype=torch.bfloat16, device=dev)
+    params, opt_state = init_fn(0)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"  model {TRAIN_MODEL} batch {TRAIN_BATCH} causal bf16 compute, "
+          f"{n_params} f32 master params, adam(1e-3)")
+    x, y = train_data(rng, dev, TRAIN_BATCH, TRAIN_MODEL["seq_len"])
+    for dtype, tol in ((torch.bfloat16, STEP_BF16_TOL),
+                       (torch.float32, STEP_F32_TOL)):
+        kw = dict(causal=True, compute_dtype=dtype)
+        got = loss_and_grads(params, x, y, cfg, **kw)
+        want = loss_and_grads(params, x, y, cfg, attn_fn=plain_block, **kw)
+        compare_grads(f"one step, kernels vs plain attention, "
+                      f"{str(dtype)[6:]}", got, want, tol)
+        del got, want
+    torch.cuda.empty_cache()
+
+    step = factory(params, opt_state)
+    torch.cuda.synchronize()
+    fa.flash_fwd_launches = 0
+    fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        params, opt_state, loss = step(params, opt_state, x, y)
+        losses.append(loss)
+    losses = [float(v) for v in losses]
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.flash_fwd_launches,
+                "flash_bwd_dq": fa.flash_bwd_dq_launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+    print(f"  {TRAIN_STEPS} adam steps: losses "
+          f"{[round(v, 5) for v in losses]}")
+    print(f"  launches on the main path: {launches}")
+    require(all(np.isfinite(losses)), "a training loss is not finite")
+    per_step = TRAIN_STEPS * TRAIN_MODEL["n_layers"]
+    require(all(n == per_step for n in launches.values()),
+            f"expected {per_step} launches of each attention kernel "
+            f"(one per layer per step), got {launches}")
+    tokens = TRAIN_BATCH * TRAIN_MODEL["seq_len"] * TRAIN_STEPS
+    print(f"  training: {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tokens/s on {gpu}")
+
+    def one_step():
+        return step(params, opt_state, x, y)
+
+    device_ms = time_ms(one_step, reps=3, trials=3, sleep_ms=400)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        float(one_step()[2])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(walls))
+    print(f"  train step [B={TRAIN_BATCH} T={TRAIN_MODEL['seq_len']}] on "
+          f"{gpu}: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, card "
+          f"idle {max(0.0, 1 - device_ms / wall_ms):.0%} of the step")
+    profile_step(one_step, gpu)
+    return launches
+
+
+def profile_step(one_step, gpu):
+    """Device time of one training step by kernel, from torch.profiler:
+    the three attention kernels, cuBLAS products, and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one_step()
+        torch.cuda.synchronize()
+    groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+              "cuBLAS products": 0.0, "other kernels": 0.0}
+    for ev in prof.key_averages():
+        name, us = ev.key, ev.self_device_time_total
+        for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if f"{kernel}_kernel" in name:
+                groups[kernel] += us
+                break
+        else:
+            gemm = any(tag in name for tag in ("nvjet", "gemm", "cutlass"))
+            groups["cuBLAS products" if gemm else "other kernels"] += us
+    total = sum(groups.values())
+    require(total > 0, "the profiler saw no device time in a training step")
+    shares = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / total:.1%})"
+                       for k, v in groups.items())
+    print(f"  train step device time by kernel (torch.profiler) on {gpu}: "
+          f"{total / 1e3:.3f} ms = {shares}")
+
+
+def check_remat(rng, dev):
+    """remat="mlp" against remat=False at the long-context example's size,
+    both on the kernels: the same loss and grads (the MLP recompute is the
+    same arithmetic)."""
+    import torch
+
+    from dist_keras_tpu_torch.models.transformer import transformer_config
+    from dist_keras_tpu_torch.parallel import make_tp_train_step
+    from dist_keras_tpu_torch.parallel.transformer_tp import loss_and_grads
+
+    cfg = transformer_config(**dict(TRAIN_MODEL, seq_len=LONG_SEQ))
+    _, init_fn = make_tp_train_step(cfg, device=dev)
+    params, _ = init_fn(0)
+    x, y = train_data(rng, dev, LONG_BATCH, LONG_SEQ)
+    res = {}
+    for remat in (False, "mlp"):
+        torch.cuda.reset_peak_memory_stats()
+        res[remat] = loss_and_grads(params, x, y, cfg, causal=True,
+                                    compute_dtype=torch.bfloat16,
+                                    remat=remat)
+        print(f"  remat={remat!r} B={LONG_BATCH} T={LONG_SEQ}: peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    compare_grads(f"remat='mlp' vs remat=False, B={LONG_BATCH} "
+                  f"T={LONG_SEQ} bf16", res["mlp"], res[False], REMAT_TOL)
+
+
+# -- phase 8: timing at the training shape ----------------------------------
+def time_train_kernels(fa, rng, dev, gpu):
+    import torch
+    import torch.nn.functional as F
+
+    b, t, h = TRAIN_BATCH, TRAIN_MODEL["seq_len"], TRAIN_MODEL["n_heads"]
+    d = TRAIN_MODEL["d_model"] // h
+    dtype = torch.bfloat16
+    scale = d ** -0.5
+    q, k, v, do, lse, dl = bwd_inputs(fa, rng, dev, b, t, t, h, d, True, 0,
+                                      0, dtype, False)
+    args = (q, k, v, do, lse, dl, True, scale, 0, 0)
+    n, es = b * t * h * d, 2
+    rows_bh = b * h * t * 4               # one f32 value per row
+    pairs = b * h * t * (t + 1) // 2
+    shape = f"B={b} T={t} H={h} D={d} causal bf16"
+
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    g = do.transpose(1, 2)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=10, trials=5)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), g, retain_graph=True), reps=10, trials=5)
+
+    out, _ = fa.flash_fwd(q, k, v, True, scale, 0, 0)
+    ref, _ = fa.flash_attention_reference(q, k, v, causal=True)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    want = fa.flash_bwd_reference(*args)
+    rows = []
+    for name, err, rel, run, plain, nbytes, flops, lib in (
+            ("flash_fwd_bf16", max_abs_err(out, ref), row_rel_err(out, ref),
+             lambda: fa.flash_fwd(q, k, v, True, scale, 0, 0),
+             lambda: fa.flash_attention_reference(q, k, v, causal=True),
+             4 * n * es + rows_bh, 4 * d * pairs, sdpa_fwd),
+            ("flash_bwd_dq", max_abs_err(dq, want[0]), rel_err(dq, want[0]),
+             lambda: fa.flash_bwd_dq(*args),
+             lambda: fa.flash_bwd_dq_reference(*args),
+             5 * n * es + 2 * rows_bh, 6 * d * pairs, sdpa_bwd),
+            ("flash_bwd_dkv",
+             max(max_abs_err(dk, want[1]), max_abs_err(dv, want[2])),
+             max(rel_err(dk, want[1]), rel_err(dv, want[2])),
+             lambda: fa.flash_bwd_dkv(*args),
+             lambda: fa.flash_bwd_dkv_reference(*args),
+             6 * n * es + 2 * rows_bh, 8 * d * pairs, sdpa_bwd)):
+        measure = ("row-relative" if name == "flash_fwd_bf16"
+                   else "relative to the largest entry")
+        print(f"  {name} [{shape}]: max_abs_err {err:.3e}, {measure} "
+              f"{rel:.3e} (tol {BF16_TOL:g})")
+        require(rel <= BF16_TOL,
+                f"{name} disagrees with its plain version at {shape}")
+        ms = time_ms(run, reps=10, trials=5)
+        plain_ms = time_ms(plain, reps=3, trials=3)
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        source, replaces = (
+            ("flash_fwd.cu", "131") if name == "flash_fwd_bf16" else
+            ("flash_bwd.cu", "285" if name == "flash_bwd_dq" else "320"))
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"dist_keras_tpu_torch/csrc/{source}",
+                     "replaces":
+                         f"dist_keras_tpu/ops/pallas/flash_attention.py:"
+                         f"{replaces}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+                     "shape": shape})
+    for r in rows:
+        lib = ("scaled_dot_product_attention backward (dq, dk, dv "
+               "together)" if r["name"] != "flash_fwd_bf16"
+               else "scaled_dot_product_attention")
+        print(f"  {r['name']} [{r['shape']}] on {gpu}: {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms ({lib}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"max_abs_err {r['max_abs_err']:.3e}")
+    return rows
+
+
 def main():
     import torch
 
@@ -447,7 +838,7 @@ def main():
 
     print("phase 2: build the kernels")
     t0 = time.perf_counter()
-    built = _build.build(["flash_fwd", "paged_decode"])
+    built = _build.build(["flash_fwd", "flash_bwd", "paged_decode"])
     for name, (secs, log) in built.items():
         print(f"  {name}: {secs:.1f} s")
         for line in log.splitlines():
@@ -459,6 +850,11 @@ def main():
     rng = np.random.default_rng(0)
     print("phase 3: flash_fwd against its plain version")
     check_flash(fa, rng, dev)
+    print("phase 3b: flash_bwd_dq / flash_bwd_dkv against their plain "
+          "version, and autograd through them")
+    check_flash_bwd(fa, rng, dev)
+    check_flash_grad(fa, rng, dev)
+    torch.cuda.empty_cache()
     print("phase 4: paged_decode against its plain version")
     check_paged(da, rng, dev)
     print("phase 5: serve the full-width model over /generate")
@@ -469,8 +865,22 @@ def main():
     print("phase 6: kernel timing at the engine's shapes")
     rows = time_kernels(fa, da, rng, dev, gpu)
     time_step(engine, dev, gpu)
+    del engine
+    torch.cuda.empty_cache()
     for r in rows:
         r["launches"] = launches[r["name"]]
+    print("phase 7: train the full-width model (bench_transformer_tp, "
+          "one card)")
+    train_launches = train(fa, rng, dev, gpu)
+    torch.cuda.empty_cache()
+    check_remat(rng, dev)
+    torch.cuda.empty_cache()
+    print("phase 8: kernel timing at the training shape")
+    train_rows = time_train_kernels(fa, rng, dev, gpu)
+    for r in train_rows:
+        r["launches"] = train_launches[r["name"].replace("_bf16", "")]
+    rows += train_rows
+    for r in rows:
         r.pop("shape")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

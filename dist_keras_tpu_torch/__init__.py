@@ -14,7 +14,9 @@ on first use (``ops/_build.py``), never at import.
 Ported so far: decode serving (``POST /generate``) — the causal
 transformer, the paged KV allocator, the continuous-batching
 ``DecodeEngine``, the HTTP ``ServingServer``, and the flash-forward and
-paged-decode kernels.
+paged-decode kernels; and single-card transformer training
+(``parallel.make_tp_train_step``) — the flash backward kernels behind
+a ``torch.autograd.Function``, adam and sgd with optax's rules.
 """
 
 __version__ = "0.1.0"

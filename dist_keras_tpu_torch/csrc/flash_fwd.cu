@@ -38,17 +38,6 @@ constexpr int QS = BQ + 4;        // row stride of the transposed Q tile
 constexpr int KS = BK + 4;        // row stride of the transposed K tile
 constexpr int PS = BQ + 4;        // row stride of the P tile (P[key][row])
 
-// four consecutive elements (16 bytes of f32, 8 of bf16) as f32
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
 template <int D>
 constexpr int smem_floats() {
   return D * QS + D * KS + BK * D + BK * PS;
@@ -84,7 +73,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int it = 0; it < QL; ++it) {
       const int g = tid + it * NT, r = g % BQ, d = (g / BQ) * 4, row = q0 + r;
-      qr[it] = row < Tq ? load4(q + (((long long)b * Tq + row) * H + h) * D + d)
+      qr[it] = row < Tq ? dk_load4(q + (((long long)b * Tq + row) * H + h) * D + d)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
@@ -120,8 +109,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int g = tid + it * NT;
       const int kj = k0 + g % BK, vj = k0 + g / D4;
       const int kd = (g / BK) * 4, vd = (g % D4) * 4;
-      kr[it] = kj < Tk ? load4(k + (((long long)b * Tk + kj) * H + h) * D + kd) : zero;
-      vr[it] = vj < Tk ? load4(v + (((long long)b * Tk + vj) * H + h) * D + vd) : zero;
+      kr[it] = kj < Tk ? dk_load4(k + (((long long)b * Tk + kj) * H + h) * D + kd) : zero;
+      vr[it] = vj < Tk ? dk_load4(v + (((long long)b * Tk + vj) * H + h) * D + vd) : zero;
     }
     __syncthreads();  // the previous tile (and P) are consumed
 #pragma unroll

@@ -94,17 +94,27 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def apply_block(blk, h, attn_fn, causal):
-    """One pre-LN attention + FFN residual block. h: (B, T, d)."""
+def attention_half(blk, h, attn_fn, causal):
+    """The block's pre-LN attention residual (the attention half of
+    ``_tp_block``). h: (B, T, d)."""
     y = layer_norm(blk["ln1"], h)
     q = torch.einsum("btd,dhk->bthk", y, blk["wq"])
     k = torch.einsum("btd,dhk->bthk", y, blk["wk"])
     v = torch.einsum("btd,dhk->bthk", y, blk["wv"])
     a = attn_fn(q, k, v, causal=causal)
-    h = h + torch.einsum("bthk,hkd->btd", a, blk["wo"])
+    return h + torch.einsum("bthk,hkd->btd", a, blk["wo"])
+
+
+def mlp_half(blk, h):
+    """The block's pre-LN FFN residual (``_mlp_half``). h: (..., d)."""
     y = layer_norm(blk["ln2"], h)
     u = gelu(y @ blk["w1"] + blk["b1"])
     return h + u @ blk["w2"] + blk["b2"]
+
+
+def apply_block(blk, h, attn_fn, causal):
+    """One pre-LN attention + FFN residual block. h: (B, T, d)."""
+    return mlp_half(blk, attention_half(blk, h, attn_fn, causal))
 
 
 def transformer_apply(params, x, cfg, *, causal=False, attn_fn=None):

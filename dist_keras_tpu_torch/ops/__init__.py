@@ -1,1 +1,2 @@
-"""Attention ops: plain PyTorch versions and the Hopper kernels."""
+"""Attention ops (plain PyTorch versions and the Hopper kernels) and the
+optimizers."""

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-_NEG_INF = -1e30
+NEG_INF = -1e30
 
 
 def attention(q, k, v, causal=False, scale=None):
@@ -22,7 +22,7 @@ def attention(q, k, v, causal=False, scale=None):
         tq, tk = q.shape[1], k.shape[1]
         mask = torch.ones((tq, tk), dtype=torch.bool,
                           device=q.device).tril(diagonal=tk - tq)
-        logits = logits.masked_fill(~mask, _NEG_INF)
+        logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
@@ -43,13 +43,13 @@ def attention_with_lse(q, k, v, causal=False, scale=None, q_offset=0,
     if causal:
         qpos = q_offset + torch.arange(q.shape[1], device=q.device)
         kpos = kv_offset + torch.arange(k.shape[1], device=q.device)
-        logits = logits.masked_fill(qpos[:, None] < kpos[None, :], _NEG_INF)
+        logits = logits.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
-    dead = m <= _NEG_INF / 2            # fully-masked rows
+    dead = m <= NEG_INF / 2            # fully-masked rows
     p = torch.exp(logits - torch.where(dead, 0.0, m))
     l = p.sum(dim=-1, keepdim=True)
     out = (torch.einsum("bhts,bshd->bthd", p.to(p_dtype).float(), v.float())
            / l.clamp_min(1e-30).transpose(1, 2))
-    lse = torch.where(dead[..., 0], _NEG_INF,
+    lse = torch.where(dead[..., 0], NEG_INF,
                       m[..., 0] + torch.log(l[..., 0].clamp_min(1e-30)))
     return out.to(q.dtype), lse

@@ -26,7 +26,7 @@ import threading
 import torch
 
 from dist_keras_tpu_torch.ops import _build
-from dist_keras_tpu_torch.ops.attention import _NEG_INF
+from dist_keras_tpu_torch.ops.attention import NEG_INF
 
 HEAD_DIMS = (32, 64, 128)
 _P = ctypes.c_void_p
@@ -55,9 +55,9 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, lengths,
     logits = torch.einsum("shd,shtd->sht", q, k).float() * scale
     kpos = torch.arange(t, device=q.device)
     mask = kpos[None, None, :] < lengths.to(q.device)[:, None, None]
-    logits = logits.masked_fill(~mask, _NEG_INF)
+    logits = logits.masked_fill(~mask, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp(logits - torch.where(m <= _NEG_INF / 2, 0.0, m))
+    p = torch.exp(logits - torch.where(m <= NEG_INF / 2, 0.0, m))
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("sht,shtd->shd", p, v.float()) / l.clamp_min(1e-30)
     return out.to(q.dtype)

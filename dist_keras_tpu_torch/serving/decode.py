@@ -46,7 +46,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from dist_keras_tpu_torch.models.transformer import gelu, layer_norm
+from dist_keras_tpu_torch.models.transformer import layer_norm, mlp_half
 from dist_keras_tpu_torch.ops.decode_attention import paged_attention_auto
 from dist_keras_tpu_torch.ops.flash_attention import attention_auto
 from dist_keras_tpu_torch.serving.engine import Overloaded
@@ -258,10 +258,8 @@ class DecodeEngine:
             kp[li][:, page_idx, page_off] = k[0].transpose(0, 1)
             vp[li][:, page_idx, page_off] = v[0].transpose(0, 1)
             a = attention_auto(q, k, v, causal=True)
-            hs = hs + torch.einsum("bthk,hkd->btd", a, blk["wo"])
-            y = layer_norm(blk["ln2"], hs)
-            u = gelu(y @ blk["w1"] + blk["b1"])
-            hs = hs + u @ blk["w2"] + blk["b2"]
+            hs = mlp_half(blk, hs + torch.einsum("bthk,hkd->btd", a,
+                                                 blk["wo"]))
         hf = layer_norm(params["ln_f"], hs)[0, length - 1]
         logits = hf @ params["head"]["kernel"] + params["head"]["bias"]
         return torch.argmax(logits)
@@ -283,10 +281,8 @@ class DecodeEngine:
             vp[li][:, write_page, write_off] = v.transpose(0, 1)
             a = paged_attention_auto(q, kp[li], vp[li], page_tables,
                                      lengths)
-            hs = hs + torch.einsum("shk,hkd->sd", a, blk["wo"])
-            y = layer_norm(blk["ln2"], hs)
-            u = gelu(y @ blk["w1"] + blk["b1"])
-            hs = hs + u @ blk["w2"] + blk["b2"]
+            hs = mlp_half(blk, hs + torch.einsum("shk,hkd->sd", a,
+                                                 blk["wo"]))
         hf = layer_norm(params["ln_f"], hs)
         logits = hf @ params["head"]["kernel"] + params["head"]["bias"]
         return torch.argmax(logits, dim=-1)

@@ -1,1 +1,1 @@
-"""Device resolution and the numpy parameter bridge."""
+"""Device resolution, params trees and the numpy parameter bridge."""

@@ -15,14 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dist_keras_tpu_torch.utils.pytree import tree_map
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict/list/tuple tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+__all__ = ["params_from_jax", "params_to_numpy", "tree_map"]
 
 
 def _leaf_to_tensor(leaf, device):

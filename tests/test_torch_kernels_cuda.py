@@ -7,7 +7,8 @@ the suite's conftest::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances: f32 max-abs 1e-4, bf16 2e-2 (kernel and plain version sum
-in different orders; bf16 rounds p before P.V in both).
+in different orders; bf16 rounds p before P.V in both).  The backward
+kernels are held relative to the largest entry of the plain result.
 """
 
 import numpy as np
@@ -55,12 +56,92 @@ def test_flash_fwd_matches_plain(dev, b, tq, tk, h, d, causal, qo, ko,
     assert float((lse - ref_lse).abs().max()) <= tol
 
 
+def _rel(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,qo,ko,dtype,tol", [
+    (2, 512, 512, 6, 128, True, 0, 0, torch.float32, 1e-4),
+    (2, 77, 130, 4, 64, False, 0, 0, torch.float32, 1e-4),
+    (1, 128, 128, 2, 32, True, 0, 64, torch.float32, 1e-4),
+    (1, 256, 256, 6, 128, True, 0, 0, torch.bfloat16, 2e-2),
+])
+def test_flash_bwd_matches_plain(dev, b, tq, tk, h, d, causal, qo, ko,
+                                 dtype, tol):
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (b, tq, h, d), dev, dtype)
+    k = _randn(rng, (b, tk, h, d), dev, dtype)
+    v = _randn(rng, (b, tk, h, d), dev, dtype)
+    do = _randn(rng, (b, tq, h, d), dev, dtype)
+    _, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5, qo, ko)
+    dl = _randn(rng, (b, h, tq), dev)
+    args = (q, k, v, do, lse, dl, causal, d ** -0.5, qo, ko)
+    before = (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
+    got = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    assert (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w in zip(got, fa.flash_bwd_reference(*args)):
+        assert g.dtype == dtype and _rel(g, w) <= tol
+    if ko > qo:
+        assert float(got[0][:, :ko - qo].abs().max()) == 0.0
+
+
+def test_flash_core_grads_match_plain_autograd(dev):
+    from dist_keras_tpu_torch.ops.attention import attention_with_lse
+
+    rng = np.random.default_rng(2)
+    q, k, v = (_randn(rng, (2, 300, 4, 64), dev).requires_grad_()
+               for _ in range(3))
+
+    def f(fn):
+        out, lse = fn(q, k, v, causal=True)
+        return (out ** 2).sum() + torch.sin(lse).sum()
+
+    got = torch.autograd.grad(f(fa.flash_attention_with_lse), (q, k, v))
+    want = torch.autograd.grad(f(attention_with_lse), (q, k, v))
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-4
+
+
+def test_train_step_on_card_matches_plain_attention(dev):
+    from dist_keras_tpu_torch.models.transformer import transformer_config
+    from dist_keras_tpu_torch.ops.attention import attention_with_lse
+    from dist_keras_tpu_torch.parallel.transformer_tp import (
+        loss_and_grads,
+        make_tp_train_step,
+    )
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    cfg = transformer_config(input_dim=8, seq_len=128, d_model=64,
+                             n_heads=2, n_layers=2, n_classes=3)
+    _, init_fn = make_tp_train_step(cfg, device=dev)
+    params, _ = init_fn(0)
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (2, 128, 8), dev)
+    y = torch.tensor([0, 2], device=dev)
+    loss, grads = loss_and_grads(params, x, y, cfg, causal=True)
+    ploss, pgrads = loss_and_grads(
+        params, x, y, cfg, causal=True,
+        attn_fn=lambda q, k, v, causal: attention_with_lse(
+            q, k, v, causal=causal)[0])
+    assert abs(float(loss) - float(ploss)) <= 1e-5
+    for g, w in zip(tree_leaves(grads), tree_leaves(pgrads)):
+        assert float((g - w).norm() / w.norm()) <= 1e-4
+
+
 def test_flash_fwd_rejects_what_it_does_not_take(dev):
     q = torch.zeros((1, 8, 2, 48), device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), q.half(), q.half())
+    lse = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_bwd_dq(q, q, q, q, lse, lse, True, 0.1, 0, 0)
+    q = torch.zeros((1, 8, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd_dkv(q, q, q, q, lse[:, :1], lse, True, 0.1, 0, 0)
 
 
 @pytest.mark.parametrize("s", [1, 4, 8])

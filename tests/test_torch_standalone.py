@@ -2,6 +2,7 @@
 the JAX package, and entry points refuse to fall back to the CPU when
 CUDA is missing unless the caller asked for ``device="cpu"``."""
 
+import math
 import re
 import subprocess
 import sys
@@ -13,6 +14,10 @@ import torch
 from dist_keras_tpu_torch.models.transformer import (
     Transformer,
     transformer_config,
+)
+from dist_keras_tpu_torch.parallel import (
+    make_tp_train_step,
+    train_tp_transformer,
 )
 from dist_keras_tpu_torch.serving import DecodeEngine
 from dist_keras_tpu_torch.utils.device import resolve_device
@@ -45,7 +50,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax'\n"
         "             or k.startswith(('jax.', 'dist_keras_tpu.')))\n"
-        "assert len(mods) >= 12, mods\n"
+        "assert len(mods) >= 16, mods\n"
+        "assert 'dist_keras_tpu_torch.parallel.transformer_tp' in mods\n"
+        "assert 'dist_keras_tpu_torch.ops.optimizers' in mods\n"
         "assert not bad, bad\n"
         "assert 'dist_keras_tpu' not in sys.modules\n"
         "print('ok', len(mods))\n")
@@ -58,6 +65,7 @@ def test_import_leaves_jax_out_of_sys_modules():
 def test_import_builds_nothing_and_touches_no_card():
     code = ("import torch\n"
             "import dist_keras_tpu_torch.serving\n"
+            "import dist_keras_tpu_torch.parallel\n"
             "import dist_keras_tpu_torch.ops._build as b\n"
             "assert not b._LIBS\n"
             "assert not torch.cuda.is_initialized()\n"
@@ -112,3 +120,23 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
         assert len(doc["generated"]) == 2
     finally:
         eng.close()
+
+
+def test_training_entry_points_refuse_without_cuda(no_cuda):
+    cfg = transformer_config(**CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_tp_train_step(cfg)
+    x = torch.zeros((2, CFG["seq_len"], CFG["input_dim"]))
+    y = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_tp_transformer(cfg, x, y, steps=1)
+
+
+def test_training_runs_on_the_cpu_when_asked(no_cuda):
+    cfg = transformer_config(**CFG)
+    x = torch.randn((2, CFG["seq_len"], CFG["input_dim"]),
+                    generator=torch.Generator().manual_seed(0))
+    params, losses = train_tp_transformer(cfg, x, torch.tensor([1, 3]),
+                                          steps=2, causal=True, device="cpu")
+    assert len(losses) == 2 and all(map(math.isfinite, losses))
+    assert params["proj"].device.type == "cpu"
