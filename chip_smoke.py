@@ -19,6 +19,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    non-causal, offsets with dead rows, ragged T, D=32/64, a nonzero lse
    cotangent; then ``torch.autograd.grad`` through the kernels against
    autograd through plain attention;
+3c. the one-pass backward (K4) on the same cases: against
+   ``fused_bwd_reference``, bit for bit against K2 + K3 on the same
+   inputs, and bit for bit against itself across two launches;
 4. the paged-decode kernel against ``paged_attention_reference`` at the
    decode-ladder slot counts, lengths 0 / partial page / page boundary
    / full extent;
@@ -37,10 +40,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    each attention kernel launched once per layer per step; tokens/s,
    one step's host wall beside its device time; then ``remat="mlp"``
    against ``remat=False`` at the long-context example's size;
-8. timing at the training shape: the three attention kernels in bf16,
-   each held again against its plain version on the timed inputs, their
-   plain versions' times, and scaled_dot_product_attention's forward
-   and backward as the library yardsticks.
+7b. training with ``DK_FUSED_BWD=1`` (events under a temporary
+   ``DK_OBS_DIR``): ``graduate`` exact at both phase-7 sizes, one step's
+   loss and gradients bit-equal to the knob-off step with K4 launched
+   once per layer and K2/K3 never, 10 adam steps whose losses equal
+   phase 7's bit for bit, tokens/s, wall/device/idle and the profile,
+   and no ``fused_bwd_rejected`` event;
+8. timing at the training shape: the four attention kernels in bf16,
+   each held again against its plain version on the timed inputs (K4
+   also bit for bit against K2 + K3), their plain versions' times, and
+   scaled_dot_product_attention's forward and backward as the library
+   yardsticks; then K4 against K2 + K3's summed time at this shape and
+   at B=2, T=8192.
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -49,6 +60,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -224,11 +236,12 @@ def bwd_inputs(fa, rng, dev, b, tq, tk, h, d, causal, qo, ko, dtype, g_lse):
 
 
 # -- phase 3b: flash backward ----------------------------------------------
-def check_flash_bwd(fa, rng, dev):
+def bwd_cases():
+    """The backward kernels' cases (phases 3b and 3c): (B, Tq, Tk, H, D,
+    causal, q_offset, kv_offset, dtype, g_lse)."""
     import torch
 
-    cases = [
-        # (B, Tq, Tk, H, D, causal, q_offset, kv_offset, dtype, g_lse)
+    return [
         (16, 2048, 2048, 6, 128, True, 0, 0, torch.bfloat16, False),
         (16, 2048, 2048, 6, 128, True, 0, 0, torch.float32, False),
         (2, 512, 768, 6, 128, False, 0, 0, torch.float32, False),
@@ -240,7 +253,19 @@ def check_flash_bwd(fa, rng, dev):
         (1, 1024, 1024, 6, 128, True, 0, 0, torch.float32, True),
         (1, 1024, 1024, 6, 128, True, 0, 0, torch.bfloat16, True),
     ]
-    for b, tq, tk, h, d, causal, qo, ko, dtype, g_lse in cases:
+
+
+def case_name(b, tq, tk, h, d, causal, qo, ko, dtype, g_lse):
+    return (f"B={b} Tq={tq} Tk={tk} H={h} D={d} causal={causal} "
+            f"q_off={qo} kv_off={ko} g_lse={'random' if g_lse else 0} "
+            f"{str(dtype)[6:]}")
+
+
+def check_flash_bwd(fa, rng, dev):
+    import torch
+
+    for case in bwd_cases():
+        b, tq, tk, h, d, causal, qo, ko, dtype, g_lse = case
         q, k, v, do, lse, dl = bwd_inputs(fa, rng, dev, b, tq, tk, h, d,
                                           causal, qo, ko, dtype, g_lse)
         scale = d ** -0.5
@@ -253,9 +278,7 @@ def check_flash_bwd(fa, rng, dev):
         errs = [rel_err(g, w) for g, w in zip((dq, dk, dv), want)]
         del want
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        name = (f"B={b} Tq={tq} Tk={tk} H={h} D={d} causal={causal} "
-                f"q_off={qo} kv_off={ko} g_lse={'random' if g_lse else 0} "
-                f"{str(dtype)[6:]}")
+        name = case_name(*case)
         print(f"  flash_bwd {name}: relative max_abs_err dq={errs[0]:.3e} "
               f"dk={errs[1]:.3e} dv={errs[2]:.3e} (tol {tol:g})")
         require(max(errs) <= tol,
@@ -265,6 +288,48 @@ def check_flash_bwd(fa, rng, dev):
         if ko > qo:
             require(float(dq[:, :ko - qo].abs().max()) == 0.0,
                     "flash_bwd: dead rows' dq is not exact zeros")
+
+
+# -- phase 3c: the one-pass backward ----------------------------------------
+def bit_equal(got, want):
+    """The same dtypes and torch.equal on each pair (+0 equals -0)."""
+    import torch
+
+    return all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+def check_fused_bwd(fa, fu, rng, dev):
+    """K4 against fused_bwd_reference (phase 3b's tolerances), bit for bit
+    against K2 + K3 on the same inputs, and twice bitwise equal."""
+    import torch
+
+    for case in bwd_cases():
+        b, tq, tk, h, d, causal, qo, ko, dtype, g_lse = case
+        q, k, v, do, lse, dl = bwd_inputs(fa, rng, dev, b, tq, tk, h, d,
+                                          causal, qo, ko, dtype, g_lse)
+        args = (q, k, v, do, lse, dl, causal, d ** -0.5, qo, ko)
+        got = fu.fused_bwd(*args)
+        again = fu.fused_bwd(*args)
+        two = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+        want = fu.fused_bwd_reference(*args)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        del want
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        same, det = bit_equal(got, two), bit_equal(got, again)
+        name = case_name(*case)
+        print(f"  fused_bwd {name}: relative max_abs_err dq={errs[0]:.3e} "
+              f"dk={errs[1]:.3e} dv={errs[2]:.3e} (tol {tol:g}); bit-equal "
+              f"to K2+K3 {same}; to itself {det}")
+        require(max(errs) <= tol,
+                f"fused_bwd disagrees with its plain version at {name}")
+        require(same, f"fused_bwd is not bit-equal to K2+K3 at {name}")
+        require(det, f"fused_bwd differs between two launches at {name}")
+        if ko > qo:
+            require(float(got[0][:, :ko - qo].abs().max()) == 0.0,
+                    "fused_bwd: dead rows' dq is not exact zeros")
+        del got, again, two
 
 
 def check_flash_grad(fa, rng, dev):
@@ -607,7 +672,7 @@ def compare_grads(label, got, want, tol):
     require(all(np.isfinite(e) for e in errs), f"{label}: non-finite grads")
 
 
-def train(fa, rng, dev, gpu):
+def train(fa, fu, rng, dev, gpu):
     import torch
 
     from dist_keras_tpu_torch.models.transformer import transformer_config
@@ -618,7 +683,7 @@ def train(fa, rng, dev, gpu):
     cfg = transformer_config(**TRAIN_MODEL)
     factory, init_fn = make_tp_train_step(
         cfg, causal=True, compute_dtype=torch.bfloat16, device=dev)
-    params, opt_state = init_fn(0)
+    params, _ = init_fn(0)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"  model {TRAIN_MODEL} batch {TRAIN_BATCH} causal bf16 compute, "
           f"{n_params} f32 master params, adam(1e-3)")
@@ -631,13 +696,32 @@ def train(fa, rng, dev, gpu):
         compare_grads(f"one step, kernels vs plain attention, "
                       f"{str(dtype)[6:]}", got, want, tol)
         del got, want
+    del params
     torch.cuda.empty_cache()
 
+    launches, losses = run_steps(fa, fu, factory, init_fn, x, y, gpu)
+    per_step = TRAIN_STEPS * TRAIN_MODEL["n_layers"]
+    require(launches == {"flash_fwd": per_step, "flash_bwd_dq": per_step,
+                         "flash_bwd_dkv": per_step, "flash_bwd_fused": 0},
+            f"expected {per_step} launches of K1, K2 and K3 (one per layer "
+            f"per step) and none of K4, got {launches}")
+    return launches, losses, x, y
+
+
+def run_steps(fa, fu, factory, init_fn, x, y, gpu):
+    """10 adam steps from init_fn(0) with the launch counts zeroed just
+    before and read just after; then
+    tokens/s, one step's wall beside its device time, and its profile.
+    -> (launches, losses)."""
+    import torch
+
+    params, opt_state = init_fn(0)
     step = factory(params, opt_state)
     torch.cuda.synchronize()
     fa.flash_fwd_launches = 0
     fa.flash_bwd_dq_launches = 0
     fa.flash_bwd_dkv_launches = 0
+    fu.fused_bwd_launches = 0
     losses = []
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -647,15 +731,12 @@ def train(fa, rng, dev, gpu):
     wall = time.perf_counter() - t0
     launches = {"flash_fwd": fa.flash_fwd_launches,
                 "flash_bwd_dq": fa.flash_bwd_dq_launches,
-                "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+                "flash_bwd_dkv": fa.flash_bwd_dkv_launches,
+                "flash_bwd_fused": fu.fused_bwd_launches}
     print(f"  {TRAIN_STEPS} adam steps: losses "
           f"{[round(v, 5) for v in losses]}")
     print(f"  launches on the main path: {launches}")
     require(all(np.isfinite(losses)), "a training loss is not finite")
-    per_step = TRAIN_STEPS * TRAIN_MODEL["n_layers"]
-    require(all(n == per_step for n in launches.values()),
-            f"expected {per_step} launches of each attention kernel "
-            f"(one per layer per step), got {launches}")
     tokens = TRAIN_BATCH * TRAIN_MODEL["seq_len"] * TRAIN_STEPS
     print(f"  training: {tokens} tokens in {wall:.3f} s = "
           f"{tokens / wall:.1f} tokens/s on {gpu}")
@@ -674,23 +755,24 @@ def train(fa, rng, dev, gpu):
           f"{gpu}: wall {wall_ms:.3f} ms, device {device_ms:.3f} ms, card "
           f"idle {max(0.0, 1 - device_ms / wall_ms):.0%} of the step")
     profile_step(one_step, gpu)
-    return launches
+    return launches, losses
 
 
 def profile_step(one_step, gpu):
     """Device time of one training step by kernel, from torch.profiler:
-    the three attention kernels, cuBLAS products, and the rest."""
+    the attention kernels, cuBLAS products, and the rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         one_step()
         torch.cuda.synchronize()
-    groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-              "cuBLAS products": 0.0, "other kernels": 0.0}
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+    groups = dict.fromkeys(kernels, 0.0)
+    groups.update({"cuBLAS products": 0.0, "other kernels": 0.0})
     for ev in prof.key_averages():
         name, us = ev.key, ev.self_device_time_total
-        for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for kernel in kernels:
             if f"{kernel}_kernel" in name:
                 groups[kernel] += us
                 break
@@ -731,8 +813,96 @@ def check_remat(rng, dev):
                   f"T={LONG_SEQ} bf16", res["mlp"], res[False], REMAT_TOL)
 
 
+# -- phase 7b: training through the DK_FUSED_BWD route ----------------------
+def train_fused(fa, fu, rng, dev, gpu, x, y, want_losses):
+    """DK_FUSED_BWD=1 at phase 7's two sizes: graduation, one step against
+    the knob-off step bit for bit, then phase 7's 10 adam steps again."""
+    import tempfile
+
+    import torch
+
+    from dist_keras_tpu_torch.models.transformer import transformer_config
+    from dist_keras_tpu_torch.observability import events
+    from dist_keras_tpu_torch.parallel import make_tp_train_step
+    from dist_keras_tpu_torch.parallel.transformer_tp import loss_and_grads
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    h = TRAIN_MODEL["n_heads"]
+    d = TRAIN_MODEL["d_model"] // h
+    obs_dir = tempfile.TemporaryDirectory(prefix="dk_obs_")
+    obs = obs_dir.name
+    saved = {k: os.environ.get(k) for k in ("DK_FUSED_BWD", "DK_OBS_DIR")}
+    os.environ["DK_OBS_DIR"] = obs
+    events.reset()
+    fu.clear_verdicts()
+    try:
+        sizes = ((TRAIN_BATCH, TRAIN_MODEL["seq_len"], x, y),
+                 (LONG_BATCH, LONG_SEQ) + train_data(rng, dev, LONG_BATCH,
+                                                     LONG_SEQ))
+        for b, t, xs, ys in sizes:
+            verdict = fu.graduate(b * h, t, t, d, torch.bfloat16, True)
+            print(f"  graduate B={b} T={t} (bh={b * h}) bf16 causal: "
+                  f"{verdict.status}, rel err {verdict.err}")
+            require(verdict.status == "exact",
+                    f"K4 did not graduate at B={b} T={t}: {verdict.reason}")
+            cfg = transformer_config(**dict(TRAIN_MODEL, seq_len=t))
+            params, _ = make_tp_train_step(cfg, device=dev)[1](0)
+            kw = dict(causal=True, compute_dtype=torch.bfloat16)
+            os.environ.pop("DK_FUSED_BWD", None)
+            off = loss_and_grads(params, xs, ys, cfg, **kw)
+            os.environ["DK_FUSED_BWD"] = "1"
+            torch.cuda.synchronize()
+            fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
+            fu.fused_bwd_launches = 0
+            on = loss_and_grads(params, xs, ys, cfg, **kw)
+            torch.cuda.synchronize()
+            launches = {"flash_bwd_fused": fu.fused_bwd_launches,
+                        "flash_bwd_dq": fa.flash_bwd_dq_launches,
+                        "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+            same = bit_equal([on[0], *tree_leaves(on[1])],
+                             [off[0], *tree_leaves(off[1])])
+            print(f"  one step B={b} T={t}, DK_FUSED_BWD=1: launches "
+                  f"{launches}; loss {float(on[0]):.6f} and "
+                  f"{len(tree_leaves(on[1]))} gradient leaves bit-equal to "
+                  f"the knob-off step: {same}")
+            require(launches == {"flash_bwd_fused": TRAIN_MODEL["n_layers"],
+                                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+                    f"the fused route launched {launches}")
+            require(same, f"the fused step differs from the knob-off step "
+                          f"at B={b} T={t}")
+            del params, off, on
+            torch.cuda.empty_cache()
+        factory, init_fn = make_tp_train_step(
+            transformer_config(**TRAIN_MODEL), causal=True,
+            compute_dtype=torch.bfloat16, device=dev)
+        launches, losses = run_steps(fa, fu, factory, init_fn, x, y, gpu)
+        per_step = TRAIN_STEPS * TRAIN_MODEL["n_layers"]
+        require(launches == {"flash_fwd": per_step, "flash_bwd_dq": 0,
+                             "flash_bwd_dkv": 0, "flash_bwd_fused": per_step},
+                f"expected {per_step} launches of K1 and K4 and none of "
+                f"K2/K3, got {launches}")
+        require(losses == want_losses,
+                "the fused route's 10 losses differ from phase 7's")
+        print("  the 10 losses equal phase 7's bit for bit")
+        kinds = [json.loads(line)["kind"] for f in Path(obs).glob("events-*")
+                 for line in f.read_text().splitlines() if line.strip()]
+        print(f"  events under DK_OBS_DIR: {kinds.count('fused_bwd_rejected')} "
+              f"fused_bwd_rejected of {len(kinds)}")
+        require("fused_bwd_rejected" not in kinds,
+                "a fused_bwd_rejected event was written")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        events.reset()
+        obs_dir.cleanup()
+    return launches
+
+
 # -- phase 8: timing at the training shape ----------------------------------
-def time_train_kernels(fa, rng, dev, gpu):
+def time_train_kernels(fa, fu, rng, dev, gpu):
     import torch
     import torch.nn.functional as F
 
@@ -762,6 +932,10 @@ def time_train_kernels(fa, rng, dev, gpu):
     dq = fa.flash_bwd_dq(*args)
     dk, dv = fa.flash_bwd_dkv(*args)
     want = fa.flash_bwd_reference(*args)
+    fused = fu.fused_bwd(*args)
+    fused_want = fu.fused_bwd_reference(*args)
+    require(bit_equal(fused, (dq, dk, dv)),
+            f"flash_bwd_fused is not bit-equal to K2+K3 at {shape}")
     rows = []
     for name, err, rel, run, plain, nbytes, flops, lib in (
             ("flash_fwd_bf16", max_abs_err(out, ref), row_rel_err(out, ref),
@@ -777,7 +951,13 @@ def time_train_kernels(fa, rng, dev, gpu):
              max(rel_err(dk, want[1]), rel_err(dv, want[2])),
              lambda: fa.flash_bwd_dkv(*args),
              lambda: fa.flash_bwd_dkv_reference(*args),
-             6 * n * es + 2 * rows_bh, 8 * d * pairs, sdpa_bwd)):
+             6 * n * es + 2 * rows_bh, 8 * d * pairs, sdpa_bwd),
+            ("flash_bwd_fused",
+             max(max_abs_err(g, w) for g, w in zip(fused, fused_want)),
+             max(rel_err(g, w) for g, w in zip(fused, fused_want)),
+             lambda: fu.fused_bwd(*args),
+             lambda: fu.fused_bwd_reference(*args),
+             7 * n * es + 2 * rows_bh, 10 * d * pairs, sdpa_bwd)):
         measure = ("row-relative" if name == "flash_fwd_bf16"
                    else "relative to the largest entry")
         print(f"  {name} [{shape}]: max_abs_err {err:.3e}, {measure} "
@@ -787,14 +967,15 @@ def time_train_kernels(fa, rng, dev, gpu):
         ms = time_ms(run, reps=10, trials=5)
         plain_ms = time_ms(plain, reps=3, trials=3)
         bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        source, replaces = (
-            ("flash_fwd.cu", "131") if name == "flash_fwd_bf16" else
-            ("flash_bwd.cu", "285" if name == "flash_bwd_dq" else "320"))
+        source, replaces = {
+            "flash_fwd_bf16": ("flash_fwd.cu", "flash_attention.py:131"),
+            "flash_bwd_dq": ("flash_bwd.cu", "flash_attention.py:285"),
+            "flash_bwd_dkv": ("flash_bwd.cu", "flash_attention.py:320"),
+            "flash_bwd_fused": ("fused_bwd.cu",
+                                "fused_bwd_experimental.py:78")}[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"dist_keras_tpu_torch/csrc/{source}",
-                     "replaces":
-                         f"dist_keras_tpu/ops/pallas/flash_attention.py:"
-                         f"{replaces}",
+                     "replaces": f"dist_keras_tpu/ops/pallas/{replaces}",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd, "bound_by": by, "library_ms": lib,
                      "shape": shape})
@@ -806,7 +987,30 @@ def time_train_kernels(fa, rng, dev, gpu):
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
               f"ms ({lib}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"max_abs_err {r['max_abs_err']:.3e}")
+    ms = {r["name"]: r["ms"] for r in rows}
+    fused_vs_two(ms["flash_bwd_fused"], ms["flash_bwd_dq"],
+                 ms["flash_bwd_dkv"], shape, gpu)
+    del q, k, v, do, lse, dl, args, qt, kt, vt, g, sdpa_out, out, ref
+    del dq, dk, dv, want, fused, fused_want
+    torch.cuda.empty_cache()
+    b, t = LONG_BATCH, LONG_SEQ
+    q, k, v, do, lse, dl = bwd_inputs(fa, rng, dev, b, t, t, h, d, True, 0,
+                                      0, dtype, False)
+    args = (q, k, v, do, lse, dl, True, scale, 0, 0)
+    require(bit_equal(fu.fused_bwd(*args), (fa.flash_bwd_dq(*args),
+                                            *fa.flash_bwd_dkv(*args))),
+            f"flash_bwd_fused is not bit-equal to K2+K3 at B={b} T={t}")
+    fused_vs_two(time_ms(lambda: fu.fused_bwd(*args), reps=5, trials=5),
+                 time_ms(lambda: fa.flash_bwd_dq(*args), reps=5, trials=5),
+                 time_ms(lambda: fa.flash_bwd_dkv(*args), reps=5, trials=5),
+                 f"B={b} T={t} H={h} D={d} causal bf16", gpu)
     return rows
+
+
+def fused_vs_two(k4, k2, k3, shape, gpu):
+    print(f"  flash_bwd_fused vs flash_bwd_dq + flash_bwd_dkv [{shape}] on "
+          f"{gpu}: {k4:.4f} ms vs {k2:.4f} + {k3:.4f} = {k2 + k3:.4f} ms "
+          f"({k4 / (k2 + k3):.3f}x)")
 
 
 def main():
@@ -825,6 +1029,7 @@ def main():
     from dist_keras_tpu_torch.ops import _build
     from dist_keras_tpu_torch.ops import decode_attention as da
     from dist_keras_tpu_torch.ops import flash_attention as fa
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
 
     print("phase 1: the card")
     gpu = gpu_line()
@@ -836,9 +1041,13 @@ def main():
     print(f"  allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
+    # phases 1-7 run the knob-off backward (K2 + K3); phase 7b turns it on
+    os.environ.pop("DK_FUSED_BWD", None)
+
     print("phase 2: build the kernels")
     t0 = time.perf_counter()
-    built = _build.build(["flash_fwd", "flash_bwd", "paged_decode"])
+    built = _build.build(["flash_fwd", "flash_bwd", "fused_bwd",
+                          "paged_decode"])
     for name, (secs, log) in built.items():
         print(f"  {name}: {secs:.1f} s")
         for line in log.splitlines():
@@ -854,6 +1063,10 @@ def main():
           "version, and autograd through them")
     check_flash_bwd(fa, rng, dev)
     check_flash_grad(fa, rng, dev)
+    torch.cuda.empty_cache()
+    print("phase 3c: fused_bwd against its plain version and bit for bit "
+          "against flash_bwd_dq + flash_bwd_dkv")
+    check_fused_bwd(fa, fu, rng, dev)
     torch.cuda.empty_cache()
     print("phase 4: paged_decode against its plain version")
     check_paged(da, rng, dev)
@@ -871,12 +1084,17 @@ def main():
         r["launches"] = launches[r["name"]]
     print("phase 7: train the full-width model (bench_transformer_tp, "
           "one card)")
-    train_launches = train(fa, rng, dev, gpu)
+    train_launches, losses, x, y = train(fa, fu, rng, dev, gpu)
     torch.cuda.empty_cache()
     check_remat(rng, dev)
     torch.cuda.empty_cache()
+    print("phase 7b: train through the DK_FUSED_BWD route (K4)")
+    fused_launches = train_fused(fa, fu, rng, dev, gpu, x, y, losses)
+    train_launches["flash_bwd_fused"] = fused_launches["flash_bwd_fused"]
+    del x, y
+    torch.cuda.empty_cache()
     print("phase 8: kernel timing at the training shape")
-    train_rows = time_train_kernels(fa, rng, dev, gpu)
+    train_rows = time_train_kernels(fa, fu, rng, dev, gpu)
     for r in train_rows:
         r["launches"] = train_launches[r["name"].replace("_bf16", "")]
     rows += train_rows

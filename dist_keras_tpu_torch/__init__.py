@@ -16,7 +16,9 @@ transformer, the paged KV allocator, the continuous-batching
 ``DecodeEngine``, the HTTP ``ServingServer``, and the flash-forward and
 paged-decode kernels; and single-card transformer training
 (``parallel.make_tp_train_step``) — the flash backward kernels behind
-a ``torch.autograd.Function``, adam and sgd with optax's rules.
+a ``torch.autograd.Function``, adam and sgd with optax's rules; and the
+``DK_FUSED_BWD`` one-pass backward with its graduation route, the knob
+registry and the event log.
 """
 
 __version__ = "0.1.0"

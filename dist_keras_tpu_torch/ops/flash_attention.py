@@ -3,7 +3,9 @@ differentiable core.
 
 Counterpart of ``ops/pallas/flash_attention.py``.  The kernels are
 ``csrc/flash_fwd.cu`` (K1, the forward) and ``csrc/flash_bwd.cu`` (K2,
-dQ; K3, dK/dV); see their headers for the designs and bounds.
+dQ; K3, dK/dV); see their headers for the designs and bounds.  The
+one-pass backward K4 and its ``DK_FUSED_BWD`` graduation live in
+``ops/fused_bwd_experimental.py``.
 
 - :func:`flash_attention_reference` — the forward's plain version, with
   the kernel's arithmetic: f32 logits and softmax state, probabilities
@@ -44,6 +46,7 @@ from dist_keras_tpu_torch.ops.attention import (
     attention,
     attention_with_lse,
 )
+from dist_keras_tpu_torch.utils import knobs
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -202,8 +205,7 @@ def _bwd_inputs(what, q, k, v, do, lse, dl):
             raise ValueError(
                 f"{what}: {name} must be float32 (B,H,Tq)={(b, h, tq)} on "
                 f"{q.device}; got {x.dtype} {tuple(x.shape)} on {x.device}")
-    return (*_aligned(q, k, v, do, lse, dl),
-            _build.load("flash_bwd", _BWD_SIGNATURES))
+    return _aligned(q, k, v, do, lse, dl)
 
 
 def _bwd_scalars(q, k, scale, causal, q_offset, kv_offset):
@@ -215,8 +217,8 @@ def _bwd_scalars(q, k, scale, causal, q_offset, kv_offset):
 def flash_bwd_dq(q, k, v, do, lse, dl, causal, scale, q_offset, kv_offset):
     """Launch K2 on CUDA tensors (runs or raises) -> dq (B,Tq,H,D) in
     q's dtype.  lse and dl (= g_lse - rowsum(dO*O)) are (B,H,Tq) f32."""
-    q, k, v, do, lse, dl, lib = _bwd_inputs("flash_bwd_dq", q, k, v, do,
-                                            lse, dl)
+    q, k, v, do, lse, dl = _bwd_inputs("flash_bwd_dq", q, k, v, do, lse, dl)
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
@@ -233,8 +235,9 @@ def flash_bwd_dq(q, k, v, do, lse, dl, causal, scale, q_offset, kv_offset):
 def flash_bwd_dkv(q, k, v, do, lse, dl, causal, scale, q_offset, kv_offset):
     """Launch K3 on CUDA tensors (runs or raises) -> (dk, dv)
     (B,Tk,H,D) in k's dtype."""
-    q, k, v, do, lse, dl, lib = _bwd_inputs("flash_bwd_dkv", q, k, v, do,
-                                            lse, dl)
+    q, k, v, do, lse, dl = _bwd_inputs("flash_bwd_dkv", q, k, v, do, lse,
+                                       dl)
+    lib = _build.load("flash_bwd", _BWD_SIGNATURES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
@@ -256,7 +259,31 @@ def _forward(q, k, v, causal, scale, q_offset, kv_offset):
     return flash_fwd(q, k, v, causal, scale, q_offset, kv_offset)
 
 
+def _fused_bwd_graduated(q, k, causal, q_offset, kv_offset):
+    """``DK_FUSED_BWD`` routing predicate (the counterpart of the JAX
+    ``_fused_bwd_graduated``): True only when the knob is on AND the
+    cached parity run of ``fused_bwd_experimental.graduate`` came back
+    exact for this configuration.  A mismatch (or no card to run it on)
+    caches a rejection and one ``fused_bwd_rejected`` event, and K2 + K3
+    keep serving."""
+    if not knobs.get("DK_FUSED_BWD"):
+        return False
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fused
+
+    b, tq, h, d = q.shape
+    verdict = fused.graduate(b * h, tq, k.shape[1], d, q.dtype, causal,
+                             q_offset=q_offset, kv_offset=kv_offset,
+                             device=q.device.type)
+    return verdict.status == "exact"
+
+
 def _backward(q, k, v, do, lse, dl, causal, scale, q_offset, kv_offset):
+    if _fused_bwd_graduated(q, k, causal, q_offset, kv_offset):
+        from dist_keras_tpu_torch.ops import fused_bwd_experimental as fused
+
+        fn = (fused.fused_bwd_reference if q.device.type == "cpu"
+              else fused.fused_bwd)
+        return fn(q, k, v, do, lse, dl, causal, scale, q_offset, kv_offset)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, do, lse, dl, causal=causal,
                                    scale=scale, q_offset=q_offset,
@@ -275,9 +302,10 @@ class FlashAttentionCore(torch.autograd.Function):
     q, k, v, the output in the input dtype and lse.  The backward follows
     ``_flash_core_bwd``: delta = rowsum(f32(dO) * f32(out)), dl = g_lse -
     delta (g_lse is zeros when the lse got no gradient), then K2 and K3
-    (CPU: :func:`flash_bwd_reference`).  The ``DK_FUSED_BWD`` route of the
-    JAX package (its one-pass K4 backward) is not ported yet: every
-    backward here runs K2 + K3."""
+    (CPU: :func:`flash_bwd_reference`) — or, with ``DK_FUSED_BWD`` on and
+    the configuration graduated (:func:`_fused_bwd_graduated`), the
+    one-pass K4 (CPU: ``fused_bwd_experimental.fused_bwd_reference``),
+    whose results are K2 + K3's bit for bit."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_offset, kv_offset):

@@ -8,7 +8,8 @@ the suite's conftest::
 
 Tolerances: f32 max-abs 1e-4, bf16 2e-2 (kernel and plain version sum
 in different orders; bf16 rounds p before P.V in both).  The backward
-kernels are held relative to the largest entry of the plain result.
+kernels are held relative to the largest entry of the plain result; the
+one-pass backward (K4) also bit for bit against K2 + K3 and itself.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 
 from dist_keras_tpu_torch.ops import decode_attention as da
 from dist_keras_tpu_torch.ops import flash_attention as fa
+from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +87,44 @@ def test_flash_bwd_matches_plain(dev, b, tq, tk, h, d, causal, qo, ko,
         assert g.dtype == dtype and _rel(g, w) <= tol
     if ko > qo:
         assert float(got[0][:, :ko - qo].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,qo,ko,dtype,tol", [
+    (2, 512, 512, 6, 128, True, 0, 0, torch.float32, 1e-4),
+    (2, 77, 130, 4, 64, False, 0, 0, torch.float32, 1e-4),
+    (1, 128, 128, 2, 32, True, 0, 64, torch.float32, 1e-4),
+    (1, 256, 256, 6, 128, True, 0, 0, torch.bfloat16, 2e-2),
+])
+def test_fused_bwd_matches_plain_and_equals_two_kernels(
+        dev, b, tq, tk, h, d, causal, qo, ko, dtype, tol):
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (b, tq, h, d), dev, dtype)
+    k = _randn(rng, (b, tk, h, d), dev, dtype)
+    v = _randn(rng, (b, tk, h, d), dev, dtype)
+    do = _randn(rng, (b, tq, h, d), dev, dtype)
+    _, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5, qo, ko)
+    dl = _randn(rng, (b, h, tq), dev)
+    args = (q, k, v, do, lse, dl, causal, d ** -0.5, qo, ko)
+    before = fu.fused_bwd_launches
+    got = fu.fused_bwd(*args)
+    again = fu.fused_bwd(*args)
+    assert fu.fused_bwd_launches == before + 2
+    for g, w in zip(got, fu.fused_bwd_reference(*args)):
+        assert g.dtype == dtype and _rel(g, w) <= tol
+    two = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    for g, a, w in zip(got, again, two):
+        assert torch.equal(g, w) and torch.equal(g, a)
+    if ko > qo:
+        assert float(got[0][:, :ko - qo].abs().max()) == 0.0
+
+
+def test_fused_bwd_graduates_on_the_card(dev):
+    fu.clear_verdicts()
+    try:
+        v = fu.selfcheck(bh=4, t=512, d=128)
+        assert v.status == "exact" and v.err == 0.0
+    finally:
+        fu.clear_verdicts()
 
 
 def test_flash_core_grads_match_plain_autograd(dev):

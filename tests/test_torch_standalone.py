@@ -62,6 +62,35 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert out.stdout.startswith("ok")
 
 
+def test_copied_modules_work_with_jax_blocked(tmp_path):
+    """The knob registry, the event log and the fused backward import and
+    run in an interpreter where importing jax or the JAX package fails,
+    and an enabled event log reaches for no flight recorder."""
+    code = (
+        "import importlib.abc, os, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'dist_keras_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"os.environ['DK_OBS_DIR'] = {str(tmp_path)!r}\n"
+        "os.environ['DK_FUSED_BWD'] = '1'\n"
+        "from dist_keras_tpu_torch.utils import knobs\n"
+        "from dist_keras_tpu_torch.observability import events\n"
+        "from dist_keras_tpu_torch.ops import fused_bwd_experimental as f\n"
+        "assert knobs.get('DK_FUSED_BWD') is True\n"
+        "v = f.graduate(1, 8, 8, 8, 'float32', True, q_offset=8,\n"
+        "               device='cpu')\n"
+        "assert v.status == 'unverifiable' and events.enabled()\n"
+        "assert not [m for m in sys.modules if 'flight' in m]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    [line] = (tmp_path / "events-rank_0.jsonl").read_text().splitlines()
+    assert '"kind": "fused_bwd_rejected"' in line
+
+
 def test_import_builds_nothing_and_touches_no_card():
     code = ("import torch\n"
             "import dist_keras_tpu_torch.serving\n"
