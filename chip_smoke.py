@@ -9,11 +9,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. the card (``nvidia-smi`` name and power limit), CUDA version, and
    TF32 switched off for matmuls and cuDNN so f32 means f32;
-2. build every kernel of the serving and training paths from ``csrc/``;
+2. build every kernel of the serving and training paths from ``csrc/``,
+   and count the tensor-core instructions (``HMMA``/``HGMMA`` in
+   ``cuobjdump -sass``) of the bf16 flash-forward kernel: none fails;
 3. the flash-forward kernel against ``flash_attention_reference`` (out
-   and lse) at the prefill shapes, non-causal, offsets, ragged T, bf16,
-   and the training shape in bf16; out is held both in absolute terms
-   and row by row, relative to each row's largest entry;
+   and lse) at the prefill shapes, non-causal, offsets, dead rows,
+   ragged T and D=32/64, each in f32 and in bf16, and the training
+   shape in bf16; out is held both in absolute terms and row by row,
+   relative to each row's largest entry, lse to 1e-4 in both dtypes;
+   then a uniform-score probe (K = 0, causal, offsets, ragged T) whose
+   lse must be log(#visible keys) to 1e-5 (-1e30 on dead rows);
 3b. the flash-backward kernels (dq; dk/dv) against
    ``flash_bwd_reference`` at the training shape in bf16 and f32,
    non-causal, offsets with dead rows, ragged T, D=32/64, a nonzero lse
@@ -51,7 +56,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    also bit for bit against K2 + K3), their plain versions' times, and
    scaled_dot_product_attention's forward and backward as the library
    yardsticks; then K4 against K2 + K3's summed time at this shape and
-   at B=2, T=8192.
+   at B=2, T=8192, and K1 against SDPA's forward at B=2, T=8192.
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -81,6 +86,8 @@ PROMPT_LENS = (5, 40, 64, 100, 200, 256, 700, 1000)
 STREAMED = 3          # index of the request sent with "stream": true
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
+LSE_TOL = 1e-4        # lse is f32 arithmetic on exact products in both dtypes
+PROBE_TOL = 1e-5      # the uniform-score probe's lse against log(#visible)
 TRAIN_MODEL = dict(input_dim=32, seq_len=2048, d_model=768, n_heads=6,
                    n_layers=4, d_ff=3072, n_classes=2)   # bench_transformer_tp
 TRAIN_BATCH = 16
@@ -146,22 +153,47 @@ def bound_ms(nbytes, flops, dtype="float32"):
                                  else "operations")
 
 
+def tensor_core_counts(build, lib, kernel):
+    """HMMA/HGMMA instructions in each SASS function of ``lib`` whose
+    name contains ``kernel`` -> {function: count}."""
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            fn = name if kernel in name else None
+            if fn:
+                counts[fn] = 0
+        elif fn and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
+
+
 # -- phase 3: flash forward ------------------------------------------------
 def check_flash(fa, rng, dev):
     import torch
 
+    edges = [
+        # (B, Tq, Tk, H, D, causal, q_offset, kv_offset)
+        (2, 256, 256, 6, 128, False, 0, 0),
+        (1, 128, 256, 6, 128, True, 192, 0),
+        (1, 128, 128, 6, 128, True, 0, 64),      # dead rows
+        (1, 1000, 1000, 6, 128, True, 0, 0),     # ragged
+        (2, 77, 130, 4, 64, False, 0, 0),        # ragged
+        (1, 93, 93, 8, 32, True, 0, 0),
+    ]
     cases = [
         # (B, Tq, Tk, H, D, causal, q_offset, kv_offset, dtype)
         (1, 64, 64, 6, 128, True, 0, 0, torch.float32),
         (1, 256, 256, 6, 128, True, 0, 0, torch.float32),
         (1, 1024, 1024, 6, 128, True, 0, 0, torch.float32),
-        (2, 256, 256, 6, 128, False, 0, 0, torch.float32),
-        (1, 128, 256, 6, 128, True, 192, 0, torch.float32),
-        (1, 128, 128, 6, 128, True, 0, 64, torch.float32),   # dead rows
-        (1, 1000, 1000, 6, 128, True, 0, 0, torch.float32),  # ragged
-        (2, 77, 130, 4, 64, False, 0, 0, torch.float32),     # ragged
-        (1, 93, 93, 8, 32, True, 0, 0, torch.float32),
+        *[(*e, torch.float32) for e in edges],
         (1, 1024, 1024, 6, 128, True, 0, 0, torch.bfloat16),
+        *[(*e, torch.bfloat16) for e in edges],
         (TRAIN_BATCH, TRAIN_MODEL["seq_len"], TRAIN_MODEL["seq_len"],
          TRAIN_MODEL["n_heads"], TRAIN_MODEL["d_model"]
          // TRAIN_MODEL["n_heads"], True, 0, 0, torch.bfloat16),  # training
@@ -184,15 +216,61 @@ def check_flash(fa, rng, dev):
         name = (f"B={b} Tq={tq} Tk={tk} H={h} D={d} causal={causal} "
                 f"q_off={qo} kv_off={ko} {str(dtype)[6:]}")
         print(f"  flash_fwd {name}: out max_abs_err={err:.3e} "
-              f"row-relative={rerr:.3e} lse max_abs_err={lerr:.3e} "
-              f"(tol {tol:g})")
-        require(err <= tol and rerr <= tol and lerr <= tol,
+              f"row-relative={rerr:.3e} (tol {tol:g}) lse max_abs_err="
+              f"{lerr:.3e} (tol {LSE_TOL:g})")
+        require(err <= tol and rerr <= tol and lerr <= LSE_TOL,
                 f"flash_fwd disagrees with its plain version at {name}")
         if ko > qo:
             dead = ko - qo
             require(float(out[:, :dead].abs().max()) == 0.0,
                     "flash_fwd: dead rows are not exact zeros")
         del out, ref, lse, ref_lse
+    check_uniform_probe(fa, rng, dev)
+
+
+def check_uniform_probe(fa, rng, dev):
+    """K = 0 makes every score 0, so each row's lse is exactly
+    log(#visible keys) (-1e30 where none is visible) and its output the
+    mean of the visible V rows: a mask that is off by one key moves the
+    lse by at least 1/Tk."""
+    import torch
+
+    cases = [
+        # (B, Tq, Tk, H, D, q_offset, kv_offset), all causal
+        (1, 1000, 1000, 6, 128, 0, 0),
+        (1, 300, 300, 6, 128, 0, 64),    # dead rows, then partial tiles
+        (2, 77, 130, 4, 64, 100, 0),
+        (1, 93, 93, 8, 32, 5, 0),
+        (1, 200, 150, 2, 128, 37, 90),
+    ]
+    for b, tq, tk, h, d, qo, ko in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.from_numpy(rng.standard_normal((b, tq, h, d),
+                                                     np.float32)).to(dev, dtype)
+            k = torch.zeros((b, tk, h, d), dtype=dtype, device=dev)
+            v = torch.from_numpy(rng.standard_normal((b, tk, h, d),
+                                                     np.float32)).to(dev, dtype)
+            out, lse = fa.flash_fwd(q, k, v, True, d ** -0.5, qo, ko)
+            ref, _ = fa.flash_attention_reference(q, k, v, causal=True,
+                                                  q_offset=qo, kv_offset=ko)
+            n = (qo + torch.arange(tq, device=dev) - ko + 1).clamp(0, tk)
+            want = torch.where(n > 0, torch.log(n.clamp_min(1).double()),
+                               -1e30).float()
+            torch.cuda.synchronize()
+            perr = float((lse - want).abs().max())
+            rerr = row_rel_err(out, ref)
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            name = (f"B={b} Tq={tq} Tk={tk} H={h} D={d} q_off={qo} "
+                    f"kv_off={ko} {str(dtype)[6:]}")
+            print(f"  flash_fwd K=0 probe {name}: lse vs log(#visible) "
+                  f"max_abs_err={perr:.3e} (tol {PROBE_TOL:g}), out "
+                  f"row-relative={rerr:.3e} (tol {tol:g})")
+            require(perr <= PROBE_TOL and rerr <= tol,
+                    f"flash_fwd fails the uniform-score probe at {name}")
+            dead = int((n == 0).sum())
+            if dead:
+                require(float(out[:, :dead].abs().max()) == 0.0,
+                        "flash_fwd: dead rows are not exact zeros")
 
 
 def max_abs_err(got, want):
@@ -767,13 +845,16 @@ def profile_step(one_step, gpu):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         one_step()
         torch.cuda.synchronize()
-    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+    kernels = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_bf16_kernel"),
+               "flash_bwd_dq": ("flash_bwd_dq_kernel",),
+               "flash_bwd_dkv": ("flash_bwd_dkv_kernel",),
+               "flash_bwd_fused": ("flash_bwd_fused_kernel",)}
     groups = dict.fromkeys(kernels, 0.0)
     groups.update({"cuBLAS products": 0.0, "other kernels": 0.0})
     for ev in prof.key_averages():
         name, us = ev.key, ev.self_device_time_total
-        for kernel in kernels:
-            if f"{kernel}_kernel" in name:
+        for kernel, fns in kernels.items():
+            if any(fn in name for fn in fns):
                 groups[kernel] += us
                 break
         else:
@@ -968,7 +1049,8 @@ def time_train_kernels(fa, fu, rng, dev, gpu):
         plain_ms = time_ms(plain, reps=3, trials=3)
         bnd, by = bound_ms(nbytes, flops, "bfloat16")
         source, replaces = {
-            "flash_fwd_bf16": ("flash_fwd.cu", "flash_attention.py:131"),
+            "flash_fwd_bf16": ("flash_fwd_bf16.cuh",
+                               "flash_attention.py:131"),
             "flash_bwd_dq": ("flash_bwd.cu", "flash_attention.py:285"),
             "flash_bwd_dkv": ("flash_bwd.cu", "flash_attention.py:320"),
             "flash_bwd_fused": ("fused_bwd.cu",
@@ -1004,6 +1086,22 @@ def time_train_kernels(fa, fu, rng, dev, gpu):
                  time_ms(lambda: fa.flash_bwd_dq(*args), reps=5, trials=5),
                  time_ms(lambda: fa.flash_bwd_dkv(*args), reps=5, trials=5),
                  f"B={b} T={t} H={h} D={d} causal bf16", gpu)
+    out, _ = fa.flash_fwd(q, k, v, True, scale, 0, 0)
+    ref, _ = fa.flash_attention_reference(q, k, v, causal=True)
+    rel = row_rel_err(out, ref)
+    require(rel <= BF16_TOL, f"flash_fwd disagrees with its plain version "
+                             f"at B={b} T={t}")
+    del out, ref
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    k1 = time_ms(lambda: fa.flash_fwd(q, k, v, True, scale, 0, 0), reps=10,
+                 trials=5)
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=10, trials=5)
+    bnd, _ = bound_ms(4 * b * t * h * d * 2 + b * h * t * 4,
+                      4 * d * b * h * t * (t + 1) // 2, "bfloat16")
+    print(f"  flash_fwd_bf16 vs scaled_dot_product_attention [B={b} T={t} "
+          f"H={h} D={d} causal bf16] on {gpu}: {k1:.4f} ms vs {sdpa:.4f} ms "
+          f"({k1 / sdpa:.3f}x), bound {bnd:.4f} ms, row-relative {rel:.3e}")
     return rows
 
 
@@ -1054,6 +1152,11 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
     print(f"  build wall {time.perf_counter() - t0:.1f} s")
+    counts = tensor_core_counts(_build, "flash_fwd", "flash_fwd_bf16_kernel")
+    print(f"  flash_fwd bf16 kernel, tensor-core instructions (HMMA/HGMMA "
+          f"in cuobjdump -sass) per instantiation: {counts}")
+    require(counts and all(n > 0 for n in counts.values()),
+            "the bf16 flash_fwd kernel issues no tensor-core instruction")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), f32 and bf16 inputs.
+// Flash-attention forward for Hopper (sm_90a): the f32 kernel here, the
+// bf16 kernel in flash_fwd_bf16.cuh, one C entry point for both.
 //
 // Replaces the TPU kernel `_fwd_kernel` / `_fwd_call` in
 // dist_keras_tpu/ops/pallas/flash_attention.py: blockwise attention with
@@ -24,9 +25,11 @@
 // 4*D FLOPs per visible (q, k) pair against (3+1)*T*D*4 bytes, so it is
 // bound by operations: f32 runs outside the tensor cores (67 TFLOP/s),
 // and the kernel issues plain FMAs, register-tiled so that shared-memory
-// loads do not limit them.  A bf16 path through wgmma, with TMA-fed
-// tiles, is the later step toward the tensor-core rate.
+// loads do not limit them.  The tensor cores would take f32 only as TF32,
+// which the f32 tolerance rules out; bf16 inputs go to the tensor-core
+// kernel (flash_fwd_bf16.cuh).
 #include "common.cuh"
+#include "flash_fwd_bf16.cuh"
 
 namespace {
 
@@ -260,7 +263,7 @@ extern "C" int dk_flash_fwd(int dtype, int D, const void* q, const void* k,
     return dispatch_d<float>(D, q, k, v, o, lse, B, H, Tq, Tk, scale, causal,
                              q_offset, kv_offset, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, Tq, Tk, scale,
-                                     causal, q_offset, kv_offset, st);
+    return dk_fwd_bf16::dispatch(D, q, k, v, o, lse, B, H, Tq, Tk, scale, causal,
+                                 q_offset, kv_offset, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

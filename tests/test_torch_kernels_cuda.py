@@ -7,7 +7,9 @@ the suite's conftest::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 Tolerances: f32 max-abs 1e-4, bf16 2e-2 (kernel and plain version sum
-in different orders; bf16 rounds p before P.V in both).  The backward
+in different orders; bf16 rounds p before P.V in both); the forward's
+lse 1e-4 in both dtypes, and 1e-5 against log(#visible) when every
+score is 0.  The backward
 kernels are held relative to the largest entry of the plain result; the
 one-pass backward (K4) also bit for bit against K2 + K3 and itself.
 """
@@ -41,6 +43,12 @@ def _randn(rng, shape, dev, dtype=torch.float32):
     (2, 77, 130, 4, 64, False, 0, 0, torch.float32, 1e-4),
     (1, 128, 128, 2, 32, True, 0, 64, torch.float32, 1e-4),
     (1, 256, 256, 6, 128, True, 0, 0, torch.bfloat16, 2e-2),
+    (2, 256, 256, 6, 128, False, 0, 0, torch.bfloat16, 2e-2),
+    (1, 128, 256, 6, 128, True, 192, 0, torch.bfloat16, 2e-2),
+    (1, 128, 128, 6, 128, True, 0, 64, torch.bfloat16, 2e-2),
+    (1, 1000, 1000, 6, 128, True, 0, 0, torch.bfloat16, 2e-2),
+    (2, 77, 130, 4, 64, False, 0, 0, torch.bfloat16, 2e-2),
+    (1, 93, 93, 8, 32, True, 0, 0, torch.bfloat16, 2e-2),
 ])
 def test_flash_fwd_matches_plain(dev, b, tq, tk, h, d, causal, qo, ko,
                                  dtype, tol):
@@ -54,8 +62,41 @@ def test_flash_fwd_matches_plain(dev, b, tq, tk, h, d, causal, qo, ko,
     assert fa.flash_fwd_launches == before + 1
     ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal,
                                                 q_offset=qo, kv_offset=ko)
+    assert out.dtype == dtype
     assert float((out.float() - ref.float()).abs().max()) <= tol
-    assert float((lse - ref_lse).abs().max()) <= tol
+    # lse is f32 arithmetic on exact products in both dtypes: a key
+    # missing from a row of T moves it by about 1/T, far above 1e-4
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    if ko > qo:
+        assert float(out[:, :ko - qo].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tk,h,d,qo,ko", [
+    (1, 1000, 1000, 6, 128, 0, 0),
+    (1, 300, 300, 6, 128, 0, 64),
+    (2, 77, 130, 4, 64, 100, 0),
+    (1, 93, 93, 8, 32, 5, 0),
+])
+def test_flash_fwd_uniform_scores_probe(dev, b, tq, tk, h, d, qo, ko, dtype):
+    """K = 0 makes every causal score 0: each row's lse is exactly
+    log(#visible keys) (-1e30 where none is), so a mask that is off by
+    one key moves it by at least 1/Tk."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (b, tq, h, d), dev, dtype)
+    k = torch.zeros((b, tk, h, d), dtype=dtype, device=dev)
+    v = _randn(rng, (b, tk, h, d), dev, dtype)
+    out, lse = fa.flash_fwd(q, k, v, True, d ** -0.5, qo, ko)
+    n = (qo + torch.arange(tq, device=dev) - ko + 1).clamp(0, tk)
+    want = torch.where(n > 0, torch.log(n.clamp_min(1).double()), -1e30)
+    assert float((lse - want.float()).abs().max()) <= 1e-5
+    ref, _ = fa.flash_attention_reference(q, k, v, causal=True, q_offset=qo,
+                                          kv_offset=ko)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    dead = int((n == 0).sum())
+    if dead:
+        assert float(out[:, :dead].float().abs().max()) == 0.0
 
 
 def _rel(got, want):
