@@ -1,5 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dQ (K2) and dK/dV (K3),
-// f32 and bf16 inputs.
+// the f32 kernels here, the bf16 kernels in flash_bwd_bf16.cuh, one C
+// entry point each for both dtypes.
 //
 // Replaces the TPU kernels `_dq_kernel` and `_dkv_kernel` (with their
 // shared `_p_tile` / `_ds_tile`), called from `_bwd_call` in
@@ -19,7 +20,7 @@
 // share with each other and with K4 (fused_bwd.cu) is in
 // flash_bwd_tiles.cuh.
 //
-// Design.  Neither kernel needs atomics, so both are deterministic.
+// Design (f32).  Neither kernel needs atomics, so both are deterministic.
 // K2: one block of 128 threads per (batch*head, 64-row q tile); the TPU's
 // sequential kv grid axis becomes a loop over 32-row K/V tiles that stops
 // at the last tile the block's last row can see under `causal`.  Each
@@ -38,9 +39,11 @@
 //
 // Bound on this card.  Per visible (q, k) pair K2 does 6*D FLOPs and K3
 // 8*D against a few bytes per row, so both are bound by operations.  The
-// kernels issue f32 FMAs outside the tensor cores (67 TFLOP/s), while a
-// bf16 input's bound is the tensor-core rate (989 TFLOP/s): bf16
-// `mma`/`wgmma` tiles fed by TMA are the step toward it.
+// kernels here issue f32 FMAs outside the tensor cores (67 TFLOP/s): the
+// tensor cores would take f32 only as TF32, which the f32 tolerance rules
+// out.  bf16 inputs go to the tensor-core kernels in flash_bwd_bf16.cuh
+// (989 TFLOP/s dense bf16), through the same two entry points.
+#include "flash_bwd_bf16.cuh"
 #include "flash_bwd_tiles.cuh"
 
 namespace {
@@ -240,13 +243,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_dkv<T, D>(dk, dv, b, h, k0, H, Tk, scale, acc_k, acc_v);
 }
 
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *dl;
-  int B, H, Tq, Tk;
-  float scale;
-  int causal, q_offset, kv_offset;
-};
+using dk_bwd_bf16::Args;
 
 template <typename T, int D>
 void launch_dq(const Args& a, void* dq, cudaStream_t stream) {
@@ -288,7 +285,12 @@ extern "C" int dk_flash_bwd_dq(int dtype, int D, const void* q, const void* k,
                                void* stream) {
   const Args a{q, k, v, dout, lse, dl, B, H, Tq, Tk, scale, causal, q_offset, kv_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, [&](auto t, auto dim) {
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16>(D, [&](auto, auto dim) {
+      dk_bwd_bf16::launch_dq<decltype(dim)::value>(a, dq, st);
+    });
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_d<float>(D, [&](auto t, auto dim) {
     launch_dq<decltype(t), decltype(dim)::value>(a, dq, st);
   });
 }
@@ -302,7 +304,12 @@ extern "C" int dk_flash_bwd_dkv(int dtype, int D, const void* q, const void* k,
                                 int kv_offset, void* stream) {
   const Args a{q, k, v, dout, lse, dl, B, H, Tq, Tk, scale, causal, q_offset, kv_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, [&](auto t, auto dim) {
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16>(D, [&](auto, auto dim) {
+      dk_bwd_bf16::launch_dkv<decltype(dim)::value>(a, dk, dv, st);
+    });
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_d<float>(D, [&](auto t, auto dim) {
     launch_dkv<decltype(t), decltype(dim)::value>(a, dk, dv, st);
   });
 }

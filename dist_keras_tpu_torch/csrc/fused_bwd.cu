@@ -1,6 +1,8 @@
 // One-pass flash-attention backward (K4) for Hopper (sm_90a): dQ, dK and
-// dV in one kernel, f32 and bf16 inputs, bit-equal to K2 (dQ) and K3
-// (dK, dV) of flash_bwd.cu.
+// dV in one kernel, f32 and bf16 inputs, on f32 FMAs, bit-equal to the FMA
+// kernels K2 (dQ) and K3 (dK, dV) of flash_bwd.cu.  Those serve f32 only:
+// bf16 K2 and K3 run on the tensor cores (flash_bwd_bf16.cuh), whose
+// results K4's differ from in rounding.
 //
 // Replaces the TPU kernel `_fused_bwd_kernel` (called from
 // `fused_bwd_call`) in dist_keras_tpu/ops/pallas/fused_bwd_experimental.py.

@@ -1,7 +1,8 @@
 // PTX wrappers for Hopper's asynchronous pipeline (sm_90a): mbarriers,
 // TMA tile loads, warpgroup matrix multiply (wgmma) and its shared-memory
 // descriptors, register reallocation between warpgroups, and the
-// register-level helpers around them.
+// register-level helpers around them; and for the warp-level tensor-core
+// path: cp.async, ldmatrix and mma.sync.
 //
 // wgmma accumulator layout (m64nN, f32): warp w of the warpgroup holds
 // rows 16w..16w+15; with g = lane / 4 and t = lane % 4, register 4j + e
@@ -134,6 +135,56 @@ __device__ __forceinline__ void dk_fence_regs(uint32_t (&r)[M][N]) {
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// -- warp-level tensor cores: cp.async, ldmatrix, mma.sync ----------------
+// Copy 16 bytes from global to shared memory asynchronously; with
+// `valid` false the 16 bytes are filled with zeros and nothing is read.
+__device__ __forceinline__ void dk_cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+// ... 4 bytes (zeros when not `valid`).
+__device__ __forceinline__ void dk_cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void dk_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void dk_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i; register i of lane l holds row l / 4, columns
+// 2 (l % 4) and 2 (l % 4) + 1 of matrix i (of its transpose with .trans).
+__device__ __forceinline__ void dk_ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void dk_ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a * b, m16n8k16, bf16 operands, f32 accumulator.  With g = lane / 4
+// and t = lane % 4: a[0] holds A (g, 2t..2t+1), a[1] (g + 8, 2t..), a[2]
+// (g, 2t + 8..), a[3] (g + 8, 2t + 8..); b0 holds B (2t..2t+1, g), b1
+// (2t + 8.., g); d[e] holds D (g + 8 (e / 2), 2t + e % 2).
+__device__ __forceinline__ void dk_mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x on the special-function unit (results below 2^-126 flush to 0).

@@ -2,8 +2,10 @@
 differentiable core.
 
 Counterpart of ``ops/pallas/flash_attention.py``.  The kernels are
-``csrc/flash_fwd.cu`` (K1, the forward) and ``csrc/flash_bwd.cu`` (K2,
-dQ; K3, dK/dV); see their headers for the designs and bounds.  The
+``csrc/flash_fwd.cu`` (K1, the forward; bf16 in ``flash_fwd_bf16.cuh``)
+and ``csrc/flash_bwd.cu`` (K2, dQ; K3, dK/dV; bf16 on the tensor cores
+in ``flash_bwd_bf16.cuh``); see their headers for the designs and
+bounds.  The
 one-pass backward K4 and its ``DK_FUSED_BWD`` graduation live in
 ``ops/fused_bwd_experimental.py``.
 
@@ -305,7 +307,8 @@ class FlashAttentionCore(torch.autograd.Function):
     (CPU: :func:`flash_bwd_reference`) — or, with ``DK_FUSED_BWD`` on and
     the configuration graduated (:func:`_fused_bwd_graduated`), the
     one-pass K4 (CPU: ``fused_bwd_experimental.fused_bwd_reference``),
-    whose results are K2 + K3's bit for bit."""
+    whose results are K2 + K3's bit for bit (graduation serves it only
+    where they are)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_offset, kv_offset):

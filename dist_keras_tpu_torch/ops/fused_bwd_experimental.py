@@ -7,9 +7,12 @@ revisits Mosaic does not define, so the JAX package serves it only for
 a configuration whose cached parity run against the two-kernel
 backward came back exact.  The port's kernel, ``csrc/fused_bwd.cu``,
 hands each q tile's f32 dQ partial from one kv tile to the next in a
-fixed order instead, so its dq is K2's and its dk/dv K3's bit for bit
-(see the source header).  The JAX contract is kept all the same, and
-holds by construction: exact (tol 1e-6) or reject.
+fixed order instead, so in f32 its dq is K2's and its dk/dv K3's bit for
+bit (see the source header).  The JAX contract is kept all the same:
+exact (tol 1e-6) or reject.  In f32 it holds by construction; in bf16,
+K2 and K3 run on the tensor cores while K4 still runs f32 FMAs, so the
+parity run comes back ``"mismatch"`` (within bf16's rounding) and K2 +
+K3 serve, until K4 is rebuilt on the same tensor-core tiles.
 
 - :func:`fused_bwd` — launches K4 on CUDA tensors (runs or raises);
   counts ``fused_bwd_launches``.

@@ -90,12 +90,33 @@ def test_plain_bwd_dead_rows_are_exact_zeros():
     assert np.abs(want[0][:, :4]).max() == 0.0
 
 
-def test_plain_bwd_bf16_matches_pallas_kernels():
-    q, k, v, do, g = _arrays(1, 16, 16, 2, 8, seed=3)
-    got, want = _both_bwd(q, k, v, do, g, True, dtype=torch.bfloat16,
+BF16_CASES = {
+    # name: (tq, tk, d, causal, q_offset, kv_offset, g_lse scale)
+    "causal": (16, 16, 8, True, 0, 0, 0.0),
+    "non_causal_tq_ne_tk": (16, 24, 8, False, 0, 0, 0.0),
+    "causal_q_offset": (16, 32, 8, True, 16, 0, 0.0),
+    "dead_rows": (8, 8, 8, True, 0, 4, 0.0),
+    "several_tiles": (32, 32, 8, True, 0, 0, 0.0),
+    "head_dim_32": (16, 16, 32, True, 0, 0, 0.0),
+    "random_g_lse": (16, 16, 8, True, 0, 0, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES), ids=list(BF16_CASES))
+def test_plain_bwd_bf16_matches_pallas_kernels(case):
+    """The port's plain bf16 backward (the oracle the tensor-core K2 and
+    K3 are held to on the card) against the Pallas dq and dk/dv kernels
+    interpreted, within BF16_TOL; dead rows' dq exact zeros in both."""
+    tq, tk, d, causal, qo, ko, g_scale = BF16_CASES[case]
+    q, k, v, do, g = _arrays(1, tq, tk, 2, d, seed=3)
+    got, want = _both_bwd(q, k, v, do, g * g_scale, causal, q_offset=qo,
+                          kv_offset=ko, dtype=torch.bfloat16,
                           jdtype=jnp.bfloat16)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, atol=BF16_TOL, rtol=0)
+    if ko > qo:
+        assert np.abs(got[0][:, :ko - qo]).max() == 0.0
+        assert np.abs(want[0][:, :ko - qo]).max() == 0.0
 
 
 def test_bwd_halves_equal_the_whole():
