@@ -10,10 +10,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. the card (``nvidia-smi`` name and power limit), CUDA version, and
    TF32 switched off for matmuls and cuDNN so f32 means f32;
 2. build every kernel of the serving and training paths from ``csrc/``,
-   print ptxas's register and spill lines (a bf16 kernel that spills
-   fails), and count the tensor-core instructions (``HMMA``/``HGMMA`` in
-   ``cuobjdump -sass``) of each bf16 instantiation of the flash forward
-   (K1) and of the flash backward (K2, K3): none fails;
+   print ptxas's register and spill lines (a tensor-core kernel that
+   spills fails), and count the tensor-core instructions (``HMMA``/
+   ``HGMMA`` in ``cuobjdump -sass``) of each instantiation of the bf16
+   flash forward (K1), the bf16 flash backward (K2, K3), the bf16
+   one-pass backward (K4) and the f32 flash forward (K1, split TF32):
+   none may be zero;
 3. the flash-forward kernel against ``flash_attention_reference`` (out
    and lse) at the prefill shapes, non-causal, offsets, dead rows,
    ragged T and D=32/64, each in f32 and in bf16, and the training
@@ -28,9 +30,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``torch.autograd.grad`` through the kernels against autograd through
    plain attention;
 3c. the one-pass backward (K4) on the same cases: against
-   ``fused_bwd_reference`` and bit for bit against itself across two
-   launches; in f32 also bit for bit against K2 + K3 on the same inputs
-   (all three on f32 FMAs), in bf16 its difference from K2 + K3 printed;
+   ``fused_bwd_reference``, bit for bit against itself across two
+   launches, and bit for bit against K2 + K3 on the same inputs in both
+   dtypes (f32: the same fmaf chains; bf16: the same ``mma.sync``
+   chains, K4 being K3's block with K2's dQ chain handed between kv
+   tiles);
 4. the paged-decode kernel against ``paged_attention_reference`` at the
    decode-ladder slot counts, lengths 0 / partial page / page boundary
    / full extent;
@@ -50,19 +54,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    one step's host wall beside its device time; then ``remat="mlp"``
    against ``remat=False`` at the long-context example's size;
 7b. training with ``DK_FUSED_BWD=1`` (events under a temporary
-   ``DK_OBS_DIR``): in bf16 ``graduate`` returns ``mismatch`` at both
-   phase-7 sizes (K2/K3 on the tensor cores, K4 on f32 FMAs: exact or
-   reject), so one step per size runs K2 + K3, bit-equal to the knob-off
-   step, and one ``fused_bwd_rejected`` is written per size; then one
-   full-width f32 step, where ``graduate`` is exact, K4 runs once per
-   layer and K2/K3 never, bit-equal to the knob-off f32 step, with its
-   wall/device/idle and profile;
+   ``DK_OBS_DIR``): ``graduate`` returns ``exact`` (err 0.0) in bf16 at
+   both phase-7 sizes, and one step per size runs K4 once per layer and
+   K2/K3 never, bit-equal to the knob-off step; the bf16 step's wall,
+   device time and profile at the training size; then one full-width f32
+   step, likewise exact, K4 only and bit-equal, with its wall/device/idle
+   and profile; no ``fused_bwd_rejected`` is written;
 8. timing at the training shape: the four attention kernels in bf16,
    each held again against its plain version on the timed inputs, their
    plain versions' times, and
    scaled_dot_product_attention's forward and backward as the library
-   yardsticks; then K4 against K2 + K3's summed time at this shape and
-   at B=2, T=8192, and K1 against SDPA's forward at B=2, T=8192.
+   yardsticks; then K4 against K2 + K3's summed time, and bit for bit
+   against their results, at this shape and at B=2, T=8192; K1 against
+   SDPA's forward at B=2, T=8192 (bf16) and at the training shape in
+   f32.
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -105,6 +110,9 @@ STEP_F32_TOL = 1e-3
 REMAT_TOL = 1e-5
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_FLOPS_S = {"float32": 67e12,     # f32 outside the tensor cores
+                # f32 products as three TF32 ones (hi*hi + hi*lo + lo*hi)
+                # on the tensor cores: 495 / 3, the rate the f32 K1 can reach
+                "float32_split_tf32": 495e12 / 3,
                 "bfloat16": 989e12}   # bf16 tensor cores, dense
 
 
@@ -402,11 +410,9 @@ def bit_equal(got, want):
 
 
 def check_fused_bwd(fa, fu, rng, dev):
-    """K4 against fused_bwd_reference (phase 3b's tolerances) and twice
-    bitwise equal; in f32 also bit for bit against K2 + K3 on the same
-    inputs.  In bf16, K2 and K3 run on the tensor cores and K4 on f32
-    FMAs, so their results differ in rounding: the difference is
-    printed."""
+    """K4 against fused_bwd_reference (phase 3b's tolerances), twice
+    bitwise equal, and bit for bit against K2 + K3 on the same inputs in
+    both dtypes."""
     import torch
 
     for case in bwd_cases():
@@ -431,8 +437,7 @@ def check_fused_bwd(fa, fu, rng, dev):
               f"itself {det}")
         require(max(errs) <= tol,
                 f"fused_bwd disagrees with its plain version at {name}")
-        require(same or dtype != torch.float32,
-                f"fused_bwd is not bit-equal to K2+K3 at {name}")
+        require(same, f"fused_bwd is not bit-equal to K2+K3 at {name}")
         require(det, f"fused_bwd differs between two launches at {name}")
         if ko > qo:
             require(float(got[0][:, :ko - qo].abs().max()) == 0.0,
@@ -669,9 +674,9 @@ def time_kernels(fa, da, rng, dev, gpu):
         qt, kt, vt, is_causal=True))
     pairs = t * (t + 1) // 2
     nbytes = 4 * b * t * h * d * 4 + b * h * t * 4
-    bnd, by = bound_ms(nbytes, 4 * d * b * h * pairs)
+    bnd, by = bound_ms(nbytes, 4 * d * b * h * pairs, "float32_split_tf32")
     rows.append({"name": "flash_fwd", "route": "cuda",
-                 "source": "dist_keras_tpu_torch/csrc/flash_fwd.cu",
+                 "source": "dist_keras_tpu_torch/csrc/flash_fwd_f32.cuh",
                  "replaces":
                      "dist_keras_tpu/ops/pallas/flash_attention.py:131",
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -879,12 +884,13 @@ def profile_step(one_step, gpu):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         one_step()
         torch.cuda.synchronize()
-    kernels = {"flash_fwd": ("flash_fwd_kernel", "flash_fwd_bf16_kernel"),
+    kernels = {"flash_fwd": ("flash_fwd_f32_kernel", "flash_fwd_bf16_kernel"),
                "flash_bwd_dq": ("flash_bwd_dq_kernel",
                                 "flash_bwd_dq_bf16_kernel"),
                "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
                                  "flash_bwd_dkv_bf16_kernel"),
-               "flash_bwd_fused": ("flash_bwd_fused_kernel",)}
+               "flash_bwd_fused": ("flash_bwd_fused_kernel",
+                                   "flash_bwd_fused_bf16_kernel")}
     groups = dict.fromkeys(kernels, 0.0)
     groups.update({"cuBLAS products": 0.0, "other kernels": 0.0})
     for ev in prof.key_averages():
@@ -968,13 +974,12 @@ def rejections(obs):
 
 
 def train_fused(fa, fu, rng, dev, gpu, x, y):
-    """DK_FUSED_BWD=1.  bf16 at phase 7's two sizes: K2 and K3 run on the
-    tensor cores and K4 on f32 FMAs, so ``graduate`` rejects (exact or
-    reject) with an error inside BF16_TOL, the step runs K2 + K3 bit-equal
-    to the knob-off step, and one ``fused_bwd_rejected`` is written per
-    size.  f32 at the training size: ``graduate`` is exact, the step runs
-    K4 only, bit-equal to the knob-off step; then that step's wall,
-    device time and profile.  -> the f32 step's launches."""
+    """DK_FUSED_BWD=1.  bf16 at phase 7's two sizes: ``graduate`` is exact
+    (K4 is K2 + K3 bit for bit), the step runs K4 only, bit-equal to the
+    knob-off step; at the training size also one adam step's wall,
+    device time and profile.  f32 at the training size: likewise, with
+    the step's wall, device time and profile.  No ``fused_bwd_rejected``
+    is written.  -> the bf16 training-size step's launches."""
     import tempfile
 
     import torch
@@ -986,63 +991,55 @@ def train_fused(fa, fu, rng, dev, gpu, x, y):
     h = TRAIN_MODEL["n_heads"]
     d = TRAIN_MODEL["d_model"] // h
     layers = TRAIN_MODEL["n_layers"]
+    only_k4 = {"flash_bwd_fused": layers, "flash_bwd_dq": 0,
+               "flash_bwd_dkv": 0}
     obs_dir = tempfile.TemporaryDirectory(prefix="dk_obs_")
     obs = obs_dir.name
     saved = {k: os.environ.get(k) for k in ("DK_FUSED_BWD", "DK_OBS_DIR")}
     os.environ["DK_OBS_DIR"] = obs
     events.reset()
     fu.clear_verdicts()
+    b, t = TRAIN_BATCH, TRAIN_MODEL["seq_len"]
     try:
-        sizes = ((TRAIN_BATCH, TRAIN_MODEL["seq_len"], x, y),
+        sizes = ((b, t, x, y),
                  (LONG_BATCH, LONG_SEQ) + train_data(rng, dev, LONG_BATCH,
                                                      LONG_SEQ))
-        for b, t, xs, ys in sizes:
-            verdict = fu.graduate(b * h, t, t, d, torch.bfloat16, True)
-            print(f"  graduate B={b} T={t} (bh={b * h}) bf16 causal: "
-                  f"{verdict.status}, rel err {verdict.err} (K4 on f32 FMAs "
-                  f"against K2 + K3 on the tensor cores; tol {BF16_TOL:g})")
-            require(verdict.status == "mismatch" and verdict.err is not None
-                    and verdict.err <= BF16_TOL,
-                    f"bf16 graduation at B={b} T={t}: expected a mismatch "
-                    f"within {BF16_TOL:g}, got {verdict.status} "
-                    f"({verdict.reason})")
-            cfg = transformer_config(**dict(TRAIN_MODEL, seq_len=t))
-            params, _ = make_tp_train_step(cfg, device=dev)[1](0)
-            launches, same = fused_step(fa, fu, params, xs, ys, cfg,
-                                        torch.bfloat16)
-            require(launches == {"flash_bwd_fused": 0, "flash_bwd_dq": layers,
-                                 "flash_bwd_dkv": layers},
-                    f"the rejected route launched {launches}")
-            require(same, f"the knob-on step differs from the knob-off step "
-                          f"at B={b} T={t}")
-            del params
-            torch.cuda.empty_cache()
+        for dtype in (torch.bfloat16, torch.float32):
+            for sb, st, xs, ys in sizes if dtype == torch.bfloat16 \
+                    else sizes[:1]:
+                verdict = fu.graduate(sb * h, st, st, d, dtype, True)
+                print(f"  graduate B={sb} T={st} (bh={sb * h}) "
+                      f"{str(dtype)[6:]} causal: {verdict.status}, rel err "
+                      f"{verdict.err}")
+                require(verdict.status == "exact" and verdict.err == 0.0,
+                        f"K4 did not graduate at B={sb} T={st} "
+                        f"{str(dtype)[6:]}: {verdict.reason}")
+                cfg = transformer_config(**dict(TRAIN_MODEL, seq_len=st))
+                factory, init_fn = make_tp_train_step(
+                    cfg, causal=True, compute_dtype=dtype, device=dev)
+                params, opt_state = init_fn(0)
+                launches, same = fused_step(fa, fu, params, xs, ys, cfg,
+                                            dtype)
+                require(launches == only_k4,
+                        f"the graduated route launched {launches}")
+                require(same, f"the knob-on step differs from the knob-off "
+                              f"step at B={sb} T={st} {str(dtype)[6:]}")
+                if (sb, st) == (b, t):
+                    if dtype == torch.bfloat16:
+                        bf16_launches = launches
+                    step = factory(params, opt_state)
+                    time_train_step(
+                        lambda: step(params, opt_state, xs, ys),
+                        f"train step {str(dtype)[6:]} DK_FUSED_BWD=1 "
+                        f"[B={sb} T={st}]", gpu)
+                    del step
+                del params, opt_state
+                torch.cuda.empty_cache()
         n_rej, n_events = rejections(obs)
         print(f"  events under DK_OBS_DIR: {n_rej} fused_bwd_rejected of "
               f"{n_events}")
-        require(n_rej == len(sizes), f"expected one fused_bwd_rejected per "
-                                     f"bf16 configuration, got {n_rej}")
-
-        b, t = TRAIN_BATCH, TRAIN_MODEL["seq_len"]
-        verdict = fu.graduate(b * h, t, t, d, torch.float32, True)
-        print(f"  graduate B={b} T={t} (bh={b * h}) f32 causal: "
-              f"{verdict.status}, rel err {verdict.err}")
-        require(verdict.status == "exact" and verdict.err == 0.0,
-                f"K4 did not graduate in f32: {verdict.reason}")
-        cfg = transformer_config(**TRAIN_MODEL)
-        factory, init_fn = make_tp_train_step(
-            cfg, causal=True, compute_dtype=torch.float32, device=dev)
-        params, opt_state = init_fn(0)
-        launches, same = fused_step(fa, fu, params, x, y, cfg, torch.float32)
-        require(launches == {"flash_bwd_fused": layers, "flash_bwd_dq": 0,
-                             "flash_bwd_dkv": 0},
-                f"the graduated f32 route launched {launches}")
-        require(same, "the fused f32 step differs from the knob-off step")
-        step = factory(params, opt_state)
-        time_train_step(lambda: step(params, opt_state, x, y),
-                        f"train step f32 DK_FUSED_BWD=1 [B={b} T={t}]", gpu)
-        require(rejections(obs)[0] == len(sizes),
-                "the graduated f32 route wrote a fused_bwd_rejected event")
+        require(n_rej == 0, f"the graduated route wrote {n_rej} "
+                            f"fused_bwd_rejected events")
     finally:
         for k, v in saved.items():
             if v is None:
@@ -1051,7 +1048,7 @@ def train_fused(fa, fu, rng, dev, gpu, x, y):
                 os.environ[k] = v
         events.reset()
         obs_dir.cleanup()
-    return launches
+    return bf16_launches
 
 
 # -- phase 8: timing at the training shape ----------------------------------
@@ -1124,7 +1121,7 @@ def time_train_kernels(fa, fu, rng, dev, gpu):
             "flash_bwd_dq": ("flash_bwd_bf16.cuh", "flash_attention.py:285"),
             "flash_bwd_dkv": ("flash_bwd_bf16.cuh",
                               "flash_attention.py:320"),
-            "flash_bwd_fused": ("fused_bwd.cu",
+            "flash_bwd_fused": ("flash_bwd_bf16.cuh",
                                 "fused_bwd_experimental.py:78")}[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"dist_keras_tpu_torch/csrc/{source}",
@@ -1142,8 +1139,7 @@ def time_train_kernels(fa, fu, rng, dev, gpu):
               f"max_abs_err {r['max_abs_err']:.3e}")
     ms = {r["name"]: r["ms"] for r in rows}
     fused_vs_two(ms["flash_bwd_fused"], ms["flash_bwd_dq"],
-                 ms["flash_bwd_dkv"], shape, gpu,
-                 max(rel_err(g, w) for g, w in zip(fused, (dq, dk, dv))))
+                 ms["flash_bwd_dkv"], shape, gpu, fused, (dq, dk, dv))
     del q, k, v, do, lse, dl, args, qt, kt, vt, g, sdpa_out, out, ref
     del dq, dk, dv, want, fused, fused_want
     torch.cuda.empty_cache()
@@ -1162,8 +1158,7 @@ def time_train_kernels(fa, fu, rng, dev, gpu):
     fused_vs_two(time_ms(lambda: fu.fused_bwd(*args), reps=5, trials=5),
                  time_ms(lambda: fa.flash_bwd_dq(*args), reps=5, trials=5),
                  time_ms(lambda: fa.flash_bwd_dkv(*args), reps=5, trials=5),
-                 f"B={b} T={t} H={h} D={d} causal bf16", gpu,
-                 max(rel_err(g, w) for g, w in zip(fused, two)))
+                 f"B={b} T={t} H={h} D={d} causal bf16", gpu, fused, two)
     del fused, two
     out, _ = fa.flash_fwd(q, k, v, True, scale, 0, 0)
     ref, _ = fa.flash_attention_reference(q, k, v, causal=True)
@@ -1181,14 +1176,57 @@ def time_train_kernels(fa, fu, rng, dev, gpu):
     print(f"  flash_fwd_bf16 vs scaled_dot_product_attention [B={b} T={t} "
           f"H={h} D={d} causal bf16] on {gpu}: {k1:.4f} ms vs {sdpa:.4f} ms "
           f"({k1 / sdpa:.3f}x), bound {bnd:.4f} ms, row-relative {rel:.3e}")
+    del q, k, v, do, lse, dl, args, qt, kt, vt
+    torch.cuda.empty_cache()
+    time_f32_train_fwd(fa, rng, dev, gpu)
     return rows
 
 
-def fused_vs_two(k4, k2, k3, shape, gpu, diff):
+def time_f32_train_fwd(fa, rng, dev, gpu):
+    """K1 in f32 (split TF32) at the training shape against SDPA's f32
+    forward (TF32 off) and its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    b, t, h = TRAIN_BATCH, TRAIN_MODEL["seq_len"], TRAIN_MODEL["n_heads"]
+    d = TRAIN_MODEL["d_model"] // h
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d),
+                                                    np.float32)).to(dev)
+               for _ in range(3))
+    out, lse = fa.flash_fwd(q, k, v, True, d ** -0.5, 0, 0)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    err, rerr = max_abs_err(out, ref), row_rel_err(out, ref)
+    lerr = max_abs_err(lse, ref_lse)
+    del out, lse, ref, ref_lse
+    shape = f"B={b} T={t} H={h} D={d} causal f32"
+    print(f"  flash_fwd [{shape}]: out max_abs_err {err:.3e} row-relative "
+          f"{rerr:.3e} (tol {F32_TOL:g}), lse {lerr:.3e} (tol {LSE_TOL:g})")
+    require(err <= F32_TOL and rerr <= F32_TOL and lerr <= LSE_TOL,
+            f"flash_fwd disagrees with its plain version at {shape}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    k1 = time_ms(lambda: fa.flash_fwd(q, k, v, True, d ** -0.5, 0, 0),
+                 reps=5, trials=5)
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=5, trials=5)
+    plain = time_ms(lambda: fa.flash_attention_reference(q, k, v,
+                                                         causal=True),
+                    reps=2, trials=3)
+    pairs = b * h * t * (t + 1) // 2
+    bnd, _ = bound_ms(4 * b * t * h * d * 4 + b * h * t * 4, 4 * d * pairs,
+                      "float32_split_tf32")
+    print(f"  flash_fwd vs scaled_dot_product_attention [{shape}] on {gpu}: "
+          f"{k1:.4f} ms vs {sdpa:.4f} ms ({k1 / sdpa:.3f}x), plain "
+          f"{plain:.4f} ms, bound {bnd:.4f} ms (split-TF32 rate)")
+
+
+def fused_vs_two(k4, k2, k3, shape, gpu, fused, two):
+    """Print K4's time against K2 + K3's and require their results to be
+    the same bits."""
+    same = bit_equal(fused, two)
     print(f"  flash_bwd_fused vs flash_bwd_dq + flash_bwd_dkv [{shape}] on "
           f"{gpu}: {k4:.4f} ms vs {k2:.4f} + {k3:.4f} = {k2 + k3:.4f} ms "
-          f"({k4 / (k2 + k3):.3f}x); results' relative difference "
-          f"{diff:.3e}")
+          f"({k4 / (k2 + k3):.3f}x); results bit-equal {same}")
+    require(same, f"fused_bwd is not bit-equal to K2+K3 at {shape}")
 
 
 def main():
@@ -1224,32 +1262,44 @@ def main():
 
     print("phase 2: build the kernels")
     t0 = time.perf_counter()
-    built = _build.build(["flash_fwd", "flash_bwd", "fused_bwd",
-                          "paged_decode"])
+    libs = ["flash_fwd", "flash_bwd", "fused_bwd", "paged_decode"]
+    built = _build.build(libs)
     usage = {}
-    for name, (secs, log) in built.items():
-        print(f"  {name}: {secs:.1f} s")
+    for name in libs:   # ptxas's lines, kept beside each library
+        secs = (f"built in {built[name][0]:.1f} s" if name in built
+                else "built before")
+        print(f"  {name}: {secs}")
+        log = _build.build_log(name)
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
         usage.update(ptxas_usage(log))
     print(f"  build wall {time.perf_counter() - t0:.1f} s")
-    spilled = {f: u for f, u in usage.items() if "bf16" in f and any(u[1:])}
-    require(not spilled, f"bf16 kernels spill registers: {spilled}")
-    for lib, kernel in (("flash_fwd", "flash_fwd_bf16_kernel"),
-                        ("flash_bwd", "flash_bwd_dq_bf16_kernel"),
-                        ("flash_bwd", "flash_bwd_dkv_bf16_kernel")):
+    tensor_core = (("flash_fwd", "flash_fwd_bf16_kernel"),
+                   ("flash_bwd", "flash_bwd_dq_bf16_kernel"),
+                   ("flash_bwd", "flash_bwd_dkv_bf16_kernel"),
+                   ("fused_bwd", "flash_bwd_fused_bf16_kernel"),
+                   ("flash_fwd", "flash_fwd_f32_kernel"))
+    spilled = {f: u for f, u in usage.items() if any(u[1:]) and any(
+        kernel in f for _, kernel in tensor_core)}
+    require(not spilled, f"tensor-core kernels spill registers: {spilled}")
+    for lib, kernel in tensor_core:
         counts = tensor_core_counts(_build, lib, kernel)
         for fn, n in counts.items():
             regs, stores, loads = usage.get(fn, (None, None, None))
-            d = re.search(r"ILi(\d+)E", fn).group(1)
-            print(f"  {kernel} D={d}: "
+            args = ", ".join(re.findall(r"Li(\d+)E", fn))
+            print(f"  {kernel}<{args}>: "
                   f"{n} tensor-core instructions (HMMA/HGMMA in cuobjdump "
                   f"-sass), ptxas {regs} registers, spill stores {stores} "
                   f"B, loads {loads} B")
-        require(len(counts) == 3 and all(n > 0 for n in counts.values()),
+        dims = {re.search(r"ILi(\d+)E", fn).group(1) for fn in counts}
+        require(dims == {"32", "64", "128"}
+                and all(n > 0 for n in counts.values()),
                 f"a {kernel} instantiation issues no tensor-core "
                 f"instruction: {counts}")
+        require(all(fn in usage for fn in counts),
+                f"ptxas printed no register line for a {kernel} "
+                f"instantiation")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -1261,7 +1311,7 @@ def main():
     check_flash_grad(fa, rng, dev)
     torch.cuda.empty_cache()
     print("phase 3c: fused_bwd against its plain version, against itself, "
-          "and in f32 bit for bit against flash_bwd_dq + flash_bwd_dkv")
+          "and bit for bit against flash_bwd_dq + flash_bwd_dkv")
     check_fused_bwd(fa, fu, rng, dev)
     torch.cuda.empty_cache()
     print("phase 4: paged_decode against its plain version")
@@ -1284,8 +1334,8 @@ def main():
     torch.cuda.empty_cache()
     check_remat(rng, dev)
     torch.cuda.empty_cache()
-    print("phase 7b: train through the DK_FUSED_BWD route (bf16 rejected, "
-          "f32 K4)")
+    print("phase 7b: train through the DK_FUSED_BWD route (K4 in bf16 and "
+          "f32)")
     fused_launches = train_fused(fa, fu, rng, dev, gpu, x, y)
     train_launches["flash_bwd_fused"] = fused_launches["flash_bwd_fused"]
     del x, y

@@ -1,11 +1,13 @@
 // Flash-attention backward for bf16 inputs on Hopper's tensor cores: dQ
-// (K2) and dK/dV (K3) on warp-level mma.sync (m16n8k16, bf16 operands,
-// f32 accumulators), built for sm_90a.
+// (K2), dK/dV (K3) and the one-pass dQ/dK/dV (K4) on warp-level mma.sync
+// (m16n8k16, bf16 operands, f32 accumulators), built for sm_90a.
 //
 // Replaces the TPU kernels `_dq_kernel` and `_dkv_kernel` (with their
 // shared `_p_tile` / `_ds_tile`) in dist_keras_tpu/ops/pallas/
-// flash_attention.py for bf16 q/k/v/dO, which feed bf16 tiles to the MXU
-// with f32 accumulation.  They compute what flash_bwd.cu's header states:
+// flash_attention.py, and `_fused_bwd_kernel` in
+// ops/pallas/fused_bwd_experimental.py (fused_bwd.cu states its contract),
+// for bf16 q/k/v/dO, which feed bf16 tiles to the MXU with f32
+// accumulation.  They compute what flash_bwd.cu's header states:
 //
 //   P  = exp(scale * Q K^T - lse)     0 where masked; a dead row
 //                                     (lse <= -5e29) shifts by 0
@@ -51,6 +53,11 @@
 //   16 (w % 2).. and keys 32 (w / 2).. (16 x 32 each), writes the rounded
 //   P and dS to shared memory, and after a barrier adds P^T dO and
 //   dS^T Q into the 16 keys x D f32 dV and dK fragments it owns.
+// - K4: K3's block and code (`dkv_block`), which after the P/dS barrier
+//   also continues the q tile's dQ chain from the previous kv tile's f32
+//   partial (fused_bwd.cu's hand-off), with dS read back from shared
+//   memory and K as the same bf16 fragments K2 builds; blocks walk the kv
+//   tiles slowest, over every batch*head.
 // - Masks run only on tiles that cross the causal line or a ragged edge.
 // - Blocks walk groups of heads whose streamed operands (K and V for K2,
 //   Q and dO for K3) fit in ~16 MB of L2, and within a group the heaviest
@@ -60,8 +67,9 @@
 //   are deterministic.
 //
 // Registers at D=128: K2 holds S + dP (64) and dQ (64); K3 holds dK + dV
-// (128) and S + dP (32).  Shared memory at D=128: K2 104,448 B, K3 79,360 B
-// (two blocks per SM each).
+// (128) and S + dP (32); K4 as K3, its dQ partial (32) where S and dP
+// were.  Shared memory at D=128: K2 104,448 B, K3 and K4 79,360 B (two
+// blocks per SM each).
 //
 // Bound on this card.  Per visible (q, k) pair K2 does 6*D FLOPs and K3
 // 8*D against a few bytes per row, so both are bound by the tensor-core
@@ -286,16 +294,35 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K3: dK and dV
+// K3: dK and dV; with FUSED, K4: dK, dV and dQ in one pass
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ dl,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Tq, int Tk,
-                          float scale, int causal, int q_offset, int kv_offset, int n_kt,
-                          int group_heads) {
+// What K4 writes beside dK and dV (unused by K3).
+struct DqHandoff {
+  bf16* dq;      // (B, Tq, H, D): the last kv tile a q tile sees writes it
+  float* acc;    // (B, Tq, H, D) f32: the partial handed between kv tiles
+  int* counts;   // per (batch*head, 32-row q tile): kv tiles that handed on
+};
+
+// One block of K3 (FUSED false) or K4 (FUSED true).  K4 runs K3's code
+// and, after each q step's P/dS barrier, adds that step's dS K to the q
+// tile's dQ: it waits until kv tile kt - 1 has handed over the f32
+// partial (none to wait for at kt = 0, whose chain starts from 0),
+// continues each (row, dim) with mma.sync over the tile's four 16-key
+// slices in ascending order, dS read back from shared memory as A and K
+// read MN-major as B, exactly as K2 forms them, and then hands the
+// partial on or, at the last kv tile the q tile sees, writes scale * acc
+// as K2 does.  Warp w owns q rows 16 (w % 2).. and dims D/2 (w / 2).. of
+// dQ; the partial streams in from L2 while dV and dK accumulate, into the
+// registers S and dP held.
+template <int D, bool FUSED>
+__device__ __forceinline__ void dkv_block(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                          const bf16* __restrict__ v,
+                                          const bf16* __restrict__ dout,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ dl, bf16* __restrict__ dk,
+                                          bf16* __restrict__ dv, int H, int Tq, int Tk,
+                                          float scale, int causal, int q_offset, int kv_offset,
+                                          int n_kt, int group_heads, const DqHandoff& hand) {
   using G = Geo<D>;
   constexpr int KT = BK * G::S * 2;   // bytes of the K (or V) tile
   constexpr int QT = SQ * G::S * 2;   // bytes of one Q (or dO) step tile
@@ -380,6 +407,37 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       }
     __syncthreads();
 
+    // K4: wait for the q tile's dQ partial, which then streams in from L2
+    // while dV and dK accumulate: part[c][j] are the m16n8 C fragments of
+    // n-tile j of chunk c (dims d0(c) + 8j..), rows r0 and r0 + 8
+    int* count = nullptr;   // this q tile's hand-off counter
+    bool hand_on = false;   // a later kv tile continues this q tile
+    const int r0 = q0 + 16 * qw + g;
+    auto d0 = [&](int c) { return (D / 2) * kw + 16 * c; };
+    float part[FUSED ? D / 32 : 1][2][4];
+    if constexpr (FUSED) {
+      // the next kv tile sees q tiles from next_first on (none after the last)
+      const int next_first =
+          kt + 1 < n_kt ? dk_bwd::first_q_tile(k0 + BK, causal, q_offset, kv_offset) : Tq;
+      count = hand.counts + static_cast<long long>(bh) * ((Tq + SQ - 1) / SQ) + q0 / SQ;
+      hand_on = next_first <= q0;
+      dk_bwd::dq_wait(count, kt);
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          const float* src = hand.acc + dk_bwd::row_at(b, row, h, Tq, H, D) + d0(c) + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float2 x = make_float2(0.f, 0.f);
+            if (kt > 0 && row < Tq) x = __ldcg(reinterpret_cast<const float2*>(src + 8 * j));
+            part[c][j][2 * r] = x.x;
+            part[c][j][2 * r + 1] = x.y;
+          }
+        }
+    }
+
     // dV += P^T dO and dK += dS^T Q for keys 16 warp..: P and dS read back
     // transposed as A, dO and Q (q rows x dims) MN-major as B
 #pragma unroll
@@ -400,7 +458,46 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         dk_mma_bf16(acc_k[n + 1], sa, bq[2], bq[3]);
       }
     }
+
+    if constexpr (FUSED) {
+      // dQ += dS K: dS rows 16 qw.. as A over the tile's 16-key slices in
+      // ascending order, K (keys x dims) read MN-major as B, as K2 does
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        dk_ldsm_x4(da[kk], sds + ((16 * qw + mr + 8 * (mi % 2)) * G::PS + 16 * kk + 8 * (mi / 2)) * 2);
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c)
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t bk[4];
+          dk_ldsm_x4_t(bk, sk + ((kk * 16 + mr + 8 * (mi % 2)) * G::S + d0(c) + 8 * (mi / 2)) * 2);
+          dk_mma_bf16(part[c][0], da[kk], bk[0], bk[1]);
+          dk_mma_bf16(part[c][1], da[kk], bk[2], bk[3]);
+        }
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          if (row >= Tq) continue;
+          const long long at = dk_bwd::row_at(b, row, h, Tq, H, D) + d0(c) + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float lo = part[c][j][2 * r], hi = part[c][j][2 * r + 1];
+            if (hand_on)
+              __stcg(reinterpret_cast<float2*>(hand.acc + at + 8 * j), make_float2(lo, hi));
+            else
+              store_pair(hand.dq + at + 8 * j, scale * lo, scale * hi);
+          }
+        }
+    }
     __syncthreads();  // P, dS and stage st are consumed before they are refilled
+    if constexpr (FUSED) {
+      // the barrier ordered every thread's stores of the partial before
+      // this thread's release, which carries them (cumulativity)
+      if (hand_on && tid == 0) dk_red_release_add(count, 1);
+    }
   }
   dk_cp_async_wait<0>();
 
@@ -416,6 +513,33 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       store_pair(dvrow + 8 * n + 2 * t4, acc_v[n][2 * r], acc_v[n][2 * r + 1]);
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dl,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Tq, int Tk,
+                          float scale, int causal, int q_offset, int kv_offset, int n_kt,
+                          int group_heads) {
+  dkv_block<D, false>(q, k, v, dout, lse, dl, dk, dv, H, Tq, Tk, scale, causal, q_offset,
+                      kv_offset, n_kt, group_heads, DqHandoff{});
+}
+
+// K4 (fused_bwd.cu): q tiles that no kv tile sees keep the zeros the
+// caller fills dq with; dq_acc needs no zeroing, counts must be zeros.
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_fused_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ dl,
+                            bf16* __restrict__ dq, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, float* __restrict__ dq_acc,
+                            int* __restrict__ counts, int H, int Tq, int Tk, float scale,
+                            int causal, int q_offset, int kv_offset, int n_kt) {
+  dkv_block<D, true>(q, k, v, dout, lse, dl, dk, dv, H, Tq, Tk, scale, causal, q_offset,
+                     kv_offset, n_kt, gridDim.x / n_kt, DqHandoff{dq, dq_acc, counts});
 }
 
 // The entry points' arguments (flash_bwd.cu), for either dtype.
@@ -455,6 +579,22 @@ void launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.dl,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.H, a.Tq, a.Tk, a.scale, a.causal,
       a.q_offset, a.kv_offset, n_kt, group_heads(4ll * a.Tq * D, a.B * a.H));
+}
+
+// K4: one group of every batch*head, so the kv tile is the slowest grid
+// index (see fused_bwd.cu on the hand-off's order and its deadlock
+// freedom).
+template <int D>
+void launch_fused(const Args& a, void* dq, void* dk, void* dv, float* dq_acc, int* counts,
+                  cudaStream_t stream) {
+  static const cudaError_t allowed = dk_allow_max_smem(flash_bwd_fused_bf16_kernel<D>);
+  (void)allowed;
+  const int n_kt = (a.Tk + BK - 1) / BK;
+  flash_bwd_fused_bf16_kernel<D><<<n_kt * a.B * a.H, NT, Geo<D>::DKV_SMEM, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.dl,
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), dq_acc, counts,
+      a.H, a.Tq, a.Tk, a.scale, a.causal, a.q_offset, a.kv_offset, n_kt);
 }
 
 }  // namespace dk_bwd_bf16

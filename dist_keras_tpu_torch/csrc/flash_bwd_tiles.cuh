@@ -15,6 +15,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "sm90_ptx.cuh"
 
 namespace dk_bwd {
 
@@ -268,6 +269,23 @@ __device__ __forceinline__ int first_q_tile(int k0, int causal, int q_offset,
   return causal ? max(0, kv_offset + k0 - q_offset) / KV_BQ * KV_BQ : 0;
 }
 
+// K4's dQ hand-off, block-wide: at kv tile kt > 0, wait until kv tile
+// kt - 1 has handed over the q tile's f32 partial (`*count` reached kt
+// by a release).  The first thread's acquire and the barrier after it
+// order the block's loads of the partial after that release.  A hand-off
+// never takes seconds; one that does is a broken launch order, and
+// trapping beats hanging the card.
+__device__ __forceinline__ void dq_wait(const int* count, int kt) {
+  if (kt == 0) return;
+  if (threadIdx.x == 0) {
+    for (long long spins = 0; dk_ld_acquire(count) < kt; ++spins) {
+      if (spins > (1LL << 26)) __trap();
+      __nanosleep(32);
+    }
+  }
+  __syncthreads();
+}
+
 // dK = scale * acc_k and dV = acc_v, in the input dtype, for keys
 // tr*4..+3 of the block.
 template <typename T, int D>
@@ -309,15 +327,6 @@ int dispatch_d(int D, F&& f) {
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// f(T{}, DimTag<D>{}) for the dtype code (0 = float32, 1 = bfloat16) and
-// head_dim the caller passed -> the launch's error code
-template <typename F>
-int dispatch(int dtype, int D, F&& f) {
-  if (dtype == 0) return dispatch_d<float>(D, f);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, f);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace dk_bwd

@@ -1,8 +1,9 @@
 // One-pass flash-attention backward (K4) for Hopper (sm_90a): dQ, dK and
-// dV in one kernel, f32 and bf16 inputs, on f32 FMAs, bit-equal to the FMA
-// kernels K2 (dQ) and K3 (dK, dV) of flash_bwd.cu.  Those serve f32 only:
-// bf16 K2 and K3 run on the tensor cores (flash_bwd_bf16.cuh), whose
-// results K4's differ from in rounding.
+// dV in one kernel, bit-equal to the two-kernel backward K2 (dQ) + K3
+// (dK, dV) in both dtypes.  f32 inputs run the kernel here, on f32 FMAs
+// over flash_bwd_tiles.cuh like the f32 K2 and K3 (flash_bwd.cu); bf16
+// inputs run `flash_bwd_fused_bf16_kernel` (flash_bwd_bf16.cuh), which is
+// the bf16 K3's own block on the tensor cores with the dQ hand-off added.
 //
 // Replaces the TPU kernel `_fused_bwd_kernel` (called from
 // `fused_bwd_call`) in dist_keras_tpu/ops/pallas/fused_bwd_experimental.py.
@@ -14,54 +15,63 @@
 // after a parity check against the two-kernel backward.  Here the same
 // one-pass order is made deterministic instead:
 //
-// Design.  K3's structure (flash_bwd_tiles.cuh): one block of 128 threads
-// per (batch*head, 64-key kv tile) walks 32-row Q/dO tiles from the first
-// one that sees its first key, keeps dK and dV in f32 registers and
-// writes them as K3 does, so dk and dv are K3's bit for bit.  Once a
+// Design.  K3's structure: one block of 128 threads per (batch*head,
+// 64-key kv tile) walks 32-row Q/dO tiles from the first one that sees its
+// first key, keeps dK and dV in f32 registers and writes them as K3 does
+// (in bf16 it is K3's code, so dk and dv are K3's bit for bit).  Once a
 // tile's dS sits in shared memory (rounded as K2 rounds it), the block
 // adds dS K to dQ in a fixed order: it waits until the previous kv tile of
 // the same batch*head has added to that q tile, loads each row's f32 dQ
 // partial from a global accumulator (B,Tq,H,D), continues each (row, dim)
-// fmaf chain over its 64 keys in ascending order, stores the partial back
-// and raises the q tile's counter.  The chain for a (row, dim) then runs
-// over every key in ascending order, as K2's does, and the block holding
-// the last kv tile that the q tile sees writes dk_from_f<T>(scale * acc)
-// into dq, as K2 does: dq is K2's bit for bit.  (The two kernels may run
-// a row's chain through a different number of trailing zero terms past its
-// causal edge, which can only change the sign of an exact zero.)  The kv
-// tiles that see a q tile are always tiles 0..L, so tile 0 starts each
-// chain from 0 and the accumulator needs no zeroing; q tiles that no kv
-// tile sees (dead rows) keep the zeros the wrapper fills dq with.
+// chain over its 64 keys in K2's order, stores the partial back and
+// raises the q tile's counter.  f32: an fmaf chain over the keys in
+// ascending order.  bf16: mma.sync over the tile's 16-key slices in
+// ascending order, dS and K as the same bf16 fragments K2 builds
+// (flash_bwd_bf16.cuh's header states that chain).  The chain for a
+// (row, dim) then runs over every key in K2's order, and the block holding
+// the last kv tile that the q tile sees writes scale * acc into dq in the
+// input dtype, as K2 does: dq is K2's bit for bit.  (The two kernels may
+// run a row's chain through a different number of trailing zero terms
+// past its causal edge, which can only change the sign of an exact zero.)
+// The kv tiles that see a q tile are always tiles 0..L, so tile 0 starts
+// each chain from 0 and the accumulator needs no zeroing; q tiles that no
+// kv tile sees (dead rows) keep the zeros the wrapper fills dq with.
 //
-// Ordering.  The partial is stored, fenced (__threadfence by every
-// thread, a barrier, then one thread's fence and atomicAdd: a release)
-// before the counter rises; the waiting block's first thread spins on
-// ld.acquire.gpu, fences, and a barrier lets the block load the partial,
-// with ld.global.cg so no stale L1 line is read.  No float atomics are
-// used: the result does not depend on the blocks' timing.
+// Ordering.  The partial is stored with st.global.cg, and a release
+// raises the q tile's counter once every thread's stores are ordered
+// before it: f32, __threadfence by every thread, a barrier, then one
+// thread's fence and atomicAdd; bf16, a barrier, then one thread's
+// red.release.gpu, which carries the block's stores (cumulativity, as a
+// grid barrier's release does).  The waiting block's first thread spins
+// on ld.acquire.gpu and a barrier lets the block load the partial, with
+// ld.global.cg so no stale L1 line is read (flash_bwd_tiles.cuh's
+// `dq_wait`).  No float atomics are used: the result does not depend on
+// the blocks' timing.
 //
-// No deadlock.  The kv tile is the slowest grid dimension (blockIdx.y),
-// so a block that waits depends only on blocks of lower linear index
-// (kv tile - 1, same batch*head).  Blocks are dispatched in increasing
-// linear index, so every block it waits for is already running or done,
-// and by induction on the index each of those finishes.  The long
-// low-kv-tile blocks of a causal backward also start first.
+// No deadlock.  The kv tile is the slowest grid index (f32: blockIdx.y;
+// bf16: the linear index runs over every batch*head within a kv tile), so
+// a block that waits depends only on blocks of lower linear index (kv
+// tile - 1, same batch*head).  Blocks are dispatched in increasing linear
+// index, so every block it waits for is already running or done, and by
+// induction on the index each of those finishes.  The same order keeps
+// the waits short: the heavy low kv tiles of a causal backward start
+// first, and a block of kv tile kt mostly starts after tile kt - 1 has
+// passed its first q tiles, instead of waiting for them while holding its
+// slot (K3's head groups would make every tile of a group resident at once).
 //
 // Bound on this card.  Per visible (q, k) pair K4 does 10*D FLOPs (S, dP,
 // dV, dK and dQ products) against K2 + K3's 14*D, so it is bound by
-// operations; it issues f32 FMAs outside the tensor cores, like K2 and K3.
-// Shared memory: K3's 158 KB plus a row-major K tile, 191 KB at D=128.
+// operations: 67 TFLOP/s for f32 (FMAs outside the tensor cores), 989
+// TFLOP/s dense bf16 on the tensor cores, where mma.sync reaches part of
+// it (flash_bwd_bf16.cuh).  The hand-off moves each q tile's f32 partial
+// through L2 once per kv tile that sees it.  Shared memory: f32 K3's
+// 158 KB plus a row-major K tile, 191 KB at D=128; bf16 K3's 79,360 B.
+#include "flash_bwd_bf16.cuh"
 #include "flash_bwd_tiles.cuh"
 
 namespace {
 
 using namespace dk_bwd;
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
 
 template <int D>
 constexpr int fused_smem_floats() {
@@ -109,18 +119,7 @@ flash_bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // dQ: wait for kv tile kt - 1's part of this q tile, then continue
     int* count = counts + static_cast<long long>(bh) * nqt + q0 / KV_BQ;
-    if (kt > 0) {
-      if (tid == 0) {
-        // a hand-off never takes seconds; one that does is a broken
-        // launch order, and trapping beats hanging the card
-        for (long long spins = 0; ld_acquire(count) < kt; ++spins) {
-          if (spins > (1LL << 26)) __trap();
-          __nanosleep(32);
-        }
-        __threadfence();
-      }
-      __syncthreads();
-    }
+    dq_wait(count, kt);
     float acc[2][4 * DV];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -224,7 +223,16 @@ extern "C" int dk_flash_bwd_fused(int dtype, int D, const void* q,
                                   int causal, int q_offset, int kv_offset,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, D, [&](auto t, auto dim) {
+  if (dtype == 1) {
+    const dk_bwd_bf16::Args a{q, k, v, dout, lse, dl, B, H, Tq, Tk,
+                              scale, causal, q_offset, kv_offset};
+    return dispatch_d<__nv_bfloat16>(D, [&](auto, auto dim) {
+      dk_bwd_bf16::launch_fused<decltype(dim)::value>(a, dq, dk, dv, dq_acc,
+                                                      counts, st);
+    });
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_d<float>(D, [&](auto t, auto dim) {
     launch_fused<decltype(t), decltype(dim)::value>(
         q, k, v, dout, lse, dl, dq, dk, dv, dq_acc, counts, B, H, Tq, Tk,
         scale, causal, q_offset, kv_offset, st);

@@ -187,6 +187,45 @@ __device__ __forceinline__ void dk_mma_bf16(float (&d)[4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x = hi + lo for split-TF32 products: hi is x rounded to TF32 (to
+// nearest, ties away: half a TF32 ulp added to the bit pattern, the 13
+// low bits cleared) and lo = x - hi, exact in f32, is handed to the mma
+// as it is, whose TF32 operand keeps the top 19 bits (10 of the mantissa):
+// hi + tf32(lo) is x to about 2^-21, so three products hi*hi + hi*lo +
+// lo*hi carry an f32 product to within a few f32 ulps.
+__device__ __forceinline__ void dk_split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a * b, m16n8k8, tf32 operands, f32 accumulator.  With g = lane / 4
+// and t = lane % 4: a[0] holds A (g, t), a[1] (g + 8, t), a[2] (g, t + 4),
+// a[3] (g + 8, t + 4); b0 holds B (t, g), b1 (t + 4, g); d[e] holds D
+// (g + 8 (e / 2), 2t + e % 2).
+__device__ __forceinline__ void dk_mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A load with acquire semantics at GPU scope: what the releasing thread
+// wrote before its release is visible after it.
+__device__ __forceinline__ int dk_ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// *p += v with release semantics at GPU scope: what this thread wrote, or
+// saw written (cumulativity, e.g. its block's writes before a barrier),
+// is visible to a thread whose acquire reads the new value.
+__device__ __forceinline__ void dk_red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
 // 2^x on the special-function unit (results below 2^-126 flush to 0).
 __device__ __forceinline__ float dk_exp2(float x) {
   float y;

@@ -6,7 +6,9 @@ does not include PyTorch's headers builds in seconds, where
 ``torch.utils.cpp_extension.load`` takes minutes.  Libraries land in
 ``dist_keras_tpu_torch/_build/`` (ignored by git) under a name that
 carries the hash of the sources and flags, so a library is rebuilt only
-when its source (or a shared header) changes.  Nothing builds at import:
+when its source (or a shared header) changes; the compiler's output
+(ptxas's register and spill lines) is kept beside it, read by
+:func:`build_log`.  Nothing builds at import:
 the first launch of a kernel builds it, and :func:`build` builds several
 at once, one ``nvcc`` process per source, all started together.
 
@@ -69,6 +71,15 @@ def library_path(name):
     return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
+def _log_path(name):
+    return library_path(name).with_suffix(".log")
+
+
+def build_log(name):
+    """The compiler output of the library built from ``csrc/<name>.cu``."""
+    return _log_path(name).read_text()
+
+
 def build(names):
     """Build every library in ``names`` that is missing, one ``nvcc``
     per source, all in parallel.  -> {name: (seconds, compiler log)}
@@ -77,7 +88,7 @@ def build(names):
     procs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and _log_path(name).exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -91,6 +102,7 @@ def build(names):
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
             tmp.unlink(missing_ok=True)
             continue
+        _log_path(name).write_text(log)
         os.replace(tmp, out)   # atomic: a reader never sees half a file
         built[name] = (time.perf_counter() - t0, log)
     if failed:

@@ -2,11 +2,11 @@
 differentiable core.
 
 Counterpart of ``ops/pallas/flash_attention.py``.  The kernels are
-``csrc/flash_fwd.cu`` (K1, the forward; bf16 in ``flash_fwd_bf16.cuh``)
-and ``csrc/flash_bwd.cu`` (K2, dQ; K3, dK/dV; bf16 on the tensor cores
-in ``flash_bwd_bf16.cuh``); see their headers for the designs and
-bounds.  The
-one-pass backward K4 and its ``DK_FUSED_BWD`` graduation live in
+``csrc/flash_fwd.cu`` (K1, the forward: f32 on split-TF32 tensor-core
+products in ``flash_fwd_f32.cuh``, bf16 in ``flash_fwd_bf16.cuh``) and
+``csrc/flash_bwd.cu`` (K2, dQ; K3, dK/dV; bf16 on the tensor cores in
+``flash_bwd_bf16.cuh``); see their headers for the designs and bounds.
+The one-pass backward K4 and its ``DK_FUSED_BWD`` graduation live in
 ``ops/fused_bwd_experimental.py``.
 
 - :func:`flash_attention_reference` — the forward's plain version, with

@@ -5,14 +5,13 @@ Counterpart of ``ops/pallas/fused_bwd_experimental.py``.  The TPU kernel
 accumulates dQ across kv blocks through an aliased output whose
 revisits Mosaic does not define, so the JAX package serves it only for
 a configuration whose cached parity run against the two-kernel
-backward came back exact.  The port's kernel, ``csrc/fused_bwd.cu``,
-hands each q tile's f32 dQ partial from one kv tile to the next in a
-fixed order instead, so in f32 its dq is K2's and its dk/dv K3's bit for
-bit (see the source header).  The JAX contract is kept all the same:
-exact (tol 1e-6) or reject.  In f32 it holds by construction; in bf16,
-K2 and K3 run on the tensor cores while K4 still runs f32 FMAs, so the
-parity run comes back ``"mismatch"`` (within bf16's rounding) and K2 +
-K3 serve, until K4 is rebuilt on the same tensor-core tiles.
+backward came back exact.  The port's kernel (``csrc/fused_bwd.cu``; in
+bf16 the tensor-core block of ``csrc/flash_bwd_bf16.cuh``) hands each q
+tile's f32 dQ partial from one kv tile to the next in a fixed order
+instead, continuing K2's chain, so in both dtypes its dq is K2's and its
+dk/dv K3's bit for bit (see the source headers).  The JAX contract is
+kept all the same: exact (tol 1e-6) or reject; here it holds by
+construction.
 
 - :func:`fused_bwd` — launches K4 on CUDA tensors (runs or raises);
   counts ``fused_bwd_launches``.

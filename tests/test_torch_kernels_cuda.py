@@ -11,10 +11,9 @@ in different orders; bf16 rounds p before P.V in both); the forward's
 lse 1e-4 in both dtypes, and 1e-5 against log(#visible) when every
 score is 0.  The backward
 kernels are held relative to the largest entry of the plain result; the
-one-pass backward (K4) also bit for bit against itself and, in f32, against
-K2 + K3.  In bf16, K2 and K3 run on the tensor cores and K4 on f32 FMAs, so
-there K4 is held to its plain version only and its graduation comes back
-"mismatch".
+one-pass backward (K4) also bit for bit against itself and against K2 + K3
+in both dtypes (it continues their chains: f32 FMAs in f32, the same
+mma.sync fragments in bf16), so its graduation comes back "exact".
 """
 
 import numpy as np
@@ -150,6 +149,9 @@ def test_flash_bwd_matches_plain(dev, b, tq, tk, h, d, causal, qo, ko,
     (1, 128, 128, 2, 32, True, 0, 64, torch.float32, 1e-4),
     (1, 256, 256, 6, 128, True, 0, 0, torch.bfloat16, 2e-2),
     (1, 128, 128, 2, 32, True, 0, 64, torch.bfloat16, 2e-2),
+    (1, 1000, 1000, 6, 128, True, 0, 0, torch.bfloat16, 2e-2),   # ragged T
+    (1, 128, 256, 6, 128, True, 192, 0, torch.bfloat16, 2e-2),   # Tq != Tk
+    (2, 77, 130, 4, 64, False, 0, 0, torch.bfloat16, 2e-2),
 ])
 def test_fused_bwd_matches_plain_and_equals_two_kernels(
         dev, b, tq, tk, h, d, causal, qo, ko, dtype, tol):
@@ -169,24 +171,20 @@ def test_fused_bwd_matches_plain_and_equals_two_kernels(
         assert g.dtype == dtype and _rel(g, w) <= tol
     for g, a in zip(got, again):
         assert torch.equal(g, a)
-    if dtype == torch.float32:   # both on f32 FMAs: the same chains
-        two = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
-        for g, w in zip(got, two):
-            assert torch.equal(g, w)
+    two = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    for g, w in zip(got, two):   # the same chains in both dtypes
+        assert torch.equal(g, w)
     if ko > qo:
         assert float(got[0][:, :ko - qo].abs().max()) == 0.0
 
 
 def test_fused_bwd_graduates_on_the_card(dev):
-    """f32: K4 is K2 + K3 bit for bit and graduates.  bf16: K2 and K3 run
-    on the tensor cores, K4 on f32 FMAs, so the parity run rejects it
-    (exact or reject) while the error stays within bf16's tolerance."""
+    """K4 is K2 + K3 bit for bit in both dtypes, so it graduates in both."""
     fu.clear_verdicts()
     try:
-        v = fu.selfcheck(bh=4, t=512, d=128, dtype=torch.float32)
-        assert v.status == "exact" and v.err == 0.0
-        v = fu.selfcheck(bh=4, t=512, d=128, dtype=torch.bfloat16)
-        assert v.status == "mismatch" and 0.0 < v.err <= 2e-2
+        for dtype in (torch.float32, torch.bfloat16):
+            v = fu.selfcheck(bh=4, t=512, d=128, dtype=dtype)
+            assert v.status == "exact" and v.err == 0.0
     finally:
         fu.clear_verdicts()
 

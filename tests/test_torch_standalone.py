@@ -169,3 +169,39 @@ def test_training_runs_on_the_cpu_when_asked(no_cuda):
                                           steps=2, causal=True, device="cpu")
     assert len(losses) == 2 and all(map(math.isfinite, losses))
     assert params["proj"].device.type == "cpu"
+
+
+def test_build_keeps_the_compiler_log_beside_the_library(tmp_path,
+                                                         monkeypatch):
+    """The compiler's output (ptxas's register lines) is read back from
+    beside the library, so it is there without a rebuild; a library
+    whose log is missing is built again."""
+    from dist_keras_tpu_torch.ops import _build
+
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\necho "ptxas info : Used 40 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    built = _build.build(["paged_decode"])
+    assert list(built) == ["paged_decode"]
+    assert _build.library_path("paged_decode").exists()
+    assert "Used 40 registers" in _build.build_log("paged_decode")
+    assert _build.build(["paged_decode"]) == {}
+    _build.library_path("paged_decode").with_suffix(".log").unlink()
+    assert list(_build.build(["paged_decode"])) == ["paged_decode"]
+    assert "Used 40 registers" in _build.build_log("paged_decode")
+
+
+def test_kernel_bits_digest_agrees_exactly_when_torch_equal_does():
+    from dist_keras_tpu_torch.utils.kernel_bits import digest
+
+    x = torch.tensor([0.0, 1.5, -2.25])
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = x.to(dtype), torch.tensor([-0.0, 1.5, -2.25]).to(dtype)
+        assert torch.equal(a, b) and digest(a) == digest(b)
+        c = a.clone()
+        c[1] = 1.5 + 2 ** -7   # one bf16 ulp up
+        assert not torch.equal(a, c) and digest(a) != digest(c)
