@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``HGMMA`` in ``cuobjdump -sass``) of each instantiation of the bf16
    flash forward (K1), the bf16 flash backward (K2, K3), the bf16
    one-pass backward (K4) and the f32 flash forward (K1, split TF32):
-   none may be zero;
+   none may be zero; the paged-decode kernel (K5) prints its registers
+   and may not spill either;
 3. the flash-forward kernel against ``flash_attention_reference`` (out
    and lse) at the prefill shapes, non-causal, offsets, dead rows,
    ragged T and D=32/64, each in f32 and in bf16, and the training
@@ -35,9 +36,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    dtypes (f32: the same fmaf chains; bf16: the same ``mma.sync``
    chains, K4 being K3's block with K2's dQ chain handed between kv
    tiles);
-4. the paged-decode kernel against ``paged_attention_reference`` at the
-   decode-ladder slot counts, lengths 0 / partial page / page boundary
-   / full extent;
+4. the paged-decode kernel (split-KV) against ``paged_attention_reference``
+   and the plain split model at the decode-ladder slot counts, lengths
+   0 / partial page / page boundary / full extent, with the plan's
+   n_split and with n_split forced to 1, 2 and one chunk per split;
+   two launches bit for bit; launches on two streams at once; the
+   plan's grid holds at least one block per SM at S=1 and S=8;
 5. the full-width transformer served behind ``ServingServer``:
    concurrent ``POST /generate`` requests (one streamed) over all three
    prefill rungs, every reply 200 and token-equal to a greedy oracle
@@ -45,7 +49,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    each kernel launched at least once; no KV page leaked after drain;
 6. timing at the engine's shapes: each kernel, its plain version, the
    library yardstick where one exists (timed here only — the port never
-   calls it), and the engine's tokens/s and TTFT p50;
+   calls it), and the engine's tokens/s and TTFT p50; K5 at every decode
+   rung at full length, over input sets rotated so that each call reads
+   device memory, not the L2; one decode step's wall, device time and
+   its device time by kernel (K5, cuBLAS, the rest);
 7. training at full width (the ``bench_transformer_tp`` config, bf16,
    causal): one step's loss and every gradient through the kernels
    against the same step with plain attention (bf16, then f32); 10
@@ -67,7 +74,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    yardsticks; then K4 against K2 + K3's summed time, and bit for bit
    against their results, at this shape and at B=2, T=8192; K1 against
    SDPA's forward at B=2, T=8192 (bf16) and at the training shape in
-   f32.
+   f32; then K2, K3 and K4 in f32 at the training shape against their
+   plain versions and beside SDPA's f32 backward, K4 bit for bit against
+   K2 + K3.
+
+``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
+K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
+two trees' K5 can be timed on the same inputs in one run.
 
 The line before the last is a JSON object of per-kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -484,7 +497,11 @@ def check_flash_grad(fa, rng, dev):
 
 
 # -- phase 4: paged decode -------------------------------------------------
-def paged_inputs(rng, dev, s, lengths, h=6, d=128, max_pages=128):
+def paged_inputs(rng, dev, s, lengths, h=6, d=128, max_pages=128,
+                 distinct=False):
+    """q, pools, page table and lengths; ``distinct`` gives every slot
+    pages of its own, as the engine's allocator does (else page ids are
+    drawn with replacement)."""
     import torch
 
     pool = s * max_pages + 1
@@ -493,32 +510,86 @@ def paged_inputs(rng, dev, s, lengths, h=6, d=128, max_pages=128):
     q = mk(s, h, d)
     kp = mk(h, pool, PAGE_SIZE, d)
     vp = mk(h, pool, PAGE_SIZE, d)
-    pt = torch.from_numpy(rng.integers(0, pool, size=(s, max_pages),
-                                       dtype=np.int32)).to(dev)
+    ids = (rng.permutation(pool)[:s * max_pages].reshape(s, max_pages)
+           if distinct else rng.integers(0, pool, size=(s, max_pages)))
+    pt = torch.from_numpy(ids.astype(np.int32)).to(dev)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, kp, vp, pt, ln
 
 
 def check_paged(da, rng, dev):
+    """K5 against its plain version at the decode rungs with the plan's
+    n_split and with n_split forced to 1, 2 and the cap; against the
+    plain split model; bit for bit against itself; and on two streams at
+    once."""
     import torch
 
     full = 128 * PAGE_SIZE
+    n_sm = da.sm_count(dev)
+    cap = -(-full // da.CHUNK)
     picks = [0, 5, PAGE_SIZE, full, 1000, 33, full - 1, PAGE_SIZE + 1]
     for s in DECODE_LADDER:
-        lengths = picks[:s] if s > 1 else [1000]
-        q, kp, vp, pt, ln = paged_inputs(rng, dev, s, lengths)
-        got = da.paged_attention_kernel(q, kp, vp, pt, ln)
-        ref = da.paged_attention_reference(q, kp, vp, pt, ln)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        print(f"  paged_decode S={s} lengths={lengths}: "
-              f"max_abs_err={err:.3e} (tol {F32_TOL:g})")
-        require(err <= F32_TOL,
-                f"paged_decode disagrees with its plain version at S={s}")
-        for i, n in enumerate(lengths):
-            if n == 0:
-                require(float(got[i].abs().max()) == 0.0,
-                        "paged_decode: a length-0 slot is not exact zeros")
+        for lengths in ([1000] if s == 1 else picks[:s], [full] * s):
+            q, kp, vp, pt, ln = paged_inputs(rng, dev, s, lengths)
+            ref = da.paged_attention_reference(q, kp, vp, pt, ln)
+            plan = da.split_plan(s, q.shape[1], 128, PAGE_SIZE, n_sm)
+            for n_split in (None, 1, 2, cap):
+                got = da.paged_attention_kernel(q, kp, vp, pt, ln,
+                                                n_split=n_split)
+                again = da.paged_attention_kernel(q, kp, vp, pt, ln,
+                                                  n_split=n_split)
+                torch.cuda.synchronize()
+                n = plan if n_split is None else n_split
+                err = float((got - ref).abs().max())
+                split_err = float((got - da.paged_attention_split_reference(
+                    q, kp, vp, pt, ln, n)).abs().max())
+                same = torch.equal(got, again)
+                print(f"  paged_decode S={s} lengths={lengths} n_split={n}"
+                      f"{' (plan)' if n_split is None else ''} grid "
+                      f"{q.shape[1]}x{s}x{n}: max_abs_err={err:.3e}, "
+                      f"against the split model {split_err:.3e} (tol "
+                      f"{F32_TOL:g}); two launches bit-equal {same}")
+                require(err <= F32_TOL and split_err <= F32_TOL,
+                        f"paged_decode disagrees with its plain version at "
+                        f"S={s} n_split={n}")
+                require(same, f"paged_decode is not deterministic at S={s} "
+                              f"n_split={n}")
+                for i, length in enumerate(lengths):
+                    if length == 0:
+                        require(float(got[i].abs().max()) == 0.0,
+                                "paged_decode: a length-0 slot is not exact "
+                                "zeros")
+            if lengths == [full] * s and s in (1, DECODE_LADDER[-1]):
+                blocks = q.shape[1] * s * plan
+                require(blocks >= n_sm, f"the plan launches {blocks} blocks "
+                                        f"for {n_sm} SMs at S={s}")
+    check_paged_streams(da, rng, dev)
+
+
+def check_paged_streams(da, rng, dev):
+    """Launches on two streams at once, each with its own tickets and
+    workspace: both give the plain version's result."""
+    import torch
+
+    full = 128 * PAGE_SIZE
+    cases = [paged_inputs(rng, dev, 8, [full, 0, 1000, 33, full, 5, 17, 16]),
+             paged_inputs(rng, dev, 4, [full] * 4)]
+    refs = [da.paged_attention_reference(*c) for c in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(da.paged_attention_kernel(*cases[i]))
+    torch.cuda.synchronize()
+    errs = [max(float((o - refs[i]).abs().max()) for o in outs[i])
+            for i in range(2)]
+    print(f"  paged_decode on two streams at once (8 launches each): "
+          f"max_abs_err {errs[0]:.3e} / {errs[1]:.3e} (tol {F32_TOL:g})")
+    require(max(errs) <= F32_TOL,
+            "paged_decode disagrees with its plain version on two streams")
 
 
 # -- phase 5: serving ------------------------------------------------------
@@ -683,37 +754,82 @@ def time_kernels(fa, da, rng, dev, gpu):
                  "bound_ms": bnd, "bound_by": by, "library_ms": lib,
                  "shape": f"B={b} T={t} H={h} D={d} causal f32"})
 
-    s, full = DECODE_LADDER[-1], 128 * PAGE_SIZE
-    lengths = [full] * s
-    q, kp, vp, pt, ln = paged_inputs(rng, dev, s, lengths, h=h, d=d)
-    got = da.paged_attention_kernel(q, kp, vp, pt, ln)
-    err = float((got - da.paged_attention_reference(q, kp, vp, pt, ln))
-                .abs().max())
-    ms = time_ms(lambda: da.paged_attention_kernel(q, kp, vp, pt, ln))
-    plain = time_ms(lambda: da.paged_attention_reference(q, kp, vp, pt, ln))
-    kv_positions = sum(lengths)
-    nbytes = (2 * h * kv_positions * d * 4 + 2 * s * h * d * 4
-              + pt.numel() * 4 + s * 4)
-    bnd, by = bound_ms(nbytes, 4 * h * d * kv_positions)
-    rows.append({"name": "paged_decode", "route": "cuda",
-                 "source": "dist_keras_tpu_torch/csrc/paged_decode.cu",
-                 "replaces":
-                     "dist_keras_tpu/ops/pallas/decode_attention.py:100",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": bnd, "bound_by": by, "library_ms": None,
-                 "shape": f"S={s} H={h} D={d} page_size={PAGE_SIZE} "
-                          f"max_pages=128 lengths={full} f32"})
+    rows.append(time_paged_rungs(da, rng, dev, gpu)[DECODE_LADDER[-1]])
     for r in rows:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         print(f"  {r['name']} [{r['shape']}] on {gpu}: {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-    # the smallest decode rung: one (slot, head) block per head only
-    q, kp, vp, pt, ln = paged_inputs(rng, dev, 1, [full], h=h, d=d)
-    ms = time_ms(lambda: da.paged_attention_kernel(q, kp, vp, pt, ln))
-    print(f"  paged_decode [S=1 lengths={full}] on {gpu}: {ms:.4f} ms, "
-          f"{2 * h * full * d * 4 / ms / 1e6:.1f} GB/s of K/V")
+    return rows
+
+
+L2_BYTES = 50e6     # the H100's L2
+
+
+def time_paged_rungs(da, rng, dev, gpu):
+    """K5 at each decode rung with every slot at full length (2048
+    positions), and at the decode step's shape, with its bound and its
+    plain version's time.  Slots hold pages of their own, as the engine's
+    allocator gives them, and the timed calls rotate over enough input
+    sets (at least two, at least three times the L2 in all) that each
+    call reads its K/V from device memory, not from the L2.  Calls only
+    ``paged_attention_kernel(q, kp, vp, pt, ln)``, so it times an older
+    tree's kernel too (``--paged-timing-of``).  -> {S: JSON row} of the
+    full-length rungs."""
+    import torch
+
+    h, d = MODEL["n_heads"], MODEL["d_model"] // MODEL["n_heads"]
+    full = 128 * PAGE_SIZE
+    rows = {}
+    # each rung at full length, then the decode step's shape (phase 6's
+    # "decode step": S=8 at position 1000, 1001 positions per slot)
+    for s, n in [(s, full) for s in DECODE_LADDER] + [(DECODE_LADDER[-1],
+                                                      1001)]:
+        lengths = [n] * s
+        kv_bytes = 2 * h * s * n * d * 4
+        n_sets = max(2, -(-int(3 * L2_BYTES) // kv_bytes))
+        sets = [paged_inputs(rng, dev, s, lengths, h=h, d=d, distinct=True)
+                for _ in range(n_sets)]
+        err = max(float((da.paged_attention_kernel(*a)
+                          - da.paged_attention_reference(*a)).abs().max())
+                  for a in sets)
+        require(err <= F32_TOL, f"paged_decode disagrees with its plain "
+                                f"version at S={s}")
+        turn = iter(range(1 << 62))
+        ms = time_ms(lambda: da.paged_attention_kernel(
+            *sets[next(turn) % n_sets]), reps=10 * n_sets)
+        plain = time_ms(lambda: da.paged_attention_reference(
+            *sets[next(turn) % n_sets]), reps=2 * n_sets, trials=5)
+        pt = sets[0][3]
+        nbytes = kv_bytes + 2 * s * h * d * 4 + pt.numel() * 4 + s * 4
+        bnd, by = bound_ms(nbytes, 4 * h * d * s * n)
+        print(f"  paged_decode [S={s} lengths={n}] on {gpu}: {ms:.4f} ms "
+              f"({kv_bytes / ms / 1e9:.3f} TB/s of K/V), plain {plain:.4f} "
+              f"ms, bound {bnd:.4f} ms ({by}); {n_sets} input sets of "
+              f"{kv_bytes / 1e6:.1f} MB of K/V in turn, so each call reads "
+              f"from device memory, not the L2")
+        del sets
+        if n != full:
+            continue
+        rows[s] = {"name": "paged_decode", "route": "cuda",
+                   "source": "dist_keras_tpu_torch/csrc/paged_decode.cu",
+                   "replaces":
+                       "dist_keras_tpu/ops/pallas/decode_attention.py:100",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                   "shape": f"S={s} H={h} D={d} page_size={PAGE_SIZE} "
+                            f"max_pages=128 lengths={full} f32"}
+    # beside the bytes: the launch and the combine alone (every slot
+    # empty), and the rate of a plain read of 200 MB (torch.sum)
+    s = DECODE_LADDER[-1]
+    empty = paged_inputs(rng, dev, s, [0] * s, h=h, d=d, distinct=True)
+    fixed = time_ms(lambda: da.paged_attention_kernel(*empty))
+    big = torch.ones(50 * 2 ** 20, device=dev)
+    read = time_ms(lambda: big.sum(), reps=10)
+    print(f"  paged_decode [S={s} lengths=0] on {gpu}: {fixed:.4f} ms (launch "
+          f"and combine, no K/V); torch.sum over {big.numel() * 4 / 1e6:.0f} "
+          f"MB: {read:.4f} ms = {big.numel() * 4 / read / 1e9:.3f} TB/s")
     return rows
 
 
@@ -746,9 +862,15 @@ def time_step(engine, dev, gpu):
         for _ in range(20):
             step().cpu()
         wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+        n_prof = 10
+        groups = profile_kernels(lambda: [step() for _ in range(n_prof)],
+                                 {"paged_decode": ("paged_decode_kernel",)})
+        groups = {k: v / n_prof for k, v in groups.items()}
     print(f"  decode step [S={s} position {pos}] on {gpu}: wall "
           f"{wall_ms:.3f} ms, device {device_ms:.3f} ms, card idle "
           f"{max(0.0, 1 - device_ms / wall_ms):.0%} of the step")
+    print_profile(f"decode step [S={s} position {pos}], mean of {n_prof}",
+                  groups, gpu)
 
 
 # -- phase 7: training -----------------------------------------------------
@@ -878,12 +1000,6 @@ def time_train_step(one_step, label, gpu):
 def profile_step(one_step, gpu):
     """Device time of one training step by kernel, from torch.profiler:
     the attention kernels, cuBLAS products, and the rest."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        one_step()
-        torch.cuda.synchronize()
     kernels = {"flash_fwd": ("flash_fwd_f32_kernel", "flash_fwd_bf16_kernel"),
                "flash_bwd_dq": ("flash_bwd_dq_kernel",
                                 "flash_bwd_dq_bf16_kernel"),
@@ -891,6 +1007,19 @@ def profile_step(one_step, gpu):
                                  "flash_bwd_dkv_bf16_kernel"),
                "flash_bwd_fused": ("flash_bwd_fused_kernel",
                                    "flash_bwd_fused_bf16_kernel")}
+    print_profile("train step", profile_kernels(one_step, kernels), gpu)
+
+
+def profile_kernels(one_step, kernels):
+    """Device time of one call of ``one_step`` by kernel, from
+    torch.profiler: {group: microseconds} for each group of ``kernels``
+    ({group: kernel-name fragments}), cuBLAS products, and the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one_step()
+        torch.cuda.synchronize()
     groups = dict.fromkeys(kernels, 0.0)
     groups.update({"cuBLAS products": 0.0, "other kernels": 0.0})
     for ev in prof.key_averages():
@@ -900,13 +1029,18 @@ def profile_step(one_step, gpu):
                 groups[kernel] += us
                 break
         else:
-            gemm = any(tag in name for tag in ("nvjet", "gemm", "cutlass"))
+            gemm = any(tag in name for tag in ("nvjet", "gemm", "gemv",
+                                                 "cutlass"))
             groups["cuBLAS products" if gemm else "other kernels"] += us
+    return groups
+
+
+def print_profile(label, groups, gpu):
     total = sum(groups.values())
-    require(total > 0, "the profiler saw no device time in a training step")
+    require(total > 0, f"the profiler saw no device time in a {label}")
     shares = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / total:.1%})"
                        for k, v in groups.items())
-    print(f"  train step device time by kernel (torch.profiler) on {gpu}: "
+    print(f"  {label} device time by kernel (torch.profiler) on {gpu}: "
           f"{total / 1e3:.3f} ms = {shares}")
 
 
@@ -939,32 +1073,38 @@ def check_remat(rng, dev):
 # -- phase 7b: training through the DK_FUSED_BWD route ----------------------
 def fused_step(fa, fu, params, x, y, cfg, dtype):
     """One step's (loss, grads) with the knob off, then on, the launch
-    counts zeroed just before the knob-on step and read just after.
-    -> (launches, knob-on bit-equal to knob-off)."""
+    counts zeroed just before each step and read just after.
+    -> (knob-on launches, knob-on bit-equal to knob-off, knob-off
+    launches)."""
     import torch
 
     from dist_keras_tpu_torch.parallel.transformer_tp import loss_and_grads
     from dist_keras_tpu_torch.utils.pytree import tree_leaves
 
-    kw = dict(causal=True, compute_dtype=dtype)
-    os.environ.pop("DK_FUSED_BWD", None)
-    off = loss_and_grads(params, x, y, cfg, **kw)
-    os.environ["DK_FUSED_BWD"] = "1"
-    torch.cuda.synchronize()
-    fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
-    fu.fused_bwd_launches = 0
-    on = loss_and_grads(params, x, y, cfg, **kw)
-    torch.cuda.synchronize()
-    launches = {"flash_bwd_fused": fu.fused_bwd_launches,
-                "flash_bwd_dq": fa.flash_bwd_dq_launches,
-                "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+    def counted(knob):
+        if knob:
+            os.environ["DK_FUSED_BWD"] = "1"
+        else:
+            os.environ.pop("DK_FUSED_BWD", None)
+        torch.cuda.synchronize()
+        fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
+        fu.fused_bwd_launches = 0
+        res = loss_and_grads(params, x, y, cfg, causal=True,
+                             compute_dtype=dtype)
+        torch.cuda.synchronize()
+        return res, {"flash_bwd_fused": fu.fused_bwd_launches,
+                     "flash_bwd_dq": fa.flash_bwd_dq_launches,
+                     "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+
+    off, off_launches = counted(False)
+    on, launches = counted(True)
     same = bit_equal([on[0], *tree_leaves(on[1])],
                      [off[0], *tree_leaves(off[1])])
     print(f"  one step B={x.shape[0]} T={x.shape[1]} {str(dtype)[6:]}, "
           f"DK_FUSED_BWD=1: launches {launches}; loss {float(on[0]):.6f} "
           f"and {len(tree_leaves(on[1]))} gradient leaves bit-equal to the "
           f"knob-off step: {same}")
-    return launches, same
+    return launches, same, off_launches
 
 
 def rejections(obs):
@@ -1018,8 +1158,8 @@ def train_fused(fa, fu, rng, dev, gpu, x, y):
                 factory, init_fn = make_tp_train_step(
                     cfg, causal=True, compute_dtype=dtype, device=dev)
                 params, opt_state = init_fn(0)
-                launches, same = fused_step(fa, fu, params, xs, ys, cfg,
-                                            dtype)
+                launches, same, off = fused_step(fa, fu, params, xs, ys,
+                                                 cfg, dtype)
                 require(launches == only_k4,
                         f"the graduated route launched {launches}")
                 require(same, f"the knob-on step differs from the knob-off "
@@ -1027,6 +1167,12 @@ def train_fused(fa, fu, rng, dev, gpu, x, y):
                 if (sb, st) == (b, t):
                     if dtype == torch.bfloat16:
                         bf16_launches = launches
+                    else:   # the f32 kernels' launches in one f32 step
+                        f32_launches = {
+                            "flash_bwd_fused_f32": launches[
+                                "flash_bwd_fused"],
+                            "flash_bwd_dq_f32": off["flash_bwd_dq"],
+                            "flash_bwd_dkv_f32": off["flash_bwd_dkv"]}
                     step = factory(params, opt_state)
                     time_train_step(
                         lambda: step(params, opt_state, xs, ys),
@@ -1048,7 +1194,7 @@ def train_fused(fa, fu, rng, dev, gpu, x, y):
                 os.environ[k] = v
         events.reset()
         obs_dir.cleanup()
-    return bf16_launches
+    return bf16_launches, f32_launches
 
 
 # -- phase 8: timing at the training shape ----------------------------------
@@ -1179,7 +1325,8 @@ def time_train_kernels(fa, fu, rng, dev, gpu):
     del q, k, v, do, lse, dl, args, qt, kt, vt
     torch.cuda.empty_cache()
     time_f32_train_fwd(fa, rng, dev, gpu)
-    return rows
+    torch.cuda.empty_cache()
+    return rows + time_f32_train_bwd(fa, fu, rng, dev, gpu)
 
 
 def time_f32_train_fwd(fa, rng, dev, gpu):
@@ -1219,6 +1366,79 @@ def time_f32_train_fwd(fa, rng, dev, gpu):
           f"{plain:.4f} ms, bound {bnd:.4f} ms (split-TF32 rate)")
 
 
+def time_f32_train_bwd(fa, fu, rng, dev, gpu):
+    """K2, K3 and K4 in f32 (FMA kernels) at the training shape, each held
+    against its plain version, beside SDPA's f32 backward (TF32 off) as
+    the library yardstick; bounds at the split-TF32 rate (the JSON rows)
+    and at the f32 FMA rate.  -> JSON rows."""
+    import torch
+    import torch.nn.functional as F
+
+    b, t, h = TRAIN_BATCH, TRAIN_MODEL["seq_len"], TRAIN_MODEL["n_heads"]
+    d = TRAIN_MODEL["d_model"] // h
+    shape = f"B={b} T={t} H={h} D={d} causal f32"
+    q, k, v, do, lse, dl = bwd_inputs(fa, rng, dev, b, t, t, h, d, True, 0,
+                                      0, torch.float32, False)
+    args = (q, k, v, do, lse, dl, True, d ** -0.5, 0, 0)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    g = do.transpose(1, 2)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), g, retain_graph=True), reps=5, trials=5)
+    del qt, kt, vt, sdpa_out, g
+    torch.cuda.empty_cache()
+    n, es = b * t * h * d, 4
+    rows_bh = b * h * t * 4
+    pairs = b * h * t * (t + 1) // 2
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    fused = fu.fused_bwd(*args)
+    rows, times = [], {}
+    for name, got, run, plain, nbytes, flops, source, replaces in (
+            ("flash_bwd_dq_f32", (dq,), lambda: fa.flash_bwd_dq(*args),
+             lambda: fa.flash_bwd_dq_reference(*args),
+             5 * n * es + 2 * rows_bh, 6 * d * pairs, "flash_bwd.cu",
+             "flash_attention.py:285"),
+            ("flash_bwd_dkv_f32", (dk, dv), lambda: fa.flash_bwd_dkv(*args),
+             lambda: fa.flash_bwd_dkv_reference(*args),
+             6 * n * es + 2 * rows_bh, 8 * d * pairs, "flash_bwd.cu",
+             "flash_attention.py:320"),
+            ("flash_bwd_fused_f32", fused, lambda: fu.fused_bwd(*args),
+             lambda: fu.fused_bwd_reference(*args),
+             7 * n * es + 2 * rows_bh, 10 * d * pairs, "fused_bwd.cu",
+             "fused_bwd_experimental.py:78")):
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(max_abs_err(x, w) for x, w in zip(got, want))
+        rel = max(rel_err(x, w) for x, w in zip(got, want))
+        del want
+        require(rel <= F32_TOL, f"{name} disagrees with its plain version "
+                                f"at {shape}: {rel:.3e}")
+        ms = time_ms(run, reps=5, trials=5)
+        plain_ms = time_ms(plain, reps=2, trials=3)
+        torch.cuda.empty_cache()
+        bnd, by = bound_ms(nbytes, flops, "float32_split_tf32")
+        fma, fma_by = bound_ms(nbytes, flops, "float32")
+        times[name] = ms
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"dist_keras_tpu_torch/csrc/{source}",
+                     "replaces": f"dist_keras_tpu/ops/pallas/{replaces}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd, "bound_by": by,
+                     "library_ms": sdpa_bwd, "shape": shape})
+        print(f"  {name} [{shape}] on {gpu}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {sdpa_bwd:.4f} ms "
+              f"(scaled_dot_product_attention f32 backward, dq, dk, dv "
+              f"together; {ms / sdpa_bwd:.2f}x), bound {bnd:.4f} ms ({by}, "
+              f"split-TF32 rate) / {fma:.4f} ms ({fma_by}, f32 FMA rate), "
+              f"max_abs_err {err:.3e}, relative to the largest entry "
+              f"{rel:.3e} (tol {F32_TOL:g})")
+    fused_vs_two(times["flash_bwd_fused_f32"], times["flash_bwd_dq_f32"],
+                 times["flash_bwd_dkv_f32"], shape, gpu, fused, (dq, dk, dv))
+    return rows
+
+
 def fused_vs_two(k4, k2, k3, shape, gpu, fused, two):
     """Print K4's time against K2 + K3's and require their results to be
     the same bits."""
@@ -1229,19 +1449,29 @@ def fused_vs_two(k4, k2, k3, shape, gpu, fused, two):
     require(same, f"fused_bwd is not bit-equal to K2+K3 at {shape}")
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--paged-timing-of", type=Path, metavar="CHECKOUT",
+                    help="time only the paged-decode kernel at the decode "
+                         "rungs (phase 6's inputs), from the "
+                         "dist_keras_tpu_torch of CHECKOUT, to compare two "
+                         "trees in one run")
+    a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    if not (ROOT / "dist_keras_tpu_torch" / "csrc").is_dir():
-        print(f"chip_smoke: no dist_keras_tpu_torch package beside "
-              f"{Path(__file__).name}; run it from the repository root",
+    root = (a.paged_timing_of or ROOT).resolve()
+    if not (root / "dist_keras_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no dist_keras_tpu_torch package in {root}; run "
+              f"{Path(__file__).name} from the repository root",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     from dist_keras_tpu_torch.ops import _build
     from dist_keras_tpu_torch.ops import decode_attention as da
     from dist_keras_tpu_torch.ops import flash_attention as fa
@@ -1252,6 +1482,11 @@ def main():
     print(gpu)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if a.paged_timing_of:
+        print(f"paged_decode timing of {root}")
+        rows = time_paged_rungs(da, np.random.default_rng(0),
+                                torch.device("cuda"), gpu)
+        return 0
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     print(f"  allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -1280,9 +1515,20 @@ def main():
                    ("flash_bwd", "flash_bwd_dkv_bf16_kernel"),
                    ("fused_bwd", "flash_bwd_fused_bf16_kernel"),
                    ("flash_fwd", "flash_fwd_f32_kernel"))
+    no_spill = [kernel for _, kernel in tensor_core] + ["paged_decode_kernel"]
     spilled = {f: u for f, u in usage.items() if any(u[1:]) and any(
-        kernel in f for _, kernel in tensor_core)}
-    require(not spilled, f"tensor-core kernels spill registers: {spilled}")
+        kernel in f for kernel in no_spill)}
+    require(not spilled, f"tensor-core or paged-decode kernels spill "
+                         f"registers: {spilled}")
+    paged = {re.search(r"ILi(\d+)E", f).group(1): u
+             for f, u in usage.items() if "paged_decode_kernel" in f}
+    for dim, (regs, stores, loads) in sorted(paged.items(), key=lambda x:
+                                             int(x[0])):
+        print(f"  paged_decode_kernel<{dim}>: ptxas {regs} registers, spill "
+              f"stores {stores} B, loads {loads} B")
+    require(set(paged) == {"32", "64", "128"},
+            f"ptxas printed no register line for a paged_decode_kernel "
+            f"instantiation: {sorted(paged)}")
     for lib, kernel in tensor_core:
         counts = tensor_core_counts(_build, lib, kernel)
         for fn, n in counts.items():
@@ -1336,8 +1582,9 @@ def main():
     torch.cuda.empty_cache()
     print("phase 7b: train through the DK_FUSED_BWD route (K4 in bf16 and "
           "f32)")
-    fused_launches = train_fused(fa, fu, rng, dev, gpu, x, y)
+    fused_launches, f32_launches = train_fused(fa, fu, rng, dev, gpu, x, y)
     train_launches["flash_bwd_fused"] = fused_launches["flash_bwd_fused"]
+    train_launches.update(f32_launches)
     del x, y
     torch.cuda.empty_cache()
     print("phase 8: kernel timing at the training shape")

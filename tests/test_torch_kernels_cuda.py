@@ -246,19 +246,59 @@ def test_flash_fwd_rejects_what_it_does_not_take(dev):
         fa.flash_bwd_dkv(q, q, q, q, lse[:, :1], lse, True, 0.1, 0, 0)
 
 
-@pytest.mark.parametrize("s", [1, 4, 8])
-def test_paged_decode_matches_plain(dev, s):
-    rng = np.random.default_rng(s)
-    h, d, ps, max_pages = 6, 128, 16, 128
+def _paged_inputs(rng, dev, s, lengths, h=6, d=128, ps=16, max_pages=128):
     pool = s * max_pages + 1
     q = _randn(rng, (s, h, d), dev)
     kp = _randn(rng, (h, pool, ps, d), dev)
     vp = _randn(rng, (h, pool, ps, d), dev)
     pt = torch.from_numpy(rng.integers(0, pool, size=(s, max_pages),
                                        dtype=np.int32)).to(dev)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, pt, ln
+
+
+@pytest.mark.parametrize("n_split", [None, 1, 2, "cap"])
+@pytest.mark.parametrize("s", [1, 4, 8])
+def test_paged_decode_matches_plain(dev, s, n_split):
+    rng = np.random.default_rng(s)
+    ps, max_pages = 16, 128
     picks = [0, 5, ps, max_pages * ps, 1000, 33, ps + 1, 2047]
-    ln = torch.tensor(picks[:s], dtype=torch.int32, device=dev)
-    got = da.paged_attention_auto(q, kp, vp, pt, ln)
-    ref = da.paged_attention_reference(q, kp, vp, pt, ln)
+    args = _paged_inputs(rng, dev, s, picks[:s])
+    if n_split == "cap":   # one chunk per split
+        n_split = -(-max_pages * ps // da.CHUNK)
+    got = (da.paged_attention_auto(*args) if n_split is None   # the plan
+           else da.paged_attention_kernel(*args, n_split=n_split))
+    ref = da.paged_attention_reference(*args)
     assert float((got - ref).abs().max()) <= 1e-4
     assert float(got[0].abs().max()) == 0.0      # slot 0 has length 0
+    # the partials merge in split order: two launches give the same bits
+    assert torch.equal(got, da.paged_attention_kernel(*args,
+                                                      n_split=n_split))
+
+
+def test_paged_decode_plan_fills_the_card(dev):
+    n_sm = da.sm_count(dev)
+    for s in (1, 8):
+        n = da.split_plan(s, 6, 128, 16, n_sm)
+        assert 6 * s * n >= n_sm
+
+
+def test_paged_decode_on_two_streams_at_once(dev):
+    rng = np.random.default_rng(11)
+    cases = [_paged_inputs(rng, dev, 8, [2048, 0, 1000, 33, 2048, 5, 17, 16]),
+             _paged_inputs(rng, dev, 4, [2048] * 4)]
+    refs = [da.paged_attention_reference(*c) for c in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(da.paged_attention_kernel(*cases[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for o in outs[i]:
+            assert float((o - refs[i]).abs().max()) <= 1e-4
+
+
