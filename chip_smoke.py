@@ -12,10 +12,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 2. build every kernel of the serving and training paths from ``csrc/``,
    print ptxas's register and spill lines (a tensor-core kernel that
    spills fails), and count the tensor-core instructions (``HMMA``/
-   ``HGMMA`` in ``cuobjdump -sass``) of each instantiation of the bf16
-   flash forward (K1), the bf16 flash backward (K2, K3), the bf16
-   one-pass backward (K4) and the f32 flash forward (K1, split TF32):
-   none may be zero; the paged-decode kernel (K5) prints its registers
+   ``HGMMA`` in ``cuobjdump -sass``) of each instantiation of the flash
+   forward (K1), the flash backward (K2, K3) and the one-pass backward
+   (K4), each in bf16 and in f32 (split TF32): none may be zero; the paged-decode kernel (K5) prints its registers
    and may not spill either;
 3. the flash-forward kernel against ``flash_attention_reference`` (out
    and lse) at the prefill shapes, non-causal, offsets, dead rows,
@@ -27,15 +26,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3b. the flash-backward kernels (dq; dk/dv) against
    ``flash_bwd_reference`` at the training shape, non-causal, offsets
    with dead rows, ragged T, D=32/64, a nonzero lse cotangent, each in
-   f32 and in bf16 (the bf16 ones on the tensor cores); then
+   f32 and in bf16 (both on the tensor cores); then
    ``torch.autograd.grad`` through the kernels against autograd through
    plain attention;
 3c. the one-pass backward (K4) on the same cases: against
    ``fused_bwd_reference``, bit for bit against itself across two
    launches, and bit for bit against K2 + K3 on the same inputs in both
-   dtypes (f32: the same fmaf chains; bf16: the same ``mma.sync``
-   chains, K4 being K3's block with K2's dQ chain handed between kv
-   tiles);
+   dtypes (the same ``mma.sync`` chains, K4 being K3's block with K2's
+   dQ chain handed between kv tiles);
 4. the paged-decode kernel (split-KV) against ``paged_attention_reference``
    and the plain split model at the decode-ladder slot counts, lengths
    0 / partial page / page boundary / full extent, with the plan's
@@ -1001,11 +999,11 @@ def profile_step(one_step, gpu):
     """Device time of one training step by kernel, from torch.profiler:
     the attention kernels, cuBLAS products, and the rest."""
     kernels = {"flash_fwd": ("flash_fwd_f32_kernel", "flash_fwd_bf16_kernel"),
-               "flash_bwd_dq": ("flash_bwd_dq_kernel",
+               "flash_bwd_dq": ("flash_bwd_dq_f32_kernel",
                                 "flash_bwd_dq_bf16_kernel"),
-               "flash_bwd_dkv": ("flash_bwd_dkv_kernel",
+               "flash_bwd_dkv": ("flash_bwd_dkv_f32_kernel",
                                  "flash_bwd_dkv_bf16_kernel"),
-               "flash_bwd_fused": ("flash_bwd_fused_kernel",
+               "flash_bwd_fused": ("flash_bwd_fused_f32_kernel",
                                    "flash_bwd_fused_bf16_kernel")}
     print_profile("train step", profile_kernels(one_step, kernels), gpu)
 
@@ -1118,7 +1116,7 @@ def train_fused(fa, fu, rng, dev, gpu, x, y):
     (K4 is K2 + K3 bit for bit), the step runs K4 only, bit-equal to the
     knob-off step; at the training size also one adam step's wall,
     device time and profile.  f32 at the training size: likewise, with
-    the step's wall, device time and profile.  No ``fused_bwd_rejected``
+    the step's wall, device time and profile, knob on and knob off.  No ``fused_bwd_rejected``
     is written.  -> the bf16 training-size step's launches."""
     import tempfile
 
@@ -1178,6 +1176,13 @@ def train_fused(fa, fu, rng, dev, gpu, x, y):
                         lambda: step(params, opt_state, xs, ys),
                         f"train step {str(dtype)[6:]} DK_FUSED_BWD=1 "
                         f"[B={sb} T={st}]", gpu)
+                    if dtype == torch.float32:   # beside it, K2 + K3
+                        os.environ.pop("DK_FUSED_BWD")
+                        time_train_step(
+                            lambda: step(params, opt_state, xs, ys),
+                            f"train step float32 knob off [B={sb} "
+                            f"T={st}]", gpu)
+                        os.environ["DK_FUSED_BWD"] = "1"
                     del step
                 del params, opt_state
                 torch.cuda.empty_cache()
@@ -1367,10 +1372,11 @@ def time_f32_train_fwd(fa, rng, dev, gpu):
 
 
 def time_f32_train_bwd(fa, fu, rng, dev, gpu):
-    """K2, K3 and K4 in f32 (FMA kernels) at the training shape, each held
-    against its plain version, beside SDPA's f32 backward (TF32 off) as
-    the library yardstick; bounds at the split-TF32 rate (the JSON rows)
-    and at the f32 FMA rate.  -> JSON rows."""
+    """K2, K3 and K4 in f32 (split-TF32 tensor-core kernels) at the
+    training shape, each held against its plain version, beside SDPA's
+    f32 backward (TF32 off) as the library yardstick; bounds at the
+    split-TF32 rate (the JSON rows) and at the f32 FMA rate.
+    -> JSON rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1398,15 +1404,15 @@ def time_f32_train_bwd(fa, fu, rng, dev, gpu):
     for name, got, run, plain, nbytes, flops, source, replaces in (
             ("flash_bwd_dq_f32", (dq,), lambda: fa.flash_bwd_dq(*args),
              lambda: fa.flash_bwd_dq_reference(*args),
-             5 * n * es + 2 * rows_bh, 6 * d * pairs, "flash_bwd.cu",
+             5 * n * es + 2 * rows_bh, 6 * d * pairs, "flash_bwd_f32.cuh",
              "flash_attention.py:285"),
             ("flash_bwd_dkv_f32", (dk, dv), lambda: fa.flash_bwd_dkv(*args),
              lambda: fa.flash_bwd_dkv_reference(*args),
-             6 * n * es + 2 * rows_bh, 8 * d * pairs, "flash_bwd.cu",
+             6 * n * es + 2 * rows_bh, 8 * d * pairs, "flash_bwd_f32.cuh",
              "flash_attention.py:320"),
             ("flash_bwd_fused_f32", fused, lambda: fu.fused_bwd(*args),
              lambda: fu.fused_bwd_reference(*args),
-             7 * n * es + 2 * rows_bh, 10 * d * pairs, "fused_bwd.cu",
+             7 * n * es + 2 * rows_bh, 10 * d * pairs, "flash_bwd_f32.cuh",
              "fused_bwd_experimental.py:78")):
         want = plain()
         want = want if isinstance(want, tuple) else (want,)
@@ -1514,7 +1520,10 @@ def main(argv=None):
                    ("flash_bwd", "flash_bwd_dq_bf16_kernel"),
                    ("flash_bwd", "flash_bwd_dkv_bf16_kernel"),
                    ("fused_bwd", "flash_bwd_fused_bf16_kernel"),
-                   ("flash_fwd", "flash_fwd_f32_kernel"))
+                   ("flash_fwd", "flash_fwd_f32_kernel"),
+                   ("flash_bwd", "flash_bwd_dq_f32_kernel"),
+                   ("flash_bwd", "flash_bwd_dkv_f32_kernel"),
+                   ("fused_bwd", "flash_bwd_fused_f32_kernel"))
     no_spill = [kernel for _, kernel in tensor_core] + ["paged_decode_kernel"]
     spilled = {f: u for f, u in usage.items() if any(u[1:]) and any(
         kernel in f for kernel in no_spill)}

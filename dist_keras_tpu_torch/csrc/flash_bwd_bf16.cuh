@@ -16,11 +16,8 @@
 //
 // every product an f32 sum of bf16 operands, P rounded to bf16 before
 // P^T dO and dS before dS K and dS^T Q, the outputs written as bf16.
-// The masking and dS arithmetic are flash_bwd_tiles.cuh's `visible`,
-// `safe_lse` and `dscore`, shared with the f32 kernels; P is
-// 2^(s * scale log2(e) - lse log2(e)), one FFMA and the special-function
-// unit's ex2.approx, where the f32 kernels call expf, a longer sequence
-// of instructions on this path's hottest loop.
+// P and dS are flash_bwd_tiles.cuh's `p_ds`, shared with the f32
+// kernels (flash_bwd_f32.cuh).
 //
 // Orientation contract.  Both kernels form S and dP with q rows as the M
 // dimension, through the one device function `sdp_mma`: each element is
@@ -88,7 +85,6 @@ using dk_bwd::NT;         // 128 threads, 4 warps
 constexpr int BQ = 64;    // K2: q rows per block, 16 per warp
 constexpr int BK = 64;    // keys per kv tile (K2's loop, K3's block)
 constexpr int SQ = 32;    // K3: q rows per step
-constexpr long long L2_GROUP_BYTES = 16ll << 20;
 static_assert(SQ == dk_bwd::KV_BQ, "K3 steps on first_q_tile's grid");
 
 // Shared-memory geometry at head dim D (strides in elements, sizes in bytes).
@@ -153,30 +149,8 @@ __device__ __forceinline__ void sdp_mma(uint32_t qs, uint32_t dos, int qr0, uint
   }
 }
 
-constexpr float LOG2E = 1.4426950408889634f;
-
-// In place: s becomes P (f32) and dp becomes dS = P * (dP + dl), for the
-// fragments of sdp_mma whose row g is global row row0 + g and whose key
-// group j starts at key0 + 8j.  lse2_r / dl_r are the lane's rows g and
-// g + 8 (lse through safe_lse, times log2(e)); scale2 = scale * log2(e).
-// Without `edge` every pair is visible and the mask is skipped.
-template <int NJ>
-__device__ __forceinline__ void p_ds(float (&s)[NJ][4], float (&dp)[NJ][4],
-                                     const float (&lse2_r)[2], const float (&dl_r)[2],
-                                     float scale2, bool edge, int row0, int key0, int Tq,
-                                     int Tk, int causal, int q_offset, int kv_offset) {
-  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool ok = !edge || dk_bwd::visible(row0 + g + 8 * (e >> 1), key0 + 8 * j + 2 * t4 + (e & 1),
-                                               Tq, Tk, causal, q_offset, kv_offset);
-      const float p = ok ? dk_exp2(fmaf(s[j][e], scale2, -lse2_r[e >> 1])) : 0.f;
-      s[j][e] = p;
-      dp[j][e] = dk_bwd::dscore(p, dp[j][e], dl_r[e >> 1]);
-    }
-}
+using dk_bwd::LOG2E;
+using dk_bwd::p_ds;
 
 // Two f32 rounded to bf16 and stored as one 4-byte pair.
 __device__ __forceinline__ void store_pair(bf16* p, float lo, float hi) {
@@ -542,20 +516,9 @@ flash_bwd_fused_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
                      kv_offset, n_kt, gridDim.x / n_kt, DqHandoff{dq, dq_acc, counts});
 }
 
-// The entry points' arguments (flash_bwd.cu), for either dtype.
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *dl;
-  int B, H, Tq, Tk;
-  float scale;
-  int causal, q_offset, kv_offset;
-};
+using dk_bwd::Args;
 
-// Heads per group: as many as keep `per_head_bytes` each within L2_GROUP_BYTES.
-inline int group_heads(long long per_head_bytes, int bh) {
-  long long heads = L2_GROUP_BYTES / (per_head_bytes > 0 ? per_head_bytes : 1);
-  return static_cast<int>(heads < 1 ? 1 : (heads > bh ? bh : heads));
-}
+using dk_bwd::group_heads;
 
 template <int D>
 void launch_dq(const Args& a, void* dq, cudaStream_t stream) {

@@ -45,9 +45,9 @@
 // - The output is staged through each warp's own rows of the Q tile for
 //   16-byte coalesced stores.
 //
-// The f32 path stays on the FMA kernel in flash_fwd.cu: the tensor cores
-// take f32 only as TF32 (10 mantissa bits), which would break the f32
-// tolerance (1e-4) the serving path is held to.
+// f32 inputs run flash_fwd_f32.cuh's split-TF32 kernel instead: one TF32
+// product (10 mantissa bits) would break the f32 tolerance (1e-4) the
+// serving path is held to.
 #pragma once
 
 #include "common.cuh"

@@ -90,23 +90,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const float* x, int b, i
   }
 }
 
-// The four values of x split into TF32 hi and lo parts.
-__device__ __forceinline__ void split4(float4 x, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  dk_split_tf32(x.x, hi[0], lo[0]);
-  dk_split_tf32(x.y, hi[1], lo[1]);
-  dk_split_tf32(x.z, hi[2], lo[2]);
-  dk_split_tf32(x.w, hi[3], lo[3]);
-}
-
-// d += a b to f32 precision: lo*hi, hi*lo, then hi*hi.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
-                                     uint32_t bl0, uint32_t bl1) {
-  dk_mma_tf32(d, al, bh0, bh1);
-  dk_mma_tf32(d, ah, bl0, bl1);
-  dk_mma_tf32(d, ah, bh0, bh1);
-}
-
 template <int D, int NS>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -158,7 +141,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int f = tid + it * NT, fl = f % 32, sp = f / 32 % 2, c = f / 64 % (D / 16);
       const int fw = f / (64 * (D / 16)), r = 16 * fw + fl / 4, d = 16 * c + 4 * (fl % 4) + 2 * sp;
       uint32_t hi[4], lo[4];
-      split4(make_float4(qraw[r * G::KS + d], qraw[(r + 8) * G::KS + d],
+      dk_split4_tf32(make_float4(qraw[r * G::KS + d], qraw[(r + 8) * G::KS + d],
                          qraw[r * G::KS + d + 1], qraw[(r + 8) * G::KS + d + 1]), hi, lo);
       qf[f] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
       qf[NF + f] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
@@ -210,11 +193,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t kh[4], kl[4];  // dims 4t4 + 2sp (k = t) and + 1 (k = t + 4), sp = 0, 1
-          split4(*reinterpret_cast<const float4*>(ks + (8 * j + g) * G::KS + 16 * c + 4 * t4), kh,
-                 kl);
+          dk_split4_tf32(
+              *reinterpret_cast<const float4*>(ks + (8 * j + g) * G::KS + 16 * c + 4 * t4), kh, kl);
 #pragma unroll
           for (int sp = 0; sp < 2; ++sp)
-            mma3(s[j], ah[sp], al[sp], kh[2 * sp], kh[2 * sp + 1], kl[2 * sp], kl[2 * sp + 1]);
+            dk_mma3_tf32(s[j], ah[sp], al[sp], kh[2 * sp], kh[2 * sp + 1], kl[2 * sp],
+                         kl[2 * sp + 1]);
         }
       }
 
@@ -267,16 +251,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         uint32_t ph[4], pl[4];  // P (f32) as the A fragment of k-step j
-        split4(make_float4(s[j][0], s[j][2], s[j][1], s[j][3]), ph, pl);
+        dk_split4_tf32(make_float4(s[j][0], s[j][2], s[j][1], s[j][3]), ph, pl);
         const float* v0 = vs + (8 * j + 2 * t4) * G::VS + 2 * g;  // keys 8j + 2t4 and + 1
 #pragma unroll
         for (int c = 0; c < D / 16; ++c) {
           const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * c);
           const float2 x1 = *reinterpret_cast<const float2*>(v0 + G::VS + 16 * c);
           uint32_t bh[4], bl[4];  // b0, b1 of n-tile 2c, then of n-tile 2c + 1
-          split4(make_float4(x0.x, x1.x, x0.y, x1.y), bh, bl);
-          mma3(acc[2 * c], ph, pl, bh[0], bh[1], bl[0], bl[1]);
-          mma3(acc[2 * c + 1], ph, pl, bh[2], bh[3], bl[2], bl[3]);
+          dk_split4_tf32(make_float4(x0.x, x1.x, x0.y, x1.y), bh, bl);
+          dk_mma3_tf32(acc[2 * c], ph, pl, bh[0], bh[1], bl[0], bl[1]);
+          dk_mma3_tf32(acc[2 * c + 1], ph, pl, bh[2], bh[3], bl[2], bl[3]);
         }
       }
     }

@@ -211,6 +211,24 @@ __device__ __forceinline__ void dk_mma_tf32(float (&d)[4], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The four values of x split into TF32 hi and lo parts (dk_split_tf32).
+__device__ __forceinline__ void dk_split4_tf32(float4 x, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  dk_split_tf32(x.x, hi[0], lo[0]);
+  dk_split_tf32(x.y, hi[1], lo[1]);
+  dk_split_tf32(x.z, hi[2], lo[2]);
+  dk_split_tf32(x.w, hi[3], lo[3]);
+}
+
+// d += a b to f32 precision on split operands (a = ah + al, b = bh + bl):
+// lo*hi, hi*lo, then hi*hi, into one f32 accumulator.
+__device__ __forceinline__ void dk_mma3_tf32(float (&d)[4], const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4], uint32_t bh0,
+                                             uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  dk_mma_tf32(d, al, bh0, bh1);
+  dk_mma_tf32(d, ah, bl0, bl1);
+  dk_mma_tf32(d, ah, bh0, bh1);
+}
+
 // A load with acquire semantics at GPU scope: what the releasing thread
 // wrote before its release is visible after it.
 __device__ __forceinline__ int dk_ld_acquire(const int* p) {

@@ -6,7 +6,8 @@ Run on a card, once per checkout, then compare::
     python3 dist_keras_tpu_torch/utils/kernel_bits.py --root B --against a.json
 
 (``--may-differ paged_decode`` lets a kernel whose summation order was
-meant to change differ without failing the comparison.)
+meant to change differ without failing the comparison;
+``--may-differ flash_bwd_dq:float32`` does so for one dtype of it.)
 
 ``--root`` names the checkout whose ``dist_keras_tpu_torch`` is loaded
 (this file may come from another one).  Each kernel runs on inputs made
@@ -107,30 +108,44 @@ def main(argv=None):
     ap.add_argument("--against", type=Path,
                     help="a JSON file this script printed for another tree")
     ap.add_argument("--may-differ", action="append", default=[],
-                    metavar="KERNEL",
-                    help="a kernel whose outputs may differ from the other "
-                         "tree's (its summation order changed); repeatable")
+                    metavar="KERNEL[:DTYPE]",
+                    help="a kernel (or one dtype of it, e.g. "
+                         "flash_bwd_dq:float32) whose outputs may differ "
+                         "from the other tree's (its summation order "
+                         "changed); repeatable")
     a = ap.parse_args(argv)
     sys.path[0] = str(a.root.resolve())   # not this file's directory
     bits = kernel_bits()
     if a.against is None:
         print(json.dumps(bits, indent=1))
         return 0
-    other = json.loads(a.against.read_text())
+    lines, differ = compare(bits, json.loads(a.against.read_text()),
+                            a.may_differ)
+    print("\n".join(lines))
+    return 1 if differ else 0
+
+
+def compare(bits, other, may_differ):
+    """Each key both runs have, tagged equal / different / different
+    where ``may_differ`` allows it (a kernel's name, or ``name:dtype``),
+    and a summary line.  -> (lines, count of disallowed differences)."""
     differ = allowed = 0
+    lines = []
     for key in sorted(bits.keys() & other.keys()):
         same = bits[key] == other[key]
-        may = key.split(" ", 1)[0] in a.may_differ
+        name, dtype = key.split(" ", 1)[0], key.rsplit(" ", 1)[1]
+        may = name in may_differ or f"{name}:{dtype}" in may_differ
         differ += not same and not may
         allowed += not same and may
         tag = "equal" if same else "different, allowed" if may \
             else "DIFFERENT"
-        print(f"{tag}  {key}")
+        lines.append(f"{tag}  {key}")
     n = len(bits.keys() & other.keys())
-    print(f"{n - differ - allowed} equal, {differ} different, {allowed} "
-          f"different where allowed ({', '.join(a.may_differ) or 'none'}), "
-          f"{len(bits.keys() ^ other.keys())} in one file only")
-    return 1 if differ else 0
+    lines.append(f"{n - differ - allowed} equal, {differ} different, "
+                 f"{allowed} different where allowed "
+                 f"({', '.join(may_differ) or 'none'}), "
+                 f"{len(bits.keys() ^ other.keys())} in one file only")
+    return lines, differ
 
 
 if __name__ == "__main__":

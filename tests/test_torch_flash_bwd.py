@@ -193,3 +193,193 @@ def test_kernel_entries_refuse_cpu_tensors():
     for fn in (tflash.flash_bwd_dq, tflash.flash_bwd_dkv):
         with pytest.raises(ValueError, match="CUDA"):
             fn(q, k, v, do, lse, g, True, 0.1, 0, 0)
+
+
+# -- the f32 kernels' split-TF32 arithmetic, rehearsed on the CPU ----------
+#
+# The f32 K2, K3 and K4 (csrc/flash_bwd_f32.cuh) form every product from
+# TF32 hi + lo splits of both operands (P and dS included): lo*hi + hi*lo
+# + hi*hi per 8-wide k-step.  These tests model that rounding in torch
+# (the forward's helpers, tests/test_torch_attention.py) and hold it to
+# the card's f32 tolerance, relative to the largest entry of the plain
+# result, as chip_smoke.py and tests/test_torch_kernels_cuda.py hold the
+# kernels.  The tensor cores' order of addition within one mma is not
+# modelled.
+
+from test_torch_attention import _mm_split_tf32, _tf32_hi, _tf32_operand  # noqa: E402
+
+CARD_F32_TOL = 1e-4
+LOG2E = 1.4426950408889634
+
+
+def _card_inputs(b, tq, tk, h, d, causal, qo, ko, g_lse, seed=5):
+    """q, k, v, dO, the plain forward's lse and dl = g_lse - rowsum(dO*O),
+    with a random g_lse when asked (as chip_smoke.py's bwd_inputs)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda t: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((b, t, h, d), np.float32))
+    q, k, v, do = mk(tq), mk(tk), mk(tk), mk(tq)
+    out, lse = tflash.flash_attention_reference(
+        q, k, v, causal=causal, q_offset=qo, kv_offset=ko)
+    dl = -(do * out).sum(-1).transpose(1, 2)
+    if g_lse:
+        dl = dl + torch.from_numpy(rng.standard_normal((b, h, tq),
+                                                       np.float32))
+    return q, k, v, do, lse, dl.contiguous()
+
+
+def _visible(tq, tk, causal, qo, ko):
+    rows = qo + torch.arange(tq)[:, None]
+    keys = ko + torch.arange(tk)[None, :]
+    return keys <= rows if causal else torch.ones(tq, tk, dtype=torch.bool)
+
+
+def _p_ds(q, k, v, do, lse, dl, causal, scale, qo, ko, terms=3):
+    """P and dS (B,H,Tq,Tk) as the kernels' `p_ds` forms them from split
+    S = Q K^T and dP = dO V^T: P = 2^(s * scale log2(e) - lse log2(e)),
+    0 where masked, a dead row shifting by 0; dS = P * (dP + dl)."""
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))
+    s = _mm_split_tf32(qh, kh.transpose(-1, -2), terms)
+    dp = _mm_split_tf32(doh, vh.transpose(-1, -2), terms)
+    lse2 = torch.where(lse <= -5e29, 0.0, lse)[..., None] * LOG2E
+    ok = _visible(q.shape[1], k.shape[1], causal, qo, ko)
+    p = torch.where(ok, torch.exp2(s * (scale * LOG2E) - lse2), 0.0)
+    return p, p * (dp + dl[..., None])
+
+
+def _split_tf32_backward(q, k, v, do, lse, dl, causal, scale, qo=0, ko=0,
+                         terms=3):
+    """The f32 backward kernels' products in torch -> (dq, dk, dv)
+    (B,T,H,D): dQ = scale dS K, dV = P^T dO, dK = scale dS^T Q, each a
+    split-TF32 product (one TF32 product with ``terms=1``)."""
+    p, ds = _p_ds(q, k, v, do, lse, dl, causal, scale, qo, ko, terms)
+    qh, kh, doh = (x.permute(0, 2, 1, 3) for x in (q, k, do))
+    dq = scale * _mm_split_tf32(ds, kh, terms)
+    dv = _mm_split_tf32(p.transpose(-1, -2), doh, terms)
+    dk = scale * _mm_split_tf32(ds.transpose(-1, -2), qh, terms)
+    return tuple(x.permute(0, 2, 1, 3) for x in (dq, dk, dv))
+
+
+def _rel(got, want):
+    want = np.asarray(want, np.float32)
+    return float(np.abs(np.asarray(got) - want).max()
+                 / max(np.abs(want).max(), 1e-30))
+
+
+SPLIT_BWD_CASES = {
+    # name: (b, tq, tk, h, causal, q_offset, kv_offset, g_lse, blocks)
+    "causal_training_like": (1, 128, 128, 2, True, 0, 0, False, 16),
+    "ragged_t": (1, 72, 72, 2, True, 0, 0, False, 8),
+    "dead_rows": (1, 64, 64, 2, True, 0, 16, False, 16),
+    "tq_ne_tk_random_g_lse": (1, 64, 96, 2, True, 32, 0, True, 16),
+    "non_causal_random_g_lse": (2, 48, 80, 2, False, 0, 0, True, 16),
+}
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("case", list(SPLIT_BWD_CASES),
+                         ids=list(SPLIT_BWD_CASES))
+def test_split_tf32_backward_meets_the_card_tolerance(case, d):
+    """Three-term split-TF32 products (P and dS split too) stay within
+    CARD_F32_TOL of the plain f32 backward and of the Pallas dq and dk/dv
+    kernels interpreted, with dl = g_lse - rowsum(dO O) cancelling most
+    of dP where g_lse is 0; dead rows' dq exact zeros."""
+    b, tq, tk, h, causal, qo, ko, g_lse, blk = SPLIT_BWD_CASES[case]
+    q, k, v, do, lse, dl = _card_inputs(b, tq, tk, h, d, causal, qo, ko,
+                                        g_lse)
+    scale = d ** -0.5
+    got = _split_tf32_backward(q, k, v, do, lse, dl, causal, scale, qo, ko)
+    plain = tflash.flash_bwd_reference(q, k, v, do, lse, dl, causal, scale,
+                                       qo, ko)
+    pallas = _bwd_call(*(_to_bh(x.numpy()) for x in (q, k, v, do)),
+                       jnp.asarray(lse.numpy()).reshape(b * h, tq, 1),
+                       jnp.asarray(dl.numpy()).reshape(b * h, tq, 1),
+                       causal, scale, blk, blk, qo, ko, True)
+    for g, w, j in zip(got, plain, pallas):
+        assert _rel(g.numpy(), w.numpy()) <= CARD_F32_TOL
+        assert _rel(g.numpy(), _from_bh(j, b, h)) <= CARD_F32_TOL
+    if ko > qo:
+        assert float(got[0][:, :ko - qo].abs().max()) == 0.0
+
+
+def test_one_tf32_product_misses_the_card_tolerance():
+    """Why the backward splits as the forward does: with one TF32 product
+    per f32 product (11 significant bits of each operand) dq, dk and dv
+    miss CARD_F32_TOL against the plain f32 backward (by 4.6x to 8.4x
+    here)."""
+    d = 64
+    q, k, v, do, lse, dl = _card_inputs(1, 128, 128, 2, d, True, 0, 0,
+                                        True)
+    plain = tflash.flash_bwd_reference(q, k, v, do, lse, dl, True,
+                                       d ** -0.5)
+    one = _split_tf32_backward(q, k, v, do, lse, dl, True, d ** -0.5,
+                               terms=1)
+    errs = [_rel(g.numpy(), w.numpy()) for g, w in zip(one, plain)]
+    assert min(errs) > 2 * CARD_F32_TOL, errs
+
+
+def _mma3_step(acc, a, b):
+    """One k-step of the kernels' split-TF32 mma: acc += lo*hi, then
+    hi*lo, then hi*hi, each an m16n8k8 product summed exactly (TF32
+    products are exact in f32, eight of them in f64) and rounded to f32
+    once, as the tensor cores add within one mma."""
+    ah, bh = _tf32_hi(a), _tf32_hi(b)
+    al, bl = _tf32_operand(a - ah), _tf32_operand(b - bh)
+    for x, y in ((al, bh), (ah, bl), (ah, bh)):
+        acc = (acc.double() + x.double() @ y.double()).float()
+    return acc
+
+
+def _dq_k2_order(ds, kh, causal, qo, ko):
+    """K2's dQ chain (before scale): per 64-row q block, over the 64-key kv
+    tiles up to the last key the block's last row sees, 8-key k-steps
+    ascending, one f32 accumulator from 0."""
+    tq, tk = ds.shape[-2], ds.shape[-1]
+    acc = torch.zeros(*ds.shape[:-1], kh.shape[-1])
+    for q0 in range(0, tq, 64):
+        q1 = min(q0 + 64, tq)
+        kv_end = max(0, min(tk, qo + q1 - 1 - ko + 1)) if causal else tk
+        for k0 in range(0, -(-kv_end // 64) * 64, 8):
+            acc[..., q0:q1, :] = _mma3_step(
+                acc[..., q0:q1, :], ds[..., q0:q1, k0:k0 + 8],
+                kh[..., k0:k0 + 8, :])
+    return acc
+
+
+def _dq_k4_order(ds, kh, causal, qo, ko):
+    """K4's dQ chain: kv tile by kv tile (64 keys), each continuing the
+    f32 partial of every 32-row q tile it sees (from first_q_tile on)
+    over its eight k-steps in ascending order."""
+    tq, tk = ds.shape[-2], ds.shape[-1]
+    part = torch.zeros(*ds.shape[:-1], kh.shape[-1])
+    for k0 in range(0, tk, 64):
+        first = max(0, ko + k0 - qo) // 32 * 32 if causal else 0
+        for q0 in range(first, tq, 32):
+            for j in range(k0, k0 + 64, 8):
+                part[..., q0:q0 + 32, :] = _mma3_step(
+                    part[..., q0:q0 + 32, :], ds[..., q0:q0 + 32, j:j + 8],
+                    kh[..., j:j + 8, :])
+    return part
+
+
+@pytest.mark.parametrize("case", ["causal_training_like", "ragged_t",
+                                  "dead_rows", "tq_ne_tk_random_g_lse",
+                                  "non_causal_random_g_lse"])
+def test_k4_dq_order_gives_k2_bits(case):
+    """K4 continues each q tile's dQ partial tile by tile through f32 in
+    device memory; in the model that is K2's chain bit for bit (the
+    trailing k-steps past a row's causal edge add exact zeros)."""
+    b, tq, tk, h, causal, qo, ko, g_lse, _ = SPLIT_BWD_CASES[case]
+    d = 32
+    q, k, v, do, lse, dl = _card_inputs(b, tq, tk, h, d, causal, qo, ko,
+                                        g_lse)
+    # pad to whole tiles as the kernels' zero-filled rows do
+    tq_p, tk_p = -(-tq // 64) * 64, -(-tk // 64) * 64
+    _, ds = _p_ds(q, k, v, do, lse, dl, causal, d ** -0.5, qo, ko)
+    ds = torch.nn.functional.pad(ds, (0, tk_p - tk, 0, tq_p - tq))
+    kh = torch.nn.functional.pad(k.permute(0, 2, 1, 3),
+                                 (0, 0, 0, tk_p - tk))
+    two = _dq_k2_order(ds, kh, causal, qo, ko)[..., :tq, :]
+    one = _dq_k4_order(ds, kh, causal, qo, ko)[..., :tq, :]
+    assert torch.equal(two, one)
+    assert float(two.abs().max()) > 0.0

@@ -12,8 +12,9 @@ lse 1e-4 in both dtypes, and 1e-5 against log(#visible) when every
 score is 0.  The backward
 kernels are held relative to the largest entry of the plain result; the
 one-pass backward (K4) also bit for bit against itself and against K2 + K3
-in both dtypes (it continues their chains: f32 FMAs in f32, the same
-mma.sync fragments in bf16), so its graduation comes back "exact".
+in both dtypes (it continues their chains: the same mma.sync fragments
+in the same order, split-TF32 in f32), so its graduation comes back
+"exact".
 """
 
 import numpy as np

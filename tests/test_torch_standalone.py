@@ -205,3 +205,19 @@ def test_kernel_bits_digest_agrees_exactly_when_torch_equal_does():
         c = a.clone()
         c[1] = 1.5 + 2 ** -7   # one bf16 ulp up
         assert not torch.equal(a, c) and digest(a) != digest(c)
+
+
+def test_kernel_bits_may_differ_by_kernel_or_by_dtype():
+    from dist_keras_tpu_torch.utils.kernel_bits import compare
+
+    a = {"flash_bwd_dq B=1 float32": ["x"], "flash_bwd_dq B=1 bfloat16": ["y"],
+         "paged_decode S=1 float32": ["z"]}
+    b = {"flash_bwd_dq B=1 float32": ["x2"], "flash_bwd_dq B=1 bfloat16": ["y2"],
+         "paged_decode S=1 float32": ["z"]}
+    assert compare(a, b, ["flash_bwd_dq"])[1] == 0
+    lines, differ = compare(a, b, ["flash_bwd_dq:float32"])
+    assert differ == 1
+    assert "DIFFERENT  flash_bwd_dq B=1 bfloat16" in lines
+    assert "different, allowed  flash_bwd_dq B=1 float32" in lines
+    assert "equal  paged_decode S=1 float32" in lines
+    assert compare(a, a, [])[1] == 0
