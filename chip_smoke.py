@@ -76,6 +76,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    plain versions and beside SDPA's f32 backward, K4 bit for bit against
    K2 + K3.
 
+9. the paper's training loop: ``SingleTrainer`` on the MNIST MLP at
+   ``tests/test_examples.py``'s full tier on the card, scored through
+   ``ModelPredictor`` -> ``LabelIndexTransformer`` ->
+   ``AccuracyEvaluator`` (accuracy >= 0.90); the same trainer with sgd
+   in f32 on the card and on the CPU from the same weights (loss history
+   and params within 1e-4); samples/s at ``bench_single_mnist_mlp``'s
+   shape (batch 512, bf16, adam), with one step's wall, device time and
+   device operations; one bf16 epoch of ``mnist_cnn`` (finite, falling
+   loss).  No hand-written kernel lies on this path: their counters,
+   zeroed before it, stay 0.
+
 ``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
 K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
 two trees' K5 can be timed on the same inputs in one run.
@@ -1455,6 +1466,266 @@ def fused_vs_two(k4, k2, k3, shape, gpu, fused, two):
     require(same, f"fused_bwd is not bit-equal to K2+K3 at {shape}")
 
 
+
+# -- phase 9: the paper's training loop (SingleTrainer) ---------------------
+GATE_ROWS, GATE_TEST_ROWS = 4096, 1024   # test_examples.py's full tier
+GATE_EPOCHS, GATE_ACC = 6, 0.90
+PARITY_ROWS, PARITY_EPOCHS = 1024, 3
+CARD_CPU_TOL = 1e-4   # sgd in f32 (TF32 off), card against CPU, relative
+BENCH_BATCH, BENCH_STEPS = 512, 120      # bench_single_mnist_mlp's shape
+BENCH_SECONDS, BENCH_RUNS = 10.0, 3
+CNN_ROWS = 2048
+
+
+def kernel_counts(fa, fu, da):
+    """The hand-written kernels' launch counters, by module attribute."""
+    return {"flash_fwd": fa.flash_fwd_launches,
+            "flash_bwd_dq": fa.flash_bwd_dq_launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv_launches,
+            "flash_bwd_fused": fu.fused_bwd_launches,
+            "paged_decode": da.paged_decode_launches}
+
+
+def zero_kernel_counts(fa, fu, da):
+    fa.flash_fwd_launches = fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = fu.fused_bwd_launches = 0
+    da.paged_decode_launches = 0
+
+
+def mnist_sets():
+    """The gate's data, as ``tests/test_examples.py``'s ``_prep_mnist``
+    builds it (MinMax to ``fn``, one-hot to ``le``, images to ``fi``)."""
+    from dist_keras_tpu_torch.data import (
+        MinMaxTransformer,
+        OneHotTransformer,
+        ReshapeTransformer,
+    )
+    from dist_keras_tpu_torch.data.synthetic import synthetic_mnist
+
+    def prep(ds):
+        ds = MinMaxTransformer(0.0, 1.0, 0.0, 255.0, input_col="features",
+                               output_col="fn").transform(ds)
+        ds = OneHotTransformer(10, input_col="label",
+                               output_col="le").transform(ds)
+        return ReshapeTransformer(input_col="fn", output_col="fi",
+                                  shape=(28, 28, 1)).transform(ds)
+
+    return (prep(synthetic_mnist(GATE_ROWS, seed=0)),
+            prep(synthetic_mnist(GATE_TEST_ROWS, seed=1)))
+
+
+def train_loop(fa, fu, da, gpu):
+    """Phase 9: ``SingleTrainer`` on the MNIST MLP through the gate, the
+    card against the CPU, samples/s at ``bench_single_mnist_mlp``'s
+    shape with one step's profile, and one bf16 epoch of the CNN."""
+    import torch
+
+    from dist_keras_tpu_torch.data import (
+        AccuracyEvaluator,
+        LabelIndexTransformer,
+        ModelPredictor,
+    )
+    from dist_keras_tpu_torch.models import mnist_cnn, mnist_mlp
+    from dist_keras_tpu_torch.trainers import SingleTrainer
+
+    t0 = time.perf_counter()
+    train, test = mnist_sets()
+    print(f"  data: {GATE_ROWS} + {GATE_TEST_ROWS} synthetic MNIST rows in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    zero_kernel_counts(fa, fu, da)
+
+    # 1. the gate, on the card (test_examples.py's test_single_mnist_mlp)
+    t = SingleTrainer(mnist_mlp(), worker_optimizer="adam",
+                      optimizer_kwargs={"learning_rate": 1e-3},
+                      batch_size=64, num_epoch=GATE_EPOCHS,
+                      features_col="fn", label_col="le")
+    require(t.device.type == "cuda", f"SingleTrainer runs on {t.device}")
+    trained = t.train(train, shuffle=True)
+    pred = ModelPredictor(trained, features_col="fn").predict(test)
+    pred = LabelIndexTransformer(input_col="prediction").transform(pred)
+    acc = AccuracyEvaluator(prediction_col="prediction_index",
+                            label_col="label").evaluate(pred)
+    hist = np.asarray(t.get_history())
+    require(np.isfinite(hist).all(), "the gate run's losses are not finite")
+    print(f"  gate single_mnist_mlp (full tier, {len(hist)} steps, adam): "
+          f"accuracy {acc:.4f} (threshold {GATE_ACC}), loss {hist[0]:.4f} "
+          f"-> {hist[-1]:.4f}, training {t.get_training_time():.3f} s on "
+          f"{gpu}")
+    require(acc >= GATE_ACC, f"single_mnist_mlp accuracy {acc} < {GATE_ACC}")
+
+    # 2. the card against the CPU: sgd, f32, the same initial weights
+    model, runs = mnist_mlp(seed=1), {}
+    for dev in ("cuda", "cpu"):
+        t = SingleTrainer(model, worker_optimizer="sgd",
+                          optimizer_kwargs={"learning_rate": 0.05},
+                          batch_size=64, num_epoch=PARITY_EPOCHS,
+                          features_col="fn", label_col="le", device=dev)
+        m = t.train(train.take(PARITY_ROWS), shuffle=True)
+        runs[dev] = np.asarray(t.get_history()), m.get_weights()
+    (hc, wc), (hh, wh) = runs["cuda"], runs["cpu"]
+    loss_err = float(np.max(np.abs(hc - hh) / np.abs(hh)))
+    param_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                    for a, b in zip(wc, wh))
+    print(f"  card against CPU ({len(hh)} sgd steps, f32, TF32 off): loss "
+          f"history max rel err {loss_err:.3e}, final params max err "
+          f"{param_err:.3e} of each leaf's largest entry (held to "
+          f"{CARD_CPU_TOL}) on {gpu}")
+    require(loss_err <= CARD_CPU_TOL and param_err <= CARD_CPU_TOL,
+            "the card's SingleTrainer run disagrees with the CPU's")
+
+    # 3. samples/s at bench_single_mnist_mlp's config
+    bench_samples_per_s(gpu)
+
+    # 4. one bf16 epoch of the CNN: Conv2D, MaxPool2D, Flatten and
+    # Dropout on cuDNN and the device generator
+    t = SingleTrainer(mnist_cnn(), worker_optimizer="adam", batch_size=64,
+                      num_epoch=1, features_col="fi", label_col="le",
+                      compute_dtype=torch.bfloat16)
+    t.train(train.take(CNN_ROWS), shuffle=True)
+    h = np.asarray(t.get_history())
+    head, tail = float(h[:8].mean()), float(h[-8:].mean())
+    print(f"  mnist_cnn, one bf16 epoch ({len(h)} steps of 64): mean loss "
+          f"of the first 8 steps {head:.4f}, of the last 8 {tail:.4f} on "
+          f"{gpu}")
+    require(np.isfinite(h).all() and tail < head,
+            "the CNN epoch's loss is not finite and decreasing")
+    counts = kernel_counts(fa, fu, da)
+    print(f"  hand-written kernels launched by phase 9: {counts} (none is "
+          f"on this path)")
+    require(not any(counts.values()),
+            f"phase 9 launched a hand-written kernel: {counts}")
+
+
+def bench_samples_per_s(gpu):
+    """``bench_single_mnist_mlp``'s shape (batch 512, 120 steps per epoch,
+    bf16 compute, adam): a warm-up epoch, then the median of 3 runs of as
+    many epochs as fill about 10 s; samples over
+    ``get_training_time()``, as ``bench.py`` counts them.  Then one
+    step's host wall beside its device time and a profile."""
+    import torch
+
+    from dist_keras_tpu_torch.data import Dataset
+    from dist_keras_tpu_torch.models import mnist_mlp
+    from dist_keras_tpu_torch.trainers import SingleTrainer
+
+    rng = np.random.default_rng(0)
+    n = BENCH_BATCH * BENCH_STEPS
+    y = rng.integers(0, 10, n)
+    ds = Dataset({"features": rng.normal(size=(n, 784)).astype(np.float32),
+                  "label": y,
+                  "label_encoded": np.eye(10, dtype=np.float32)[y]})
+
+    def run(epochs):
+        t = SingleTrainer(mnist_mlp(), worker_optimizer="adam",
+                          batch_size=BENCH_BATCH, num_epoch=epochs,
+                          label_col="label_encoded",
+                          compute_dtype=torch.bfloat16)
+        t.train(ds)
+        h = np.asarray(t.get_history())
+        require(h.size == epochs * BENCH_STEPS and np.isfinite(h).all(),
+                "the bench run's losses are not finite")
+        return h.size * BENCH_BATCH / t.get_training_time()
+
+    warm = run(1)
+    epochs = max(1, int(BENCH_SECONDS * warm / n))
+    sps = [run(epochs) for _ in range(BENCH_RUNS)]
+    med = float(np.median(sps))
+    print(f"  bench_single_mnist_mlp shape (batch {BENCH_BATCH}, "
+          f"{BENCH_STEPS} steps/epoch, bf16, adam): {med:.1f} samples/s "
+          f"(median of {BENCH_RUNS} runs of {epochs} epochs: "
+          f"{', '.join(f'{v:.1f}' for v in sps)}; warm-up epoch "
+          f"{warm:.1f}) = {BENCH_BATCH / med * 1e3:.4f} ms per step on {gpu}")
+    profile_mlp_step(ds, gpu)
+
+
+def profile_mlp_step(ds, gpu):
+    """One SingleTrainer step at the bench shape, as the trainer builds
+    it: host wall per step over a chained run, and that wall split into
+    the loss and gradients and the optimizer's update; device time per
+    step from CUDA events over 4 back-to-back steps (more would fill the
+    card's launch queue while the sleep kernel holds it, and the events
+    would then time the host); the step under ``set_sync_debug_mode
+    ("error")``, so a host sync inside it fails the run; the device
+    operations per step and the host time by op (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dist_keras_tpu_torch.models import mnist_mlp
+    from dist_keras_tpu_torch.ops.losses import get_loss
+    from dist_keras_tpu_torch.ops.optimizers import apply_updates, get_optimizer
+    from dist_keras_tpu_torch.trainers import step as st
+
+    dev = torch.device("cuda")
+    model, loss_fn, tx = (mnist_mlp(), get_loss("categorical_crossentropy"),
+                          get_optimizer("adam"))
+    step, opt_init = st.make_model_step(model, loss_fn, tx, torch.bfloat16)
+    params = [{k: v.detach().to(dev) for k, v in p.items()}
+              for p in model.params]
+    opt_state = opt_init(params)
+    carry = (params, opt_state, torch.Generator(device=dev).manual_seed(0))
+    batch = (torch.from_numpy(ds["features"][:BENCH_BATCH]).to(dev),
+             torch.from_numpy(ds["label_encoded"][:BENCH_BATCH]).to(dev))
+    loss_of = st.make_loss_fn(model.apply, loss_fn, torch.bfloat16)
+    _, grads = st._value_and_grad(loss_of, params, *batch, carry[2])
+
+    def chain(k):
+        c, losses = carry, torch.empty(k, device=dev)
+        for j in range(k):
+            c, loss = step(c, batch)
+            losses[j] = loss   # as the trainer's dispatch loop writes it
+        return losses
+
+    def host_ms(fn, k=200):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(k):
+                fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / k * 1e3)
+        return float(np.median(walls))
+
+    wall_ms = host_ms(lambda: chain(1))
+    grad_ms = host_ms(lambda: st._value_and_grad(loss_of, params, *batch,
+                                                 carry[2]))
+    opt_ms = host_ms(lambda: apply_updates(
+        params, tx.update(grads, opt_state, params)[0]))
+    device_ms = time_ms(lambda: step(carry, batch), reps=4, trials=7,
+                        sleep_ms=100)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chain(5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    k = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        chain(k)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ops = [e for e in events if e.device_type == DeviceType.CUDA]
+    n_ops = sum(e.count for e in ops)
+    busy_us = sum(e.self_device_time_total for e in ops)
+    require(n_ops > 0 and busy_us > 0,
+            "the profiler saw no device work in the MLP step")
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    print(f"  MLP step (batch {BENCH_BATCH}, bf16, adam) on {gpu}: wall "
+          f"{wall_ms:.4f} ms (loss and gradients {grad_ms:.4f} ms, adam's "
+          f"update {opt_ms:.4f} ms), device {device_ms:.4f} ms (CUDA "
+          f"events), card idle {max(0.0, 1 - device_ms / wall_ms):.0%} of "
+          f"the step; no host sync in 5 steps (sync debug mode 'error'); "
+          f"{n_ops / k:.1f} device operations and "
+          f"{busy_us / k / 1e3:.4f} ms of kernels per step (torch.profiler)")
+    print("  host time by op under the profiler, per step: " + "; ".join(
+        f"{e.key} x{e.count / k:g} {e.self_cpu_time_total / k:.1f} us"
+        for e in host))
+
+
 def main(argv=None):
     import argparse
 
@@ -1603,6 +1874,10 @@ def main(argv=None):
     rows += train_rows
     for r in rows:
         r.pop("shape")
+    torch.cuda.empty_cache()
+    print("phase 9: the paper's training loop (SingleTrainer, the MNIST "
+          "MLP gate, one card)")
+    train_loop(fa, fu, da, gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,16 @@ paged-decode kernels; and single-card transformer training
 (``parallel.make_tp_train_step``) — the flash backward kernels behind
 a ``torch.autograd.Function``, adam and sgd with optax's rules; and the
 ``DK_FUSED_BWD`` one-pass backward with its graduation route, the knob
-registry and the event log.
+registry and the event log; and the paper's own training loop —
+Keras-style ``Sequential`` models with their layers and zoo
+(``models/``), the loss and optimizer registries (``ops/losses.py``,
+``ops/optimizers.py``), the train step (``trainers/step.py``), the
+chunk runner and ``SingleTrainer`` (``trainers/``), the data path
+(``Dataset``, the transformers, the synthetic sets, ``ModelPredictor``
+and the evaluators under ``data/``), the NaN sentinel
+(``resilience/guards.py``) and the metrics registry.  This loop runs
+PyTorch's own ops (cuBLAS, cuDNN, elementwise): the JAX package runs it
+through XLA, with no Pallas kernel on it.
 """
 
 __version__ = "0.1.0"

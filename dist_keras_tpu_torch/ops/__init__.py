@@ -1,2 +1,2 @@
-"""Attention ops (plain PyTorch versions and the Hopper kernels) and the
-optimizers."""
+"""Attention ops (plain PyTorch versions and the Hopper kernels), the
+loss registry and the optimizers."""

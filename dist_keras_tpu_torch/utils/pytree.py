@@ -1,5 +1,4 @@
-"""Params trees — counterpart of the parts of ``utils/pytree.py`` that the
-port needs.
+"""Params trees — counterpart of ``utils/pytree.py``.
 
 A params tree is nested dicts and lists (or tuples) of ``torch.Tensor``
 leaves, as the JAX package's pytrees are.  Dicts are walked in insertion
@@ -41,3 +40,53 @@ def tree_cast(tree, dtype):
     other leaves pass through untouched."""
     return tree_map(
         lambda x: x.to(dtype) if torch.is_floating_point(x) else x, tree)
+
+
+def tree_add(a, b):
+    """a + b, leafwise."""
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    """a - b, leafwise."""
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a, s):
+    """a * s for a scalar s, leafwise."""
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_axpy(alpha, x, y):
+    """alpha * x + y, leafwise (BLAS axpy over trees)."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_mean(trees):
+    """Mean of a list of identically-structured trees."""
+    acc = trees[0]
+    for t in trees[1:]:
+        acc = tree_add(acc, t)
+    return tree_scale(acc, 1.0 / len(trees))
+
+
+def tree_global_norm(a):
+    """L2 norm over all leaves (a 0-d tensor)."""
+    return torch.sqrt(sum(torch.sum(x * x) for x in tree_leaves(a)))
+
+
+def tree_merge_floats(merged, original):
+    """Take ``merged`` for floating leaves and ``original`` for the rest:
+    merge algebra (deltas, means) only makes sense for floating
+    parameters; integer leaves pass through untouched."""
+    return tree_map(lambda m, o: m if torch.is_floating_point(o) else o,
+                    merged, original)
+
+
+def tree_size(a):
+    """Total number of elements across leaves."""
+    return sum(x.numel() for x in tree_leaves(a))

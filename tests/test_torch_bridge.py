@@ -97,3 +97,39 @@ def test_seeded_init_has_the_reference_layout():
 def test_unbridgeable_leaves_raise(bad):
     with pytest.raises(TypeError):
         params_from_jax({"w": bad}, "cpu")
+
+
+def test_pytree_helpers_match_jax():
+    from dist_keras_tpu.utils import pytree as jpt
+    from dist_keras_tpu_torch.utils import pytree as tpt
+
+    rng = np.random.default_rng(3)
+
+    def make():
+        return {"a": rng.normal(size=(3, 2)).astype(np.float32),
+                "b": [rng.normal(size=(4,)).astype(np.float32)]}
+
+    a, b, c = make(), make(), make()
+    a["n"] = b["n"] = c["n"] = np.arange(3, dtype=np.int32)
+    ta, tb, tc = (params_from_jax(t, "cpu") for t in (a, b, c))
+
+    def same(got, want):
+        for g, w in zip(jax.tree.leaves(params_to_numpy(got)),
+                        jax.tree.leaves(want)):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6)
+
+    same(tpt.tree_add(ta, tb), jpt.tree_add(a, b))
+    same(tpt.tree_sub(ta, tb), jpt.tree_sub(a, b))
+    same(tpt.tree_scale(ta, 0.5), jpt.tree_scale(a, 0.5))
+    same(tpt.tree_axpy(-2.0, ta, tb), jpt.tree_axpy(-2.0, a, b))
+    same(tpt.tree_zeros_like(ta), jpt.tree_zeros_like(a))
+    floats = [{k: v for k, v in t.items() if k != "n"} for t in (a, b, c)]
+    tfloats = [params_from_jax(t, "cpu") for t in floats]
+    same(tpt.tree_mean(tfloats), jpt.tree_mean(floats))
+    np.testing.assert_allclose(float(tpt.tree_global_norm(tfloats[0])),
+                               float(jpt.tree_global_norm(floats[0])),
+                               rtol=1e-6)
+    merged = tpt.tree_merge_floats(tpt.tree_scale(ta, 2.0), ta)
+    same(merged, jpt.tree_merge_floats(jpt.tree_scale(a, 2.0), a))
+    assert merged["n"].dtype == torch.int32
+    assert tpt.tree_size(ta) == jpt.tree_size(a) == 6 + 4 + 3

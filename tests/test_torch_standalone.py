@@ -8,9 +8,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from dist_keras_tpu_torch.data import Dataset, ModelPredictor
+from dist_keras_tpu_torch.models import mnist_mlp
 from dist_keras_tpu_torch.models.transformer import (
     Transformer,
     transformer_config,
@@ -20,6 +23,7 @@ from dist_keras_tpu_torch.parallel import (
     train_tp_transformer,
 )
 from dist_keras_tpu_torch.serving import DecodeEngine
+from dist_keras_tpu_torch.trainers import SingleTrainer
 from dist_keras_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -50,9 +54,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax'\n"
         "             or k.startswith(('jax.', 'dist_keras_tpu.')))\n"
-        "assert len(mods) >= 16, mods\n"
-        "assert 'dist_keras_tpu_torch.parallel.transformer_tp' in mods\n"
-        "assert 'dist_keras_tpu_torch.ops.optimizers' in mods\n"
+        "assert len(mods) >= 45, mods\n"
+        "for m in ('parallel.transformer_tp', 'ops.optimizers',\n"
+        "          'trainers.single', 'models.model', 'trainers.step',\n"
+        "          'trainers.chunking', 'data.predictors', 'ops.losses'):\n"
+        "    assert 'dist_keras_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "assert 'dist_keras_tpu' not in sys.modules\n"
         "print('ok', len(mods))\n")
@@ -169,6 +175,39 @@ def test_training_runs_on_the_cpu_when_asked(no_cuda):
                                           steps=2, causal=True, device="cpu")
     assert len(losses) == 2 and all(map(math.isfinite, losses))
     assert params["proj"].device.type == "cpu"
+
+
+def test_training_loop_entry_points_refuse_without_cuda(no_cuda):
+    model = mnist_mlp(hidden=(4,), input_dim=6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SingleTrainer(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelPredictor(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.predict(np.zeros((2, 6), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model(np.zeros((2, 6), np.float32))
+
+
+def test_training_loop_runs_on_the_cpu_when_asked(no_cuda):
+    model = mnist_mlp(hidden=(4,), num_classes=3, input_dim=6)
+    rng = np.random.default_rng(0)
+    data = Dataset.from_arrays(rng.normal(size=(32, 6)).astype(np.float32),
+                               np.eye(3, dtype=np.float32)[
+                                   rng.integers(0, 3, 32)])
+    t = SingleTrainer(model, batch_size=8, num_epoch=2, device="cpu")
+    trained = t.train(data)
+    assert len(t.get_history()) == 8
+    assert all(map(math.isfinite, t.get_history()))
+    out = ModelPredictor(trained, device="cpu").predict(data)["prediction"]
+    assert out.shape == (32, 3)
+    np.testing.assert_allclose(trained.predict(data["features"],
+                                               device="cpu"), out, rtol=1e-6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trained(data["features"])
+    called = trained(data["features"], device="cpu")
+    assert called.device.type == "cpu"
+    np.testing.assert_allclose(called.detach().numpy(), out, rtol=1e-6)
 
 
 def test_build_keeps_the_compiler_log_beside_the_library(tmp_path,
