@@ -86,6 +86,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    device operations; one bf16 epoch of ``mnist_cnn`` (finite, falling
    loss).  No hand-written kernel lies on this path: their counters,
    zeroed before it, stay 0.
+10. the windowed trainers, W workers stacked on the card: the windowed
+   gates of ``tests/test_examples.py`` at its full tier (ADAG and
+   DOWNPOUR on the MNIST CNN >= 0.90, AEASGD and EAMSGD on Higgs AUC >=
+   0.85, DynSGD on CIFAR-10 against its SingleTrainer control); ADAG on
+   the MNIST CNN (dropout 0), sgd in f32, card against CPU from the
+   same weights for 3 windows, step by step from the CPU's state
+   (losses and the center after each merge within 1e-4), with the
+   free-running runs' gap printed beside the CPU's own gap from a
+   one-ulp nudge; the stacked
+   step against W single steps; ADAG's and DynSGD's dispatches under
+   ``set_sync_debug_mode("error")``; samples/s at
+   ``bench_adag_mnist_cnn``'s shape (batch 2048, 4 workers, window 12,
+   bf16, adam) with one global step's wall, device time, device
+   operations and idle share.  The hand-written kernels' counters,
+   zeroed before it, stay 0.
 
 ``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
 K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
@@ -1726,6 +1741,609 @@ def profile_mlp_step(ds, gpu):
         for e in host))
 
 
+# -- phase 10: the windowed trainers (W workers stacked on one card) --------
+CIFAR_ROWS, CIFAR_TEST_ROWS = 2048, 512          # test_examples.py full tier
+HIGGS_ROWS, HIGGS_TEST_ROWS = 8192, 2048
+GATE_AUC = 0.85
+ADAG_WORKERS, ADAG_WINDOW = 4, 12
+PARITY_WINDOWS = 3
+STACK_TOL = 1e-4      # the stacked step against W single steps, relative
+ADAG_BENCH_BATCH, ADAG_BENCH_STEPS = 2048, 48   # bench_adag_mnist_cnn
+ADAG_BENCH_SECONDS = 8.0
+
+
+def mnist_cnn_flops_per_sample(model):
+    """Training FLOPs per sample of a Sequential of Conv2D / MaxPool2D /
+    Flatten / Dense / Dropout, from its shapes: 2 per multiply-add of the
+    forward's convs and dense products, times 3 for forward + backward."""
+    import torch
+
+    from dist_keras_tpu_torch.models.layers import Conv2D, Dense
+
+    shape, macs = tuple(model.input_shape), 0
+    for layer, p in zip(model.layers, model.params):
+        _, out = layer.init(torch.Generator(), shape)
+        if isinstance(layer, Conv2D):
+            kh, kw, cin, cout = p["kernel"].shape
+            macs += int(np.prod(out)) * kh * kw * cin
+        elif isinstance(layer, Dense):
+            macs += int(np.prod(p["kernel"].shape))
+        shape = out
+    return 6 * macs
+
+
+def tree_err(got, want):
+    """-> (max abs error over all leaves over the largest entry of
+    ``want``, the largest per-leaf error over that leaf's largest
+    entry), the trees' leaves moved to the CPU.  The first is the model
+    scale a trainer's check is held to: a zero-initialised bias is, for
+    its first steps, only the sum of its updates, so its own relative
+    error is its f32 gradient's (~1e-3 for a conv layer, printed in
+    phase 10), not the port's."""
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    pairs = [(a.detach().cpu().double(), b.detach().cpu().double())
+             for a, b in zip(tree_leaves(got), tree_leaves(want))]
+    top = max(float(b.abs().max()) for _, b in pairs)
+    return (max(float((a - b).abs().max()) for a, b in pairs) / top,
+            max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs))
+
+
+def no_dropout_cnn(seed):
+    """``mnist_cnn`` with its dropout rate set to 0: a device generator
+    draws other masks on the card than on the CPU, so the parity runs
+    leave dropout out."""
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.models.layers import Dropout
+
+    m = mnist_cnn(seed=seed)
+    for layer in m.layers:
+        if isinstance(layer, Dropout):
+            layer.rate = 0.0
+    return m
+
+
+def accuracy(model, test, col):
+    from dist_keras_tpu_torch.data import (
+        AccuracyEvaluator,
+        LabelIndexTransformer,
+        ModelPredictor,
+    )
+
+    pred = ModelPredictor(model, features_col=col).predict(test)
+    pred = LabelIndexTransformer(input_col="prediction").transform(pred)
+    return AccuracyEvaluator(prediction_col="prediction_index",
+                             label_col="label").evaluate(pred)
+
+
+def windowed_gates(train, test, gpu):
+    """The windowed gates of ``tests/test_examples.py`` at its full tier,
+    on the card: ADAG and DOWNPOUR on the MNIST CNN, AEASGD and EAMSGD
+    on the Higgs classifier, DynSGD on the CIFAR-10 convnet against its
+    SingleTrainer control."""
+    from dist_keras_tpu_torch.data import (
+        AUCEvaluator,
+        MinMaxTransformer,
+        ModelPredictor,
+        OneHotTransformer,
+        ReshapeTransformer,
+        StandardScaleTransformer,
+    )
+    from dist_keras_tpu_torch.data.synthetic import (
+        synthetic_cifar10,
+        synthetic_higgs,
+    )
+    from dist_keras_tpu_torch.models import (
+        cifar10_convnet,
+        higgs_mlp,
+        mnist_cnn,
+    )
+    from dist_keras_tpu_torch.trainers import (
+        ADAG,
+        AEASGD,
+        DOWNPOUR,
+        EAMSGD,
+        DynSGD,
+        SingleTrainer,
+    )
+
+    def report(name, metric, value, threshold, t, detail=""):
+        hist = np.asarray(t.get_history())
+        require(np.isfinite(hist).all(), f"{name}: non-finite losses")
+        print(f"  gate {name} (full tier): {metric} {value:.4f} (threshold "
+              f"{threshold:.4f}), history {hist.shape}, training "
+              f"{t.get_training_time():.3f} s{detail} on {gpu}")
+        require(value >= threshold, f"{name} {metric} {value} < {threshold}")
+
+    t = ADAG(mnist_cnn(), num_workers=ADAG_WORKERS,
+             communication_window=ADAG_WINDOW, worker_optimizer="adam",
+             optimizer_kwargs={"learning_rate": 3e-3}, batch_size=64,
+             num_epoch=GATE_EPOCHS, features_col="fi", label_col="le")
+    require(t.device.type == "cuda", f"ADAG runs on {t.device}")
+    trained = t.train(train, shuffle=True)
+    report("adag_mnist_cnn_w12", "accuracy", accuracy(trained, test, "fi"),
+           GATE_ACC, t)
+
+    spe = GATE_ROWS // (8 * 32)
+    t = DOWNPOUR(mnist_cnn(), num_workers=8, communication_window=2,
+                 worker_optimizer="sgd",
+                 optimizer_kwargs={"learning_rate": 0.01,
+                                   "warmup_steps": 4 * spe},
+                 batch_size=32, num_epoch=20, features_col="fi",
+                 label_col="le")
+    trained = t.train(train, shuffle=True)
+    report("downpour_mnist_cnn_8w", "accuracy",
+           accuracy(trained, test, "fi"), GATE_ACC, t)
+
+    def higgs(n, seed):
+        ds = synthetic_higgs(n, seed=seed)
+        ds = StandardScaleTransformer(input_col="features",
+                                      output_col="fs").transform(ds)
+        return OneHotTransformer(2, input_col="label",
+                                 output_col="le").transform(ds)
+
+    htrain, htest = higgs(HIGGS_ROWS, 0), higgs(HIGGS_TEST_ROWS, 1)
+    for cls, extra in ((AEASGD, {}), (EAMSGD, {"momentum": 0.9})):
+        t = cls(higgs_mlp(), num_workers=4, communication_window=16,
+                rho=1.0, learning_rate=0.2, worker_optimizer="adam",
+                optimizer_kwargs={"learning_rate": 1e-3}, batch_size=64,
+                num_epoch=10, features_col="fs", label_col="le", **extra)
+        trained = t.train(htrain, shuffle=True)
+        pred = ModelPredictor(trained, features_col="fs").predict(htest)
+        auc = AUCEvaluator(score_col="prediction",
+                           label_col="label").evaluate(pred)
+        report(f"{cls.__name__.lower()}_higgs", "auc", auc, GATE_AUC, t)
+
+    def cifar(n, seed):
+        ds = synthetic_cifar10(n, seed=seed)
+        ds = MinMaxTransformer(0.0, 1.0, 0.0, 255.0, input_col="features",
+                               output_col="fn").transform(ds)
+        ds = OneHotTransformer(10, input_col="label",
+                               output_col="le").transform(ds)
+        return ReshapeTransformer(input_col="fn", output_col="fi",
+                                  shape=(32, 32, 3)).transform(ds)
+
+    ctrain, ctest = cifar(CIFAR_ROWS, 0), cifar(CIFAR_TEST_ROWS, 1)
+    workers, epochs = 8, 16
+    e_control = max(1, epochs // (workers + 1))
+    common = dict(worker_optimizer="adam", batch_size=32,
+                  features_col="fi", label_col="le")
+    control = SingleTrainer(cifar10_convnet(),
+                            optimizer_kwargs={"learning_rate": 1e-3},
+                            num_epoch=e_control, **common)
+    acc_control = accuracy(control.train(ctrain, shuffle=True), ctest, "fi")
+    t = DynSGD(cifar10_convnet(), num_workers=workers,
+               communication_window=5,
+               optimizer_kwargs={"learning_rate": 2e-3}, num_epoch=epochs,
+               **common)
+    acc = accuracy(t.train(ctrain, shuffle=True), ctest, "fi")
+    detail = (f", staleness-normalized control {acc_control:.4f} ({epochs} "
+              f"vs {e_control} epochs)")
+    report("dynsgd_cifar10_vs_control", "accuracy", acc, acc_control - 0.02,
+           t, detail)
+    report("dynsgd_cifar10_above_chance", "accuracy", acc, 2.5 * 0.10, t)
+
+
+def adag_card_against_cpu(train, gpu, card_device="cuda"):
+    """ADAG on the MNIST CNN (dropout 0), sgd in f32, TF32 off, card
+    against CPU from the same weights for PARITY_WINDOWS windows.
+
+    Held to CARD_CPU_TOL, step by step with f64 compute
+    (``compute_dtype``; the weights, the updates and the loss stay f32):
+    each step of the trainer's stacked step, and each window's ADAG
+    merge, runs on both devices from the CPU's state; the step's losses
+    (relative), the workers' params after it and the center after each
+    merge (at the model's scale, ``tree_err``) are compared.  Printed,
+    not held: the same with f32 compute, whose conv gradients carry
+    their own ~1e-3 error (below); the two devices' free-running
+    ``ADAG.train`` runs, beside
+    the CPU's own run from weights nudged by one f32 ulp — this CNN's
+    trajectory amplifies a one-ulp change a thousandfold within a window
+    (relu at exactly 0 on the blank background, zero-initialised biases),
+    so two f32 implementations part at that floor whatever their
+    algebra; and the first step's stacked gradient against f64 on the
+    CPU (a conv kernel's gradient sums ~50,000 products that cancel to a
+    few thousandths of their size, so each f32 conv implementation lands
+    ~1e-3 from the exact value)."""
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from dist_keras_tpu_torch.trainers import ADAG
+    from dist_keras_tpu_torch.trainers import step as st
+    from dist_keras_tpu_torch.utils.pytree import (
+        tree_leaves,
+        tree_map,
+        tree_merge_floats,
+        tree_stack,
+    )
+
+    model = no_dropout_cnn(seed=1)
+    data = train.take(ADAG_WORKERS * ADAG_WINDOW * 64).shuffle(seed=0)
+
+    def trainer(dev, m=model, epochs=PARITY_WINDOWS):
+        return ADAG(m, num_workers=ADAG_WORKERS,
+                    communication_window=ADAG_WINDOW, worker_optimizer="sgd",
+                    optimizer_kwargs={"learning_rate": 0.05}, batch_size=64,
+                    num_epoch=epochs, features_col="fi", label_col="le",
+                    device=dev)
+
+    # 1. step by step from the CPU's state: f64 compute held, f32 printed
+    dev = torch.device(card_device)
+
+    def card(tree):
+        return tree_map(lambda x: x.to(dev), tree)
+
+    def forced(compute):
+        trs = {"card": trainer(dev), "cpu": trainer("cpu")}
+        steps = {}
+        for name, t in trs.items():
+            t.compute_dtype = compute
+            m, loss_fn, tx = t._resolve()
+            steps[name] = t._make_worker_step(m, loss_fn, tx)
+        center = trs["cpu"]._device_params(model.params)
+        local = tree_stack(center, ADAG_WORKERS)
+        opt = tree_stack(steps["cpu"][1](center), ADAG_WORKERS)
+        gens = {"cpu": torch.Generator(),
+                "card": torch.Generator(device=dev)}
+        loss_err = local_err = center_err = 0.0
+        for _ in range(PARITY_WINDOWS):
+            for j in range(ADAG_WINDOW):
+                batch = (torch.from_numpy(xs[:, j]),
+                         torch.from_numpy(ys[:, j]))
+                (new_local, new_opt, _), loss = steps["cpu"][0](
+                    (local, opt, gens["cpu"]), batch)
+                (local_c, _, _), loss_c = steps["card"][0](
+                    (card(local), card(opt), gens["card"]), card(batch))
+                loss_err = max(loss_err, float(
+                    ((loss_c.cpu() - loss).abs() / loss.abs()).max()))
+                local_err = max(local_err, tree_err(local_c, new_local)[0])
+                local, opt = new_local, new_opt
+            new_center, new_local = trs["cpu"].merge(center, local)
+            new_center_c, _ = trs["card"].merge(card(center), card(local))
+            center_err = max(center_err,
+                             tree_err(new_center_c, new_center)[0])
+            center = tree_merge_floats(new_center, center)
+            local = tree_merge_floats(new_local, local)
+        return loss_err, local_err, center_err
+
+    xs, ys = trainer("cpu")._shards(data)
+    held, f32 = forced(torch.float64), forced(None)
+
+    # 2. free-running, and the CPU against itself from a one-ulp nudge
+    def free(d, m=model):
+        t = trainer(d, m)
+        out = t.train(data)
+        return np.asarray(t.get_history()), out.get_weights()
+
+    def apart(a, b):
+        (ha, wa), (hb, wb) = a, b
+        return (float(np.max(np.abs(ha - hb) / np.abs(hb))),
+                max(float(np.abs(x - y).max() / np.abs(y).max())
+                    for x, y in zip(wa, wb)))
+
+    runs = {"card": free(dev), "cpu": free("cpu")}
+    nudged = no_dropout_cnn(seed=1)
+    nudged.set_weights([np.nextafter(w, np.float32(np.inf))
+                        for w in model.get_weights()])
+    card_cpu, floor = (apart(runs["card"], runs["cpu"]),
+                       apart(free("cpu", nudged), runs["cpu"]))
+
+    # 3. the first step's stacked gradient against f64
+    loss_of = st.make_loss_fn(model.apply, trainer("cpu")._resolve()[1])
+
+    def grads(d, dtype):
+        p = tree_stack([{k: v.detach().to(d, dtype) for k, v in q.items()}
+                        for q in model.params], ADAG_WORKERS)
+        g, _ = vmap(grad_and_value(loss_of))(
+            p, torch.from_numpy(xs[:, 0]).to(d, dtype),
+            torch.from_numpy(ys[:, 0]).to(d, dtype))
+        return [x.double().cpu() for x in tree_leaves(g)]
+
+    exact = grads("cpu", torch.float64)
+
+    def off(d):
+        return max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(grads(d, torch.float32), exact))
+
+    print(f"  ADAG card against CPU (mnist_cnn without dropout, "
+          f"{ADAG_WORKERS} workers, {PARITY_WINDOWS} windows of "
+          f"{ADAG_WINDOW}, sgd on f32 weights, TF32 off) on {gpu}: step by "
+          f"step from the CPU's state, with f64 compute: losses max rel err "
+          f"{held[0]:.3e}, workers' params after each step max err "
+          f"{held[1]:.3e} and center after each merge {held[2]:.3e} of "
+          f"their largest entry (held to {CARD_CPU_TOL}); with f32 compute: "
+          f"{f32[0]:.3e}, {f32[1]:.3e} and {f32[2]:.3e} (not held)")
+    print(f"    free-running ADAG.train: loss history max rel err "
+          f"{card_cpu[0]:.3e}, final center max err {card_cpu[1]:.3e} of "
+          f"each leaf's largest entry; the CPU against itself from weights "
+          f"one f32 ulp up: {floor[0]:.3e} and {floor[1]:.3e} (not held); "
+          f"first step's stacked gradient against f64 on the CPU, max err "
+          f"of each leaf's largest entry: card f32 (cuDNN) "
+          f"{off(dev):.3e}, CPU f32 {off('cpu'):.3e}")
+    require(max(held) <= CARD_CPU_TOL,
+            "the card's ADAG steps and merges disagree with the CPU's")
+
+
+def stacked_against_single(train, dev, gpu):
+    """``make_worker_step`` on 4 stacked workers against 4 separate
+    ``make_model_step`` steps on ``dev``: the MNIST CNN (dropout 0), sgd
+    on f32 weights, three steps; losses and params (at the model's
+    scale, ``tree_err``) held to STACK_TOL with f64 compute, printed with
+    f32 compute (the grouped and the single conv's gradients each carry
+    their own f32 error, ~1e-3 of the gradient)."""
+    import torch
+
+    from dist_keras_tpu_torch.ops.losses import get_loss
+    from dist_keras_tpu_torch.ops.optimizers import get_optimizer
+    from dist_keras_tpu_torch.trainers import step as st
+    from dist_keras_tpu_torch.utils.pytree import tree_index, tree_stack
+
+    model = no_dropout_cnn(seed=2)
+    loss_fn = get_loss("categorical_crossentropy")
+    tx = get_optimizer("sgd", learning_rate=0.05)
+    xs, ys = train.worker_shards(ADAG_WORKERS, 64, "fi", "le")
+    xs, ys = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+    params = [{k: v.detach().to(dev) for k, v in p.items()}
+              for p in model.params]
+    n = ADAG_WORKERS
+
+    def compare(compute):
+        wstep, wopt = st.make_worker_step(model, loss_fn, tx, compute)
+        sstep, sopt = st.make_model_step(model, loss_fn, tx, compute)
+        g = torch.Generator(device=dev).manual_seed(0)
+        carry = (tree_stack(params, n), tree_stack(wopt(params), n), g)
+        singles = [(params, sopt(params), g) for _ in range(n)]
+        loss_err = 0.0
+        for t in range(3):
+            carry, loss = wstep(carry, (xs[:, t], ys[:, t]))
+            for i in range(n):
+                singles[i], li = sstep(singles[i], (xs[i, t], ys[i, t]))
+                loss_err = max(loss_err, float(abs(loss[i] - li) / abs(li)))
+        errs = [tree_err(tree_index(carry[0], i), singles[i][0])
+                for i in range(n)]
+        return (loss_err, max(e[0] for e in errs), max(e[1] for e in errs))
+
+    held, f32 = compare(torch.float64), compare(None)
+    print(f"  stacked step ({n} workers, mnist_cnn without dropout, sgd on "
+          f"f32 weights) against {n} single steps, 3 steps, on {gpu}: f64 "
+          f"compute: loss max rel err {held[0]:.3e}, params max err "
+          f"{held[1]:.3e} of their largest entry (held to {STACK_TOL}); f32 "
+          f"compute: {f32[0]:.3e} and {f32[1]:.3e} ({f32[2]:.3e} of each "
+          f"leaf's largest entry; not held)")
+    require(held[0] <= STACK_TOL and held[1] <= STACK_TOL,
+            "the stacked step disagrees with the single steps")
+
+
+def no_sync_in_dispatch(train, gpu):
+    """ADAG and DynSGD train with every dispatch (the windows' steps and
+    merges, DynSGD's staggered commits) under ``set_sync_debug_mode
+    ("error")``: a host sync inside fails the run.  The chunk boundary's
+    drain and loss fetch stay outside, as they should."""
+    import torch
+
+    from dist_keras_tpu_torch.trainers import ADAG, DynSGD
+    from dist_keras_tpu_torch.trainers import dynsgd as dmod
+    from dist_keras_tpu_torch.trainers import windowed as wmod
+
+    def guarded(run):
+        def run_chunked(tr, xs, ys, *, dispatch, **kw):
+            def strict(*args):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return dispatch(*args)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            return run(tr, xs, ys, dispatch=strict, **kw)
+        return run_chunked
+
+    rows = ADAG_WORKERS * ADAG_WINDOW * 64
+    saved = wmod.run_chunked, dmod.run_chunked
+    wmod.run_chunked, dmod.run_chunked = map(guarded, saved)
+    try:
+        for cls, kw in ((ADAG, {}), (DynSGD, {"communication_window": 5})):
+            t = cls(no_dropout_cnn(seed=3), num_workers=ADAG_WORKERS,
+                    worker_optimizer="adam", batch_size=64, num_epoch=2,
+                    features_col="fi", label_col="le",
+                    compute_dtype=torch.bfloat16, **kw)
+            t.train(train.take(rows))
+            require(np.isfinite(np.asarray(t.get_history())).all(),
+                    f"{cls.__name__}'s losses are not finite")
+    finally:
+        wmod.run_chunked, dmod.run_chunked = saved
+    print(f"  no host sync in ADAG's 2 windows of {ADAG_WINDOW} steps and "
+          f"merges or in DynSGD's {2 * ADAG_WINDOW} steps and staggered "
+          f"commits (sync debug mode 'error', bf16, adam) on {gpu}")
+
+
+def bench_adag(gpu):
+    """``bench_adag_mnist_cnn``'s shape (batch 2048, 48 steps per epoch
+    over 4 workers: window 12 once per epoch, bf16 compute, adam): a
+    warm-up run, then the median of 3 runs of as many epochs as fill
+    about ADAG_BENCH_SECONDS; samples over ``get_training_time()``, as
+    ``bench.py`` counts them (one card).  Then one global step (4
+    workers x 2048) profiled."""
+    import torch
+
+    from dist_keras_tpu_torch.data import Dataset
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.trainers import ADAG
+
+    rng = np.random.default_rng(0)
+    n = ADAG_BENCH_BATCH * ADAG_BENCH_STEPS
+    y = rng.integers(0, 10, n)
+    ds = Dataset({"features": rng.normal(size=(n, 28, 28, 1)).astype(
+        np.float32), "label": y,
+        "label_encoded": np.eye(10, dtype=np.float32)[y]})
+
+    def run(epochs):
+        t = ADAG(mnist_cnn(), num_workers=ADAG_WORKERS,
+                 communication_window=ADAG_WINDOW, worker_optimizer="adam",
+                 batch_size=ADAG_BENCH_BATCH, num_epoch=epochs,
+                 label_col="label_encoded", compute_dtype=torch.bfloat16)
+        t.train(ds)
+        h = np.asarray(t.get_history())
+        require(h.shape == (ADAG_WORKERS, epochs, 1, ADAG_WINDOW)
+                and np.isfinite(h).all(),
+                f"the bench run's history {h.shape} is not finite")
+        return h.size * ADAG_BENCH_BATCH / t.get_training_time()
+
+    warm = run(2)
+    epochs = max(2, int(ADAG_BENCH_SECONDS * warm / n))
+    sps = [run(epochs) for _ in range(BENCH_RUNS)]
+    med = float(np.median(sps))
+    fps = mnist_cnn_flops_per_sample(mnist_cnn())
+    step_samples = ADAG_WORKERS * ADAG_BENCH_BATCH
+    bound, by = bound_ms(0, fps * step_samples, "bfloat16")
+    print(f"  bench_adag_mnist_cnn shape (batch {ADAG_BENCH_BATCH}, "
+          f"{ADAG_WORKERS} workers, window {ADAG_WINDOW}, bf16, adam): "
+          f"{med:.1f} samples/s (median of {BENCH_RUNS} runs of {epochs} "
+          f"epochs: {', '.join(f'{v:.1f}' for v in sps)}; warm-up "
+          f"{warm:.1f}) = {step_samples / med * 1e3:.4f} ms per global step "
+          f"of {step_samples} samples on {gpu}")
+    print(f"  mnist_cnn: {mnist_cnn().count_params} parameters, "
+          f"{fps / 1e6:.2f} MFLOP per trained sample, "
+          f"{fps * step_samples / 1e12:.4f} TFLOP per global step; bound "
+          f"{bound:.4f} ms per global step ({by}, bf16 dense peak)")
+    profile_worker_step(ds, gpu)
+
+
+def profile_worker_step(ds, gpu):
+    """One ADAG global step at the bench shape, as the trainer builds it
+    (``make_worker_step`` on 4 stacked workers, bf16, adam): host wall
+    per step over a chained run; device time from CUDA events over 2
+    back-to-back steps; the device operations, kernel time and the top
+    kernels per step over one window and its merge (torch.profiler).
+    Then, as a yardstick, one model's plain step over all the global
+    step's rows (``make_model_step``, batch 4 x 2048)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.ops.losses import get_loss
+    from dist_keras_tpu_torch.ops.optimizers import get_optimizer
+    from dist_keras_tpu_torch.trainers import step as st
+    from dist_keras_tpu_torch.trainers.windowed import ADAG
+    from dist_keras_tpu_torch.utils.pytree import (
+        tree_merge_floats,
+        tree_stack,
+    )
+
+    dev = torch.device("cuda")
+    model = mnist_cnn()
+    step, opt_init = st.make_worker_step(
+        model, get_loss("categorical_crossentropy"), get_optimizer("adam"),
+        torch.bfloat16)
+    center = [{k: v.detach().to(dev) for k, v in p.items()}
+              for p in model.params]
+    n, b = ADAG_WORKERS, ADAG_BENCH_BATCH
+    carry = (tree_stack(center, n), tree_stack(opt_init(center), n),
+             torch.Generator(device=dev).manual_seed(0))
+    x = torch.from_numpy(ds["features"][:n * b]).to(dev).reshape(
+        n, b, 28, 28, 1)
+    y = torch.from_numpy(ds["label_encoded"][:n * b]).to(dev).reshape(
+        n, b, 10)
+    merger = ADAG(model, num_workers=n, communication_window=ADAG_WINDOW)
+
+    def window():
+        c, losses = carry, []
+        for _ in range(ADAG_WINDOW):
+            c, loss = step(c, (x, y))
+            losses.append(loss)
+        new_center, new_local = merger.merge(center, c[0])
+        return (tree_merge_floats(new_center, center),
+                tree_merge_floats(new_local, c[0]), torch.stack(losses, 1))
+
+    def host_ms(fn, k=24):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(k):
+                fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / k * 1e3)
+        return float(np.median(walls))
+
+    def kernels(fn, k):
+        """-> (device operations, ms of kernels, top kernels) per call of
+        ``fn`` over ``k`` calls, from the profiler."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        n_ops = sum(e.count for e in ops) / k
+        busy = sum(e.self_device_time_total for e in ops) / k / 1e3
+        require(n_ops > 0 and busy > 0, "the profiler saw no device work")
+        top = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
+        return n_ops, busy, [(e.key, e.count / k,
+                              e.self_device_time_total / k) for e in top]
+
+    wall_ms = host_ms(lambda: step(carry, (x, y)))
+    window_ms = host_ms(window, k=2) / ADAG_WINDOW
+    # two steps (~600 launches) fit the launch queue behind the sleep
+    device_ms = time_ms(lambda: step(carry, (x, y)), reps=2, trials=7,
+                        sleep_ms=100)
+    n_ops, busy_ms, top = kernels(window, ADAG_WINDOW)
+    print(f"  ADAG global step ({n} workers x {b}, mnist_cnn, bf16, adam) "
+          f"on {gpu}: wall {wall_ms:.4f} ms ({window_ms:.4f} ms per step "
+          f"over a window and its merge), device {device_ms:.4f} ms (CUDA "
+          f"events), card idle {max(0.0, 1 - device_ms / wall_ms):.0%} of "
+          f"the step; {n_ops:.1f} device operations and {busy_ms:.4f} ms of "
+          f"kernels per step over one window (torch.profiler)")
+    print("  top kernels per step: " + "; ".join(
+        f"{key[:72]} x{count:g} {us:.1f} us" for key, count, us in top))
+    # the same work as one model's step over all n x b rows: what the
+    # stacked lowering costs beyond the plain eager step
+    one, one_opt = st.make_model_step(
+        model, get_loss("categorical_crossentropy"), get_optimizer("adam"),
+        torch.bfloat16)
+    one_carry = (center, one_opt(center), carry[2])
+    xb, yb = x.reshape(n * b, 28, 28, 1), y.reshape(n * b, 10)
+    one_device = time_ms(lambda: one(one_carry, (xb, yb)), reps=2,
+                         trials=7, sleep_ms=100)
+    one_ops, one_busy, _ = kernels(lambda: one(one_carry, (xb, yb)), 1)
+    print(f"  one model's step over the same {n * b} rows (make_model_step, "
+          f"bf16, adam) on {gpu}: device {one_device:.4f} ms (CUDA events), "
+          f"{one_ops:.1f} device operations and {one_busy:.4f} ms of "
+          f"kernels (torch.profiler)")
+
+
+def train_windowed(fa, fu, da, gpu):
+    """Phase 10: the windowed trainers on W workers stacked on the card —
+    the windowed gates, ADAG card against CPU, the stacked step against
+    single steps, no host sync in a dispatch, and samples/s with one
+    global step's profile at ``bench_adag_mnist_cnn``'s shape."""
+    import torch
+
+    t0 = time.perf_counter()
+    train, test = mnist_sets()
+    print(f"  data: {GATE_ROWS} + {GATE_TEST_ROWS} synthetic MNIST rows in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    zero_kernel_counts(fa, fu, da)
+    # deterministic cuDNN algorithms: a gate's value is then the same in
+    # every run on one machine (the default ones add in varying orders)
+    torch.backends.cudnn.deterministic = True
+    try:
+        windowed_gates(train, test, gpu)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    adag_card_against_cpu(train, gpu)
+    stacked_against_single(train, torch.device("cuda"), gpu)
+    no_sync_in_dispatch(train, gpu)
+    bench_adag(gpu)
+    counts = kernel_counts(fa, fu, da)
+    print(f"  hand-written kernels launched by phase 10: {counts} (none is "
+          f"on this path)")
+    require(not any(counts.values()),
+            f"phase 10 launched a hand-written kernel: {counts}")
+    print(f"  phase 10 wall {time.perf_counter() - t0:.1f} s")
+
+
 def main(argv=None):
     import argparse
 
@@ -1878,6 +2496,10 @@ def main(argv=None):
     print("phase 9: the paper's training loop (SingleTrainer, the MNIST "
           "MLP gate, one card)")
     train_loop(fa, fu, da, gpu)
+    torch.cuda.empty_cache()
+    print("phase 10: the windowed trainers (DistributedTrainer, W workers "
+          "stacked on one card)")
+    train_windowed(fa, fu, da, gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

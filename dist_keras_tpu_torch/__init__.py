@@ -25,9 +25,14 @@ Keras-style ``Sequential`` models with their layers and zoo
 chunk runner and ``SingleTrainer`` (``trainers/``), the data path
 (``Dataset``, the transformers, the synthetic sets, ``ModelPredictor``
 and the evaluators under ``data/``), the NaN sentinel
-(``resilience/guards.py``) and the metrics registry.  This loop runs
-PyTorch's own ops (cuBLAS, cuDNN, elementwise): the JAX package runs it
-through XLA, with no Pallas kernel on it.
+(``resilience/guards.py``) and the metrics registry; and the
+multi-worker trainers on one card — ``DistributedTrainer``, the
+windowed DOWNPOUR / ADAG / AEASGD / EAMSGD, ``AveragingTrainer``,
+``EnsembleTrainer`` and ``DynSGD`` — with the W workers stacked on one
+dimension (``parallel/mesh.py``, ``parallel/collectives.py``,
+``comm/backend.py``).  This loop runs PyTorch's own ops (cuBLAS, cuDNN,
+elementwise): the JAX package runs it through XLA, with no Pallas
+kernel on it.
 """
 
 __version__ = "0.1.0"

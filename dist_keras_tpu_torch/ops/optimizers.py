@@ -58,9 +58,16 @@ def _power(base, count):
                       device=count.device) ** count
 
 
+def _lead(s, t):
+    """A count-derived value ``s`` shaped to broadcast over ``t``'s
+    leading dims: ``()`` for one worker, ``(W,)`` for W stacked workers,
+    each with its own count (``trainers/step.py``'s worker step)."""
+    return s.reshape(s.shape + (1,) * (t.dim() - s.dim())).to(t.dtype)
+
+
 def _bias_correction(moment, decay, count):
     c = 1 - _power(decay, count)
-    return tree_map(lambda t: t / c.to(t.dtype), moment)
+    return tree_map(lambda t: t / _lead(c, t), moment)
 
 
 def linear_schedule(init_value, end_value, transition_steps):
@@ -97,7 +104,7 @@ def _with_learning_rate(direction, learning_rate):
         new = {"inner": inner}
         if scheduled:
             step = -learning_rate(state["count"])
-            upd = tree_map(lambda g: step.to(g.dtype) * g, upd)
+            upd = tree_map(lambda g: _lead(step, g) * g, upd)
             new["count"] = state["count"] + 1
         else:
             upd = tree_map(lambda g: -learning_rate * g, upd)
@@ -106,18 +113,41 @@ def _with_learning_rate(direction, learning_rate):
     return Optimizer(init, update)
 
 
-def _trace(decay, nesterov):
+def trace(decay, nesterov=False):
     """``optax.trace``: t = g + decay * t; the update is t (or, with
-    nesterov, g + decay * t)."""
+    nesterov, g + decay * t).  Chained behind another optimizer it is
+    EAMSGD's momentum (``chain(tx, trace(momentum, nesterov=True))``)."""
 
+    @torch.no_grad()
     def init(params):
         return {"trace": tree_map(torch.zeros_like, params)}
 
+    @torch.no_grad()
     def update(grads, state, params=None):
         trace = tree_map(lambda g, t: g + decay * t, grads, state["trace"])
         upd = (tree_map(lambda g, t: g + decay * t, grads, trace)
                if nesterov else trace)
         return upd, {"trace": trace}
+
+    return Optimizer(init, update)
+
+
+def chain(*optimizers):
+    """``optax.chain``: each optimizer transforms the updates of the one
+    before it (the first gets the gradients); the state is the tuple of
+    their states, in order."""
+
+    @torch.no_grad()
+    def init(params):
+        return tuple(o.init(params) for o in optimizers)
+
+    @torch.no_grad()
+    def update(grads, state, params=None):
+        new = []
+        for o, s in zip(optimizers, state):
+            grads, s = o.update(grads, s, params)
+            new.append(s)
+        return grads, tuple(new)
 
     return Optimizer(init, update)
 
@@ -137,7 +167,7 @@ def sgd(learning_rate, momentum=None, nesterov=False):
             return tree_map(lambda g: -learning_rate * g, grads), state
 
         return Optimizer(lambda params: {}, update)
-    direction = (_trace(momentum, nesterov) if momentum is not None
+    direction = (trace(momentum, nesterov) if momentum is not None
                  else _identity())
     return _with_learning_rate(direction, learning_rate)
 
@@ -239,19 +269,7 @@ def rmsprop(learning_rate, decay=0.9, eps=1e-8, momentum=None,
     scaled = _with_learning_rate(Optimizer(init, update), learning_rate)
     if momentum is None:
         return scaled
-    trace = _trace(momentum, nesterov)
-
-    @torch.no_grad()
-    def init_all(params):
-        return {"rms": scaled.init(params), "trace": trace.init(params)}
-
-    @torch.no_grad()
-    def update_all(grads, state, params=None):
-        upd, rms = scaled.update(grads, state["rms"], params)
-        upd, tr = trace.update(upd, state["trace"], params)
-        return upd, {"rms": rms, "trace": tr}
-
-    return Optimizer(init_all, update_all)
+    return chain(scaled, trace(momentum, nesterov))
 
 
 def adadelta(learning_rate, rho=0.9, eps=1e-6):

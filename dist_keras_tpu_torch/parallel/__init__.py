@@ -1,4 +1,6 @@
-"""Training steps — counterpart of ``parallel/`` (one card so far)."""
+"""Counterpart of ``parallel/`` (one card so far): the TP transformer's
+train step, the worker layout (``mesh.py``) and the collectives over
+stacked workers (``collectives.py``)."""
 
 from dist_keras_tpu_torch.parallel.transformer_tp import (
     make_tp_train_step,

@@ -7,12 +7,19 @@ optimizer, records wall-clock training time and exposes
 names, defaults and semantics, plus ``device``: the card (``cuda``)
 unless the caller asks for the CPU.
 
+``DistributedTrainer`` (trainers.py:~290) adds ``num_workers``: the W
+workers are stacked on dimension 0 of every per-worker tensor on the
+trainer's one device (``parallel/mesh.py``), where the JAX package puts
+one worker on each device of a mesh.  ``master_host`` / ``master_port``
+are accepted and ignored, as there.
+
 Not ported yet, and raising when asked for instead of being ignored:
 checkpoints, resume and preemption (``checkpoint_dir``,
 ``checkpoint_every``, ``max_checkpoints``, ``resume``,
-``handle_preemption``: ROADMAP queue 1, item 19) and
-``DistributedTrainer`` (item 21).  The JAX package's jit cache has no
-counterpart: the port compiles nothing.
+``handle_preemption``: ROADMAP queue 1, item 19), and workers spread
+over several cards or hosts (a ``mesh``, the multi-host environment:
+item 12b).  The JAX package's jit cache has no counterpart: the port
+compiles nothing.
 """
 
 from __future__ import annotations
@@ -21,12 +28,15 @@ import time
 
 import numpy as np
 
+from dist_keras_tpu_torch.comm import backend as comm
 from dist_keras_tpu_torch.observability import events
 from dist_keras_tpu_torch.observability import metrics as obs_metrics
 from dist_keras_tpu_torch.ops.losses import get_loss
 from dist_keras_tpu_torch.ops.optimizers import get_optimizer
+from dist_keras_tpu_torch.parallel.mesh import worker_mesh
 from dist_keras_tpu_torch.resilience.guards import normalize_policy
 from dist_keras_tpu_torch.utils.device import resolve_device
+from dist_keras_tpu_torch.utils.pytree import tree_map, tree_stack
 from dist_keras_tpu_torch.utils.serialization import (
     deserialize_model,
     serialize_model,
@@ -102,7 +112,13 @@ class Trainer:
         return self._t_stop - self._t_start
 
     def get_history(self):
-        """Per-step training losses; SingleTrainer -> (steps,)."""
+        """Per-step training losses.
+
+        Shapes by trainer: SingleTrainer -> (steps,); AveragingTrainer ->
+        (workers, epochs, steps); EnsembleTrainer -> (num_models, epochs,
+        steps); the windowed family (DOWNPOUR/ADAG/AEASGD/EAMSGD) ->
+        (workers, epochs, windows, W); DynSGD -> (workers, epochs,
+        steps)."""
         return self.history
 
     def get_averaged_history(self):
@@ -156,6 +172,11 @@ class Trainer:
             model, loss_fn, tx, self.compute_dtype,
             skip_nonfinite=(self.nan_policy == "skip"))
 
+    def _device_params(self, params):
+        """A copy of a params tree on the trainer's device."""
+        return tree_map(lambda t: t.detach().to(self.device, copy=True),
+                        params)
+
     def _finalize(self, params, history):
         """Install the trained params, copied to the host, into a fresh
         model; record history."""
@@ -167,3 +188,61 @@ class Trainer:
 
     def train(self, dataset, shuffle=False):
         raise NotImplementedError
+
+
+class DistributedTrainer(Trainer):
+    """Base for every multi-worker trainer (trainers.py:~290).
+
+    The ``num_workers`` workers live on the trainer's one device,
+    stacked on dimension 0 (:meth:`_stack_workers`), so their count is
+    not bounded by the number of cards.  ``mesh`` (an explicit device
+    layout) and the multi-host environment raise ``NotImplementedError``
+    (ROADMAP queue 1, item 12b)."""
+
+    def __init__(self, keras_model, num_workers=2, master_host=None,
+                 master_port=5000, mesh=None, **kw):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: workers spread over an explicit device mesh are not "
+                "ported yet (ROADMAP queue 1, item 12b: workers across "
+                "cards through torch.distributed); the port stacks the "
+                "workers on the trainer's one device")
+        # single-process bring-up: raises on a multi-host environment
+        comm.initialize()
+        super().__init__(keras_model, **kw)
+        self.num_workers = int(num_workers)
+        # master_host/master_port: reference PS kwargs, accepted for parity
+        del master_host, master_port
+        self._mesh = None
+
+    @property
+    def mesh(self):
+        """The :class:`~dist_keras_tpu_torch.parallel.mesh.WorkerMesh` of
+        ``num_workers`` stacked slots on the trainer's device."""
+        if self._mesh is None:
+            self._mesh = worker_mesh(self.num_workers, self.device)
+        return self._mesh
+
+    def _shards(self, dataset):
+        """-> (xs, ys) host arrays ``(num_workers, steps, batch, ...)``:
+        rows dealt to workers contiguously (``Dataset.worker_shards``)."""
+        return dataset.worker_shards(
+            self.num_workers, self.batch_size,
+            features_col=self.features_col, label_col=self.label_col,
+            dtype=self.data_dtype)
+
+    def _stack_workers(self, tree, n=None):
+        """``n`` (default ``num_workers``) real copies of ``tree`` stacked
+        on dim 0, on the trainer's device: the layout of per-worker
+        state (local replicas, optimizer state, pulled snapshots)."""
+        return tree_stack(self._device_params(tree),
+                          self.num_workers if n is None else n)
+
+    def _make_worker_step(self, model, loss_fn, tx):
+        """``make_worker_step`` with this trainer's NaN policy — the
+        worker-stacked counterpart of :meth:`Trainer._make_step`."""
+        from dist_keras_tpu_torch.trainers.step import make_worker_step
+
+        return make_worker_step(
+            model, loss_fn, tx, self.compute_dtype,
+            skip_nonfinite=(self.nan_policy == "skip"))

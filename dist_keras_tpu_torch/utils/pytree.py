@@ -87,6 +87,20 @@ def tree_merge_floats(merged, original):
                     merged, original)
 
 
+def tree_stack(tree, n):
+    """``n`` copies of every leaf stacked on a new dim 0 — per-worker
+    state (``parallel/mesh.py``).  The copies are real (``repeat``), never
+    ``expand`` views, so an in-place update of one worker's slot can
+    never write the others."""
+    return tree_map(lambda x: x.unsqueeze(0).repeat(n, *([1] * x.dim())),
+                    tree)
+
+
+def tree_index(tree, i):
+    """Slot ``i`` of a stacked tree (views of its leaves)."""
+    return tree_map(lambda x: x[i], tree)
+
+
 def tree_size(a):
     """Total number of elements across leaves."""
     return sum(x.numel() for x in tree_leaves(a))

@@ -50,6 +50,11 @@ LAYERS = [
     ("Conv2D", dict(filters=5, kernel_size=3, padding="valid"), (7, 8, 2)),
     ("Conv2D", dict(filters=2, kernel_size=2, strides=2, padding="valid",
                     activation="relu"), (7, 7, 3)),
+    # one input channel (an image layer)
+    ("Conv2D", dict(filters=4, kernel_size=3, padding="same",
+                    activation="relu"), (9, 8, 1)),
+    ("Conv2D", dict(filters=3, kernel_size=(3, 2), strides=2,
+                    padding="valid"), (9, 8, 1)),
     ("MaxPool2D", dict(pool_size=2), (8, 8, 3)),
     ("MaxPool2D", dict(pool_size=3, strides=2, padding="same"), (9, 8, 2)),
     ("MaxPool2D", dict(pool_size=2, padding="same"), (7, 7, 2)),
@@ -133,6 +138,9 @@ GRAD_LAYERS = [
                     activation="relu"), (6, 6, 2)),
     ("Conv2D", dict(filters=3, kernel_size=2, strides=2, padding="same"),
      (7, 6, 2)),
+    ("Conv2D", dict(filters=3, kernel_size=3, padding="same"), (6, 7, 1)),
+    ("Conv2D", dict(filters=2, kernel_size=3, strides=2, padding="same"),
+     (7, 6, 1)),
     ("MaxPool2D", dict(pool_size=2), (6, 6, 2)),
     ("MaxPool2D", dict(pool_size=3, strides=2, padding="same"), (7, 7, 2)),
     ("AvgPool2D", dict(pool_size=2), (6, 6, 2)),

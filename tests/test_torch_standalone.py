@@ -23,7 +23,14 @@ from dist_keras_tpu_torch.parallel import (
     train_tp_transformer,
 )
 from dist_keras_tpu_torch.serving import DecodeEngine
-from dist_keras_tpu_torch.trainers import SingleTrainer
+from dist_keras_tpu_torch.trainers import (
+    ADAG,
+    DOWNPOUR,
+    AveragingTrainer,
+    DynSGD,
+    EnsembleTrainer,
+    SingleTrainer,
+)
 from dist_keras_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -260,3 +267,44 @@ def test_kernel_bits_may_differ_by_kernel_or_by_dtype():
     assert "different, allowed  flash_bwd_dq B=1 float32" in lines
     assert "equal  paged_decode S=1 float32" in lines
     assert compare(a, a, [])[1] == 0
+
+
+_MULTI_WORKER = [ADAG, DOWNPOUR, DynSGD, AveragingTrainer, EnsembleTrainer]
+
+
+@pytest.mark.parametrize("cls", _MULTI_WORKER, ids=lambda c: c.__name__)
+def test_multi_worker_trainers_refuse_without_cuda(no_cuda, cls):
+    model = mnist_mlp(hidden=(4,), input_dim=6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls(model)
+
+
+def test_adag_trains_on_the_cpu_when_asked(no_cuda):
+    model = mnist_mlp(hidden=(4,), num_classes=3, input_dim=6)
+    rng = np.random.default_rng(0)
+    data = Dataset.from_arrays(rng.normal(size=(96, 6)).astype(np.float32),
+                               np.eye(3, dtype=np.float32)[
+                                   rng.integers(0, 3, 96)])
+    t = ADAG(model, num_workers=4, communication_window=3, batch_size=8,
+             num_epoch=2, device="cpu")
+    trained = t.train(data)
+    assert np.asarray(t.get_history()).shape == (4, 2, 1, 3)
+    assert all(p.device.type == "cpu" for p in trained.parameters())
+
+
+@pytest.mark.parametrize("cls", _MULTI_WORKER, ids=lambda c: c.__name__)
+def test_multi_worker_trainers_refuse_a_mesh(cls):
+    model = mnist_mlp(hidden=(4,), input_dim=6)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        cls(model, mesh="workers", device="cpu")
+
+
+@pytest.mark.parametrize("env", [
+    ("JAX_COORDINATOR_ADDRESS", "10.0.0.1:1234"), ("JAX_NUM_PROCESSES", "2"),
+    ("WORLD_SIZE", "2")], ids=lambda e: e[0])
+def test_multi_worker_trainers_refuse_the_multi_host_env(monkeypatch, env):
+    monkeypatch.setenv(*env)
+    model = mnist_mlp(hidden=(4,), input_dim=6)
+    for cls in _MULTI_WORKER:
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            cls(model, device="cpu")
