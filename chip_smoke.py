@@ -119,6 +119,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -1860,8 +1861,8 @@ def windowed_gates(train, test, gpu):
              optimizer_kwargs={"learning_rate": 3e-3}, batch_size=64,
              num_epoch=GATE_EPOCHS, features_col="fi", label_col="le")
     require(t.device.type == "cuda", f"ADAG runs on {t.device}")
-    trained = t.train(train, shuffle=True)
-    report("adag_mnist_cnn_w12", "accuracy", accuracy(trained, test, "fi"),
+    adag = t.train(train, shuffle=True)
+    report("adag_mnist_cnn_w12", "accuracy", accuracy(adag, test, "fi"),
            GATE_ACC, t)
 
     spe = GATE_ROWS // (8 * 32)
@@ -1922,6 +1923,7 @@ def windowed_gates(train, test, gpu):
     report("dynsgd_cifar10_vs_control", "accuracy", acc, acc_control - 0.02,
            t, detail)
     report("dynsgd_cifar10_above_chance", "accuracy", acc, 2.5 * 0.10, t)
+    return adag
 
 
 def adag_card_against_cpu(train, gpu, card_device="cuda"):
@@ -2317,7 +2319,9 @@ def train_windowed(fa, fu, da, gpu):
     """Phase 10: the windowed trainers on W workers stacked on the card —
     the windowed gates, ADAG card against CPU, the stacked step against
     single steps, no host sync in a dispatch, and samples/s with one
-    global step's profile at ``bench_adag_mnist_cnn``'s shape."""
+    global step's profile at ``bench_adag_mnist_cnn``'s shape.  -> the
+    ADAG gate's trained model and the gate's held-out rows (phase 11
+    serves them)."""
     import torch
 
     t0 = time.perf_counter()
@@ -2329,7 +2333,7 @@ def train_windowed(fa, fu, da, gpu):
     # every run on one machine (the default ones add in varying orders)
     torch.backends.cudnn.deterministic = True
     try:
-        windowed_gates(train, test, gpu)
+        adag = windowed_gates(train, test, gpu)
     finally:
         torch.backends.cudnn.deterministic = False
     adag_card_against_cpu(train, gpu)
@@ -2342,6 +2346,462 @@ def train_windowed(fa, fu, da, gpu):
     require(not any(counts.values()),
             f"phase 10 launched a hand-written kernel: {counts}")
     print(f"  phase 10 wall {time.perf_counter() - t0:.1f} s")
+    return adag, test
+
+
+# -- phase 11: the rest of serving on the card ------------------------------
+SERVE_LADDER = (1, 8, 32, 128)
+SERVE_CLIENTS, SERVE_MAX_ROWS = 8, 64
+SERVE_TOL = 1e-5      # relative to each row's largest logit (f32, TF32 off)
+KILL_AFTER = 8        # tokens request 0 streams before replica 0 is killed
+SHED_WATERMARK = 0.01
+
+
+def post_json(addr, path, body, headers=None):
+    """-> (status, headers, doc) of one POST, typed errors included."""
+    host, port = addr
+    req = urllib.request.Request(
+        f"http://{host}:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})},
+        method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def ragged_requests(n, rng):
+    """[start, stop) row ranges of 1..SERVE_MAX_ROWS rows covering n."""
+    out, i = [], 0
+    while i < n:
+        k = int(rng.integers(1, SERVE_MAX_ROWS + 1))
+        out.append((i, min(n, i + k)))
+        i += k
+    return out
+
+
+def post_rows(addr, x, spans, clients=SERVE_CLIENTS, swap=None):
+    """Post the row ranges ``spans`` of ``x`` from ``clients`` threads;
+    ``swap()`` runs once half of them are answered.  -> (per-range
+    (status, predictions), per-request seconds, wall seconds)."""
+    results = [None] * len(spans)
+    lat = [None] * len(spans)
+    done = [0]
+    lock = threading.Lock()
+
+    def client(c):
+        for j in range(c, len(spans), clients):
+            a, b = spans[j]
+            t0 = time.perf_counter()
+            status, _, doc = post_json(addr, "/predict",
+                                       {"rows": x[a:b].tolist()})
+            lat[j] = time.perf_counter() - t0
+            results[j] = (status, doc.get("predictions"))
+            with lock:
+                done[0] += 1
+                fire = swap is not None and done[0] == len(spans) // 2
+            if fire:
+                swap()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results, lat, time.perf_counter() - t0
+
+
+def logits_err(got, want):
+    """Largest error relative to each row's largest logit."""
+    return float((np.abs(got - want).max(1)
+                  / np.abs(want).max(1)).max())
+
+
+def payload_host_cost(x, spans, gpu):
+    """The host's share of one /predict round: the same requests' rows
+    as JSON text and back into arrays, on one thread of this machine's
+    CPU (what the clients and handlers above do under one GIL)."""
+    t0 = time.perf_counter()
+    bodies = [json.dumps({"rows": x[a:b].tolist()}) for a, b in spans]
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    docs = [json.loads(b) for b in bodies]
+    t_dec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for doc in docs:
+        [np.asarray(r, dtype=np.float32) for r in doc["rows"]]
+    t_arr = time.perf_counter() - t0
+    total = t_enc + t_dec + t_arr
+    print(f"  the payload on the host CPU, one thread: {x.size} floats as "
+          f"{sum(map(len, bodies)) / 1e6:.1f} MB of JSON; json.dumps "
+          f"{t_enc:.3f} s, json.loads {t_dec:.3f} s, rows to arrays "
+          f"{t_arr:.3f} s: {total:.3f} s, {total / len(x) * 1e3:.3f} ms "
+          f"per row (host of {gpu})")
+
+
+def serve_predict(model, test, fa, fu, da, gpu, device=None):
+    """11a: ``/predict`` on the trained MNIST CNN behind ``ServingServer``
+    with two replicas sharing the card: ragged requests from 8 clients,
+    every reply 200 and equal to ``ModelPredictor`` on the same card, a
+    typed 503 on overload, a hot swap mid-traffic, drain then 503."""
+    from dist_keras_tpu_torch.data import (
+        AccuracyEvaluator,
+        LabelIndexTransformer,
+        ModelPredictor,
+    )
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.serving import ServingEngine, ServingServer
+
+    t_phase = time.perf_counter()
+    n_params = sum(int(np.prod(w.shape)) for w in model.get_weights())
+    x = np.asarray(test["fi"], np.float32)
+    labels = np.asarray(test["label"])
+    predictor = ModelPredictor(model, features_col="fi", device=device)
+    ref = np.asarray(predictor.predict(test)["prediction"])
+    acc_ref = AccuracyEvaluator(
+        prediction_col="prediction_index", label_col="label").evaluate(
+        LabelIndexTransformer(input_col="prediction").transform(
+            predictor.predict(test)))
+    spans = ragged_requests(len(x), np.random.default_rng(11))
+    zero_kernel_counts(fa, fu, da)
+    engine = ServingEngine(model, replicas=2, batch_ladder=SERVE_LADDER,
+                           device=device)
+    server = ServingServer(engine, port=0, request_timeout_s=600)
+    addr = server.start()
+    try:
+        post_rows(addr, x, spans[:8])                  # warm-up
+        results, lat, wall = post_rows(addr, x, spans)
+        require(all(r is not None and r[0] == 200 for r in results),
+                f"/predict replies: {[r and r[0] for r in results]}")
+        got = np.concatenate([np.asarray(r[1], np.float32)
+                              for r in results])
+        err = logits_err(got, ref)
+        acc = float((got.argmax(1) == labels).mean())
+        st = engine.stats()
+        print(f"  mnist_cnn ({n_params} f32 params, examples/mnist.py "
+              f"widths), {st['replicas']} replicas on "
+              f"{sorted(set(st['devices']))}, ladder {SERVE_LADDER}")
+        print(f"  {len(x)} rows in {len(spans)} requests of 1-"
+              f"{SERVE_MAX_ROWS} rows from {SERVE_CLIENTS} clients: "
+              f"{len(x) / wall:.1f} rows/s, request p50 "
+              f"{np.percentile(lat, 50) * 1e3:.2f} ms p99 "
+              f"{np.percentile(lat, 99) * 1e3:.2f} ms (wall {wall:.3f} s) "
+              f"on {gpu}")
+        print(f"  served against ModelPredictor on the card: max err "
+              f"{err:.3e} of each row's largest logit (held to "
+              f"{SERVE_TOL:g}), argmax equal "
+              f"{bool((got.argmax(1) == ref.argmax(1)).all())}, accuracy "
+              f"{acc:.4f} vs {acc_ref:.4f}")
+        print(f"  batches {st['batches']} by replica "
+              f"{st['batches_by_replica']}, shapes {st['shapes_dispatched']}"
+              f" (retrace_count {st['retrace_count']} <= "
+              f"{st['retrace_bound']}), fill ratio mean "
+              f"{st['fill_ratio']['mean']:.3f}")
+        require(err <= SERVE_TOL, f"served logits off by {err}")
+        require((got.argmax(1) == ref.argmax(1)).all(),
+                "served argmax differs from ModelPredictor's")
+        require(abs(acc - acc_ref) < 1e-9,
+                f"served accuracy {acc} != evaluator's {acc_ref}")
+        require(st["retrace_count"] <= 4, f"shape count {st}")
+        require(min(st["batches_by_replica"]) > 0,
+                f"a replica served nothing: {st['batches_by_replica']}")
+        payload_host_cost(x, spans, gpu)
+
+        # the hot swap: zero dropped, and the predictions switch
+        other = mnist_cnn(seed=1)
+        ref2 = np.asarray(ModelPredictor(other, features_col="fi",
+                                         device=device)
+                          .predict(test)["prediction"])
+        results, _, _ = post_rows(
+            addr, x, spans, swap=lambda: engine.set_params(other.params))
+        require(all(r is not None and r[0] == 200 for r in results),
+                "a request was dropped across the hot swap")
+        status, _, doc = post_json(addr, "/predict",
+                                   {"rows": x[:64].tolist()})
+        after = np.asarray(doc["predictions"], np.float32)
+        err2 = logits_err(after, ref2[:64])
+        print(f"  hot swap mid-traffic: {len(results)} requests all 200, "
+              f"reloads {engine.reload_count}; after it, err against the "
+              f"new weights {err2:.3e}, against the old "
+              f"{logits_err(after, ref[:64]):.3e}")
+        require(status == 200 and err2 <= SERVE_TOL,
+                f"predictions after the swap are not the new model's "
+                f"({err2})")
+
+        # drain: everything delivered, then typed 503s
+        out = engine.drain(timeout_s=600)
+        status, hdrs, doc = post_json(addr, "/predict",
+                                      {"rows": x[:2].tolist()})
+        print(f"  drain: {out}; then /predict {status} {doc.get('reason')}")
+        require(out["errored"] == 0 and status == 503
+                and doc.get("reason") == "draining"
+                and hdrs.get("Retry-After") == "1",
+                f"drain then /predict: {out}, {status} {doc}")
+    finally:
+        server.close()
+
+    small = ServingEngine(model, replicas=1, batch_ladder=(1,),
+                          max_latency_s=5.0, max_queue=1, device=device)
+    server = ServingServer(small, port=0, request_timeout_s=600)
+    addr = server.start()
+    try:
+        status, hdrs, doc = post_json(addr, "/predict",
+                                      {"rows": x[:4].tolist()})
+    finally:
+        server.close()
+    print(f"  overload (max_queue=1): {status} {doc.get('reason')} "
+          f"Retry-After {hdrs.get('Retry-After')}")
+    require(status == 503 and doc.get("reason") == "queue_full",
+            f"overload answered {status} {doc}")
+    counts = kernel_counts(fa, fu, da)
+    print(f"  hand-written kernels launched by 11a: {counts} (none is on "
+          f"this path: cuBLAS / cuDNN)")
+    require(not any(counts.values()),
+            f"11a launched a hand-written kernel: {counts}")
+    print(f"  11a wall {time.perf_counter() - t_phase:.1f} s on {gpu}")
+
+
+def top2_margins(params, tokens, attention, apply_block, layer_norm):
+    """Top-2 logit margin at every position of one full forward over
+    ``tokens`` with plain attention (position p predicts token p + 1)."""
+    import torch
+
+    dev = params["proj"].device
+    x = torch.tensor(tokens, device=dev)
+    h = (params["proj"][x] + params["pos"][:len(tokens)])[None]
+    for blk in params["blocks"]:
+        h = apply_block(blk, h, attention, True)
+    logits = (layer_norm(params["ln_f"], h)[0] @ params["head"]["kernel"]
+              + params["head"]["bias"])
+    top = torch.topk(logits, 2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu().numpy()
+
+
+def run_prompts(engine, prompts, on_token=None):
+    gens = [engine.submit_generate(p, max_new_tokens=MAX_NEW,
+                                   on_token=(on_token(i) if on_token
+                                             else None))
+            for i, p in enumerate(prompts)]
+    return [g.result(timeout=600) for g in gens]
+
+
+def decode_survivability(rng, fa, fu, da, gpu, dev, model_cfg=None,
+                         prompt_lens=PROMPT_LENS):
+    """11b: ``DecodeEngine(replicas=2)`` on the card at phase 5's widths:
+    a replica killed mid-decode (replayed token-equal to the undisturbed
+    run, K1 and K5 launched by the replay), step faults absorbed and
+    past the retry, deadlines at the door and mid-decode, brownout
+    shedding, resize, self_check, and ``x-dk-*`` headers through the
+    server."""
+    import torch
+
+    from dist_keras_tpu_torch.models.transformer import (
+        Transformer,
+        apply_block,
+        layer_norm,
+        transformer_config,
+    )
+    from dist_keras_tpu_torch.ops.attention import attention
+    from dist_keras_tpu_torch.resilience import faults
+    from dist_keras_tpu_torch.serving import (
+        DecodeEngine,
+        Overloaded,
+        ServingServer,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = model_cfg or MODEL
+    model = Transformer(transformer_config(**cfg), seed=0, device=dev)
+    engine = DecodeEngine(model, replicas=2, prefill_ladder=PREFILL_LADDER,
+                          decode_ladder=DECODE_LADDER, page_size=PAGE_SIZE,
+                          device=dev, max_new_default=MAX_NEW,
+                          shed_watermark=SHED_WATERMARK)
+    prompts = [rng.integers(0, cfg["input_dim"], size=n).tolist()
+               for n in prompt_lens]
+    faults.clear()
+    try:
+        base = run_prompts(engine, prompts)      # undisturbed (warms too)
+        want = {tuple(p): d["generated"] for p, d in zip(prompts, base)}
+
+        seen = [[] for _ in prompts]
+        at_kill = {}
+
+        def on_token(i):
+            def cb(t):
+                seen[i].append(t)
+                if i == 0 and len(seen[0]) == KILL_AFTER:
+                    at_kill["flash_fwd"] = fa.flash_fwd_launches
+                    at_kill["paged_decode"] = da.paged_decode_launches
+                    at_kill["emitted"] = [len(s) for s in seen]
+                    at_kill["t"] = time.perf_counter()
+                    engine.kill_replica(0)
+            return cb
+
+        zero_kernel_counts(fa, fu, da)
+        t0 = time.perf_counter()
+        docs = run_prompts(engine, prompts, on_token)
+        wall = time.perf_counter() - t0
+        counts = kernel_counts(fa, fu, da)
+        st = engine.stats()
+        recovered = [i for i, d in enumerate(docs) if d["recoveries"]]
+        margins = []
+        with torch.inference_mode():
+            for i in recovered:
+                m = top2_margins(model.params, docs[i]["tokens"], attention,
+                                 apply_block, layer_norm)
+                margins.append(float(m[len(prompts[i]) - 1:].min()))
+        equal = [d["generated"] == want[tuple(p)]
+                 for p, d in zip(prompts, docs)]
+        replay_k1 = counts["flash_fwd"] - at_kill.get("flash_fwd", 0)
+        replay_k5 = counts["paged_decode"] - at_kill.get("paged_decode", 0)
+        print(f"  model {cfg} f32, page_size {PAGE_SIZE}, 2 replicas on "
+              f"{dev} (a stream each), {engine.num_pages} pages each")
+        print(f"  kill_replica(0) after request 0 streamed {KILL_AFTER} "
+              f"tokens (tokens streamed by then {at_kill.get('emitted')}): "
+              f"quarantines {st['quarantines']}, recovered "
+              f"{st['recovered']} (requests {recovered}), replicas "
+              f"{st['replicas']}, {sum(len(d['generated']) for d in docs)} "
+              f"tokens in {wall:.3f} s, replay to the end "
+              f"{time.perf_counter() - at_kill.get('t', t0):.3f} s on {gpu}")
+        gapless = [s == d["generated"] for s, d in zip(seen, docs)]
+        print(f"  token-equal to the undisturbed run: {equal}; streams "
+              f"resumed without a gap {gapless}")
+        print(f"  smallest top-2 logit margin on the recovered sequences "
+              f"(from the last prompt position on): "
+              f"{min(margins) if margins else None}")
+        print(f"  launches on the main path (kill run): {counts}; after the "
+              f"kill: flash_fwd +{replay_k1}, paged_decode +{replay_k5}")
+        require(all(equal), f"recovered docs differ from the undisturbed "
+                            f"ones (margins {margins})")
+        require(all(gapless),
+                "a stream skipped or repeated a token across the replay")
+        require(st["quarantines"] == 1 and recovered,
+                f"the kill recovered nothing: {st}")
+        if dev.type == "cuda":
+            require(counts["flash_fwd"] > 0 and counts["paged_decode"] > 0,
+                    f"a kernel of the path never launched: {counts}")
+            require(replay_k1 > 0 and replay_k5 > 0,
+                    f"the replay launched no K1 / K5: +{replay_k1} "
+                    f"+{replay_k5}")
+
+        engine.resize(2)                         # a survivor again
+        p = prompts[1]
+        with faults.armed("decode.step", times=1):
+            doc = engine.submit_generate(p, max_new_tokens=MAX_NEW).result(
+                timeout=600)
+        q0 = engine.stats()["quarantines"]
+        print(f"  decode.step fault absorbed by step_retries: token-equal "
+              f"{doc['generated'] == want[tuple(p)]}, recoveries "
+              f"{doc['recoveries']}, quarantines {q0}")
+        require(doc["generated"] == want[tuple(p)] and not doc["recoveries"]
+                and q0 == 1, "the in-place retry did not absorb the fault")
+        with faults.armed("decode.step", times=2):
+            doc = engine.submit_generate(p, max_new_tokens=MAX_NEW).result(
+                timeout=600)
+        st = engine.stats()
+        print(f"  decode.step fault past the retry: quarantines "
+              f"{st['quarantines']}, recoveries {doc['recoveries']}, "
+              f"token-equal {doc['generated'] == want[tuple(p)]}, errors "
+              f"{st['errors']}")
+        require(doc["generated"] == want[tuple(p)] and doc["recoveries"] == 1
+                and st["quarantines"] == 2 and st["errors"] == 0,
+                f"past-retry recovery failed: {st}")
+
+        est = engine._ewma_prefill + MAX_NEW * engine._ewma_step
+        try:
+            engine.submit_generate(p, max_new_tokens=MAX_NEW,
+                                   deadline_s=est / 100)
+            raise SmokeFailure("an infeasible deadline was admitted")
+        except Overloaded as e:
+            require(e.reason == "deadline_infeasible", f"{e.reason}")
+        deadline = 2 * est
+        doc = engine.submit_generate(
+            p, max_new_tokens=MAX_NEW, deadline_s=deadline,
+            on_token=lambda _t: time.sleep(deadline / 8)).result(
+            timeout=600)
+        kv = engine.kv_stats()
+        print(f"  deadlines (EWMAs prefill {engine._ewma_prefill * 1e3:.3f} "
+              f"ms, step {engine._ewma_step * 1e3:.3f} ms): {est / 100:.2e} s "
+              f"refused deadline_infeasible; {deadline:.4f} s with a slow "
+              f"consumer -> finish {doc['finish']} after "
+              f"{len(doc['generated'])} tokens, pages in use "
+              f"{kv['used_pages']} on {gpu}")
+        require(doc["finish"] == "deadline" and kv["used_pages"] == 0
+                and doc["generated"] == want[tuple(p)][:len(doc["generated"])],
+                f"mid-decode expiry: {doc['finish']}, {kv}")
+
+        # a long interactive request, read slowly, holds its pages
+        def slow_consumer(_t):
+            time.sleep(0.01)
+
+        hold = engine.submit_generate(prompts[-1], max_new_tokens=MAX_NEW,
+                                      on_token=slow_consumer)
+        occ = engine.kv_stats()["occupancy"]
+        try:
+            engine.submit_generate(p, max_new_tokens=2, priority="batch")
+            raise SmokeFailure("a batch request was admitted in brownout")
+        except Overloaded as e:
+            require(e.reason == "shed_batch", f"{e.reason}")
+        inter = engine.submit_generate(p, max_new_tokens=2)
+        hold.result(timeout=600)
+        inter.result(timeout=600)
+        print(f"  brownout at occupancy {occ:.4f} >= watermark "
+              f"{SHED_WATERMARK}: batch shed (shed {engine.stats()['shed']}, "
+              f"rejected {engine.stats()['rejected']}), interactive admitted")
+
+        engine.resize(3)
+        docs3 = run_prompts(engine, prompts[:4])
+        engine.resize(1)
+        docs1 = run_prompts(engine, prompts[:2])
+        st = engine.stats()
+        equal = [d["generated"] == want[tuple(q)]
+                 for q, d in zip(prompts[:4] + prompts[:2], docs3 + docs1)]
+        print(f"  resize(3) then resize(1): live replicas {st['replicas']}, "
+              f"token-equal {equal}")
+        require(st["replicas"] == 1 and all(equal), "resize changed a doc")
+
+        server = ServingServer(engine, port=0, request_timeout_s=600)
+        addr = server.start()
+        try:
+            code, hdrs, doc = post_json(
+                addr, "/generate", {"tokens": p, "max_new_tokens": 8},
+                headers={"x-dk-deadline-s": f"{est / 100:.3e}"})
+            hold = engine.submit_generate(prompts[-1], max_new_tokens=MAX_NEW,
+                                          on_token=slow_consumer)
+            code2, _, doc2 = post_json(
+                addr, "/generate", {"tokens": p, "max_new_tokens": 8,
+                                    "priority": "batch"})
+            code3, _, doc3 = post_json(
+                addr, "/generate", {"tokens": p, "max_new_tokens": 8},
+                headers={"x-dk-priority": "batch",
+                         "x-dk-deadline-s": "600"})
+            hold.result(timeout=600)
+        finally:
+            server.close()      # drains the engine
+        print(f"  through ServingServer: x-dk-deadline-s -> {code} "
+              f"{doc.get('reason')} (Retry-After {hdrs.get('Retry-After')});"
+              f" body priority batch -> {code2} {doc2.get('reason')}; header"
+              f" priority batch -> {code3} {doc3.get('reason')}")
+        require((code, doc.get("reason")) == (503, "deadline_infeasible")
+                and (code2, doc2.get("reason")) == (503, "shed_batch")
+                and (code3, doc3.get("reason")) == (503, "shed_batch"),
+                "deadline / priority did not reach admission")
+        leaked = engine.self_check()
+        engine.assert_no_leaks()
+        st = engine.stats()
+        print(f"  self_check leaked {leaked}, kv_leaked {st['kv_leaked']}, "
+              f"assert_no_leaks holds after drain; shapes "
+              f"{st['shapes_dispatched']} (bound {st['retrace_bound']})")
+        require(leaked == 0 and st["kv_leaked"] == 0, "KV pages leaked")
+        require(st["retrace_count"] <= st["retrace_bound"], f"{st}")
+    finally:
+        faults.clear()
+        engine.close(drain=False)
+    print(f"  11b wall {time.perf_counter() - t_phase:.1f} s on {gpu}")
+    return counts
 
 
 def main(argv=None):
@@ -2499,7 +2959,16 @@ def main(argv=None):
     torch.cuda.empty_cache()
     print("phase 10: the windowed trainers (DistributedTrainer, W workers "
           "stacked on one card)")
-    train_windowed(fa, fu, da, gpu)
+    adag, test = train_windowed(fa, fu, da, gpu)
+    torch.cuda.empty_cache()
+    print("phase 11: the rest of serving on the card")
+    t11 = time.perf_counter()
+    print("phase 11a: /predict on the trained MNIST CNN")
+    serve_predict(adag, test, fa, fu, da, gpu)
+    del adag, test
+    print("phase 11b: decode survivability at phase 5's widths")
+    decode_survivability(np.random.default_rng(5), fa, fu, da, gpu, dev)
+    print(f"  phase 11 wall {time.perf_counter() - t11:.1f} s on {gpu}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

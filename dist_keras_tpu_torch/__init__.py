@@ -32,7 +32,12 @@ windowed DOWNPOUR / ADAG / AEASGD / EAMSGD, ``AveragingTrainer``,
 dimension (``parallel/mesh.py``, ``parallel/collectives.py``,
 ``comm/backend.py``).  This loop runs PyTorch's own ops (cuBLAS, cuDNN,
 elementwise): the JAX package runs it through XLA, with no Pallas
-kernel on it.
+kernel on it.  And the rest of serving: ``ServingEngine`` behind
+``POST /predict`` for those models, the decode engine's survivability
+(replica kill and replay, deadlines, brownout shedding, self-check,
+resize, fault points), with copies of ``resilience/faults.py``,
+``world.py`` and ``preemption.py`` and ``observability/spans.py`` and
+``perf.py``.
 """
 
 __version__ = "0.1.0"

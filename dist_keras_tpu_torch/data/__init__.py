@@ -1,6 +1,8 @@
 """The data path: ``Dataset``, the feature transformers, the synthetic
-sets, ``ModelPredictor`` and the evaluators — counterpart of ``data/``
-(streaming, ``csv.py`` and the native CSV reader are not ported yet)."""
+sets, ``ModelPredictor``, the evaluators and the fixed-shape row packing
+of ``data/streaming.py`` — counterpart of ``data/`` (the stream sources
+and ``StreamingPredictor`` are ROADMAP queue 1, item 14; ``csv.py`` and
+the native CSV reader item 23)."""
 
 from dist_keras_tpu_torch.data.dataset import Dataset
 from dist_keras_tpu_torch.data.evaluators import (
@@ -10,6 +12,7 @@ from dist_keras_tpu_torch.data.evaluators import (
     LossEvaluator,
 )
 from dist_keras_tpu_torch.data.predictors import ModelPredictor, Predictor
+from dist_keras_tpu_torch.data.streaming import pack_rows, pad_rows
 from dist_keras_tpu_torch.data.transformers import (
     DenseTransformer,
     LabelIndexTransformer,
@@ -27,4 +30,5 @@ __all__ = [
     "StandardScaleTransformer",
     "Predictor", "ModelPredictor",
     "Evaluator", "AccuracyEvaluator", "LossEvaluator", "AUCEvaluator",
+    "pack_rows", "pad_rows",
 ]

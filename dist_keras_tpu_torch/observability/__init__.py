@@ -1,13 +1,32 @@
-"""Run telemetry of the port: the structured event log
-(:mod:`~dist_keras_tpu_torch.observability.events`), a copy of the JAX
-package's, written under ``DK_OBS_DIR`` in the same format."""
+"""Run telemetry of the port — copies of the JAX package's modules on
+the same file formats: the structured event log
+(:mod:`~dist_keras_tpu_torch.observability.events`, under
+``DK_OBS_DIR``), the metrics registry
+(:mod:`~dist_keras_tpu_torch.observability.metrics`), span tracing
+(:mod:`~dist_keras_tpu_torch.observability.spans`) and the perf
+attribution counters (:mod:`~dist_keras_tpu_torch.observability.perf`).
+The flight recorder, time series, watchdog, SLO plane, ``/statusz`` and
+the Prometheus exposition are ROADMAP queue 1, item 18."""
 
-from dist_keras_tpu_torch.observability import events
+from dist_keras_tpu_torch.observability import events, metrics, perf, spans
 from dist_keras_tpu_torch.observability.events import (
     EventWriter,
     emit,
     enabled,
     obs_dir,
 )
+from dist_keras_tpu_torch.observability.metrics import (
+    counter,
+    emit_snapshot,
+    gauge,
+    histogram,
+    snapshot,
+)
+from dist_keras_tpu_torch.observability.spans import span
 
-__all__ = ["events", "EventWriter", "emit", "enabled", "obs_dir"]
+__all__ = [
+    "events", "metrics", "perf", "spans",
+    "EventWriter", "emit", "enabled", "obs_dir",
+    "counter", "gauge", "histogram", "snapshot", "emit_snapshot",
+    "span",
+]

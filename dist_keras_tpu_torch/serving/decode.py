@@ -20,19 +20,51 @@ futures and no batch barrier.
   page last, and a :class:`PagedKVCache` allocator.  Admission reserves
   a sequence's WORST-CASE page count up front, so exhaustion is a typed
   ``Overloaded("kv_exhausted")`` strictly at the door, and completion,
-  cancel and error all reclaim through the one allocator path.
+  cancel, error and deadline all reclaim through the one allocator path.
 - **Hot reload never drops a sequence.**  ``submit_generate`` pins the
   replica's CURRENT params into the sequence; ``set_params`` swaps the
   replica reference only, and decode iterations group active sequences
   by the params they were admitted with.
+- **Typed errors, never hangs.**  The ``decode.admit`` /
+  ``decode.kv_alloc`` / ``decode.step`` / ``decode.recover`` fault
+  points cover admission, page reservation, the step dispatch and the
+  quarantine re-admission path; any failure lands typed on the
+  affected sequences' futures with their pages reclaimed.
+- **Sequence-level recovery.**  A replica worker crash (the
+  :meth:`DecodeEngine.kill_replica` seam, or a ``decode.step`` fault
+  past the in-place retry) QUARANTINES that replica: its KV pages free,
+  its in-flight sequences re-admit onto surviving replicas and REPLAY —
+  prefill over the prompt, then teacher-forced decode steps over the
+  already-generated tokens (the canonical ``seq.tokens`` are kept and
+  the replayed predictions discarded, so ``on_token`` streams resume
+  exactly where they stopped).  Futures never see the failure; only
+  when NO survivor can hold a sequence does it resolve typed.  Killing
+  the last live replica is refused.
+- **End-to-end deadlines.**  ``submit_generate(deadline_s=...)`` rejects
+  at the door (``Overloaded("deadline_infeasible")``) when the observed
+  prefill / step EWMAs say ``max_new_tokens`` cannot finish in time; a
+  deadline expiring mid-decode frees the slot and its pages between
+  steps and resolves ``finish="deadline"`` with the tokens so far.
+- **Brownout shedding.**  ``priority="batch"`` admissions shed typed
+  (``Overloaded("shed_batch")``) while KV occupancy sits at or above
+  ``DK_DECODE_SHED_WATERMARK``; sheds count ``decode.shed``, not
+  ``decode.rejected``.  The reference also sheds while an SLO objective
+  breaches (``observability/slo.py``), which is not ported: the engine
+  refuses to start with ``DK_SLO`` on (ROADMAP queue 1, item 18).
 - **The kernels.**  On CUDA, prefill attention is the flash-forward
   kernel (``ops/flash_attention.py``) and each decode step's attention
-  the paged-decode kernel (``ops/decode_attention.py``); on the CPU both
-  take their plain versions.
+  the paged-decode kernel (``ops/decode_attention.py``) — replayed
+  prefills and teacher-forced steps included; on the CPU both take
+  their plain versions.  Every replica lives on the engine's device
+  and runs on its own CUDA stream, so a sequence's pinned params serve
+  it on whichever replica it is replayed on.  EWMAs and deadlines are
+  host floats, timed around each dispatch's token fetch (which waits
+  on the replica's stream anyway).
 
-Not ported yet (a later slice): replica kill / quarantine / sequence
-replay, deadlines, brownout shedding, the allocator self-check,
-``resize``, fault points, and event / metric / span emission.
+Observability: ``decode_*`` events at every seam, ``decode.*`` registry
+metrics, and with tracing on each request's trace gains
+``serve.queue_wait`` + ``serve.prefill`` spans stamped from the
+scheduler thread.
 """
 
 from __future__ import annotations
@@ -47,23 +79,41 @@ import numpy as np
 import torch
 
 from dist_keras_tpu_torch.models.transformer import layer_norm, mlp_half
+from dist_keras_tpu_torch.observability import events, metrics, perf, spans
 from dist_keras_tpu_torch.ops.decode_attention import paged_attention_auto
 from dist_keras_tpu_torch.ops.flash_attention import attention_auto
-from dist_keras_tpu_torch.serving.engine import Overloaded
-from dist_keras_tpu_torch.serving.kv_cache import PagedKVCache
-from dist_keras_tpu_torch.utils.bridge import params_from_jax
+from dist_keras_tpu_torch.resilience.faults import fault_point
+from dist_keras_tpu_torch.serving.engine import (
+    Overloaded,
+    on_stream,
+    put_params,
+    stream_for,
+)
+from dist_keras_tpu_torch.serving.kv_cache import PagedKVCache, PagesExhausted
+from dist_keras_tpu_torch.utils import knobs
 from dist_keras_tpu_torch.utils.device import resolve_device
+
+
+class _ReplicaDead(Exception):
+    """Internal scheduler signal: this replica must quarantine (worker
+    crash, kill seam, or a step failure past the retry policy with a
+    survivor available).  Never escapes the engine."""
+
+    def __init__(self, cause):
+        self.cause = cause
+        super().__init__(str(cause))
 
 
 class _Sequence:
     """One admitted generation: host-side state the scheduler owns."""
 
     __slots__ = ("sid", "tokens", "prompt_len", "max_new", "eos_id",
-                 "future", "on_token", "t", "params", "pages", "kv_len",
-                 "steps", "cancelled", "ttft_s", "finished")
+                 "future", "on_token", "t", "tw", "ctx", "params",
+                 "pages", "kv_len", "steps", "cancelled", "ttft_s",
+                 "deadline", "recoveries", "finished")
 
     def __init__(self, sid, tokens, max_new, eos_id, on_token, params,
-                 pages):
+                 pages, deadline=None):
         self.sid = sid
         self.tokens = list(tokens)
         self.prompt_len = len(tokens)
@@ -72,12 +122,16 @@ class _Sequence:
         self.future = Future()
         self.on_token = on_token
         self.t = time.monotonic()
+        self.tw = time.time()
+        self.ctx = spans.capture()
         self.params = params      # pinned: reloads never touch us
         self.pages = pages
         self.kv_len = 0           # KV positions written so far
         self.steps = 0            # decode iterations consumed
         self.cancelled = False
         self.ttft_s = None
+        self.deadline = deadline  # absolute monotonic, or None
+        self.recoveries = 0       # quarantine re-admissions survived
         self.finished = False     # exit accounted (pages reclaimed)
 
     def generated(self):
@@ -91,6 +145,7 @@ class _Sequence:
             "steps": self.steps,
             "ttft_s": self.ttft_s,
             "finish": finish,
+            "recoveries": self.recoveries,
         }
 
 
@@ -115,17 +170,21 @@ class Generation:
 
 
 class _DecodeReplica:
-    """One replica: its params swap point, its KV pools, its queue."""
+    """One replica: its params swap point, its KV pools, its stream, its
+    queue."""
 
-    def __init__(self, index, params, cache, kp, vp):
+    def __init__(self, index, params, cache, kp, vp, stream):
         self.index = index
         self.params = params
         self.cache = cache
         self.kp = kp
         self.vp = vp
+        self.stream = stream
         self.queue = collections.deque()
         self.active = []
-        self.dead = False         # its worker crashed: out of rotation
+        self.retiring = False
+        self.killed = False       # crash requested (kill_replica seam)
+        self.dead = False         # quarantined: out of service for good
 
 
 class DecodeEngine:
@@ -136,8 +195,8 @@ class DecodeEngine:
         ``cfg`` dict and a reference-layout ``params`` tree).  Decode
         needs token in == logit out, so ``input_dim == n_classes`` (the
         vocabulary).
-      replicas: replica count (each with its own KV pools and scheduler
-        thread, all on ``device``).
+      replicas: replica count (each with its own KV pools, stream and
+        scheduler thread, all on ``device``).
       prefill_ladder: ascending fixed PROMPT shapes; a prompt runs
         padded to the smallest rung that fits (``ValueError`` past the
         largest — the front end's 400).
@@ -151,12 +210,27 @@ class DecodeEngine:
       eos_id: default stop token (None = length-only stopping).
       device: where the pools, params and math live (default ``cuda``;
         ``"cpu"`` runs the plain attention versions).
+      step_retries: in-place retries of a failed decode-step dispatch
+        (safe: pools and ``kv_len`` only advance on success).  Past
+        them the replica quarantines when a survivor exists, else the
+        group fails typed.
+      shed_watermark: KV occupancy fraction at or above which ``batch``
+        admissions shed (default: ``DK_DECODE_SHED_WATERMARK``).
+      self_check_interval_s: cadence of the scheduler's allocator
+        reconciliation pass (``decode.kv_leaked``).
     """
 
     def __init__(self, model, replicas=1, prefill_ladder=(16, 64),
                  decode_ladder=(1, 4, 8), page_size=8, num_pages=None,
                  max_queue=256, max_new_default=16, eos_id=None,
-                 device=None):
+                 device=None, step_retries=1, shed_watermark=None,
+                 self_check_interval_s=1.0):
+        if knobs.get("DK_SLO"):
+            raise NotImplementedError(
+                "DK_SLO is on, but the SLO plane the decode engine sheds "
+                "by (observability/slo.py) is not ported yet (ROADMAP "
+                "queue 1, item 18); unset DK_SLO to shed by the KV "
+                "watermark alone")
         cfg = getattr(model, "cfg", None)
         if cfg is None:
             raise ValueError(
@@ -202,7 +276,8 @@ class DecodeEngine:
         n = int(replicas)
         if n < 1:
             raise ValueError(f"replicas={replicas} must be >= 1")
-        self._params = params_from_jax(model.params, self.device)
+        self._params = put_params(model.params, [self.device])[self.device]
+        self._next_replica_index = n
         self._seq_ids = itertools.count()
         self._replicas = [self._make_replica(i) for i in range(n)]
 
@@ -214,17 +289,57 @@ class DecodeEngine:
         self._rr = 0
         self._shapes = set()      # (phase, rung) dispatched
         self.reload_count = 0
+        self.step_retries = int(step_retries)
+        self._shed_watermark = float(
+            shed_watermark if shed_watermark is not None
+            else knobs.get("DK_DECODE_SHED_WATERMARK"))
+        self._self_check_interval = float(self_check_interval_s)
+        self._next_self_check = (time.monotonic()
+                                 + self._self_check_interval)
+        # recovered sequences waiting for survivor KV capacity: they
+        # hold no pages while pending; every worker iteration tries to
+        # place them (admission-identical worst-case reservation)
+        self._orphans = []
+        # observed wall EWMAs feeding deadline feasibility at the door
+        self._ewma_prefill = None
+        self._ewma_step = None
+
+        # engine-local instruments + the shared process registry
+        self._m_ttft = metrics.Histogram("decode.ttft_s")
+        self._m_step = metrics.Histogram("decode.step_s")
         self._n_admitted = 0
         self._n_completed = 0
         self._n_rejected = 0
         self._n_errors = 0
         self._n_cancelled = 0
         self._n_tokens = 0
+        self._n_quarantines = 0
+        self._n_recovered = 0
+        self._n_shed = 0
+        self._n_deadline_infeasible = 0
+        self._n_deadline_expired = 0
+        self._n_kv_leaked = 0
+        self._reg_admitted = metrics.counter("decode.admitted")
+        self._reg_completed = metrics.counter("decode.completed")
+        self._reg_rejected = metrics.counter("decode.rejected")
+        self._reg_errors = metrics.counter("decode.errors")
+        self._reg_cancelled = metrics.counter("decode.cancelled")
+        self._reg_tokens = metrics.counter("decode.tokens")
+        self._reg_quarantines = metrics.counter("decode.quarantines")
+        self._reg_recovered = metrics.counter("decode.recovered")
+        self._reg_shed = metrics.counter("decode.shed")
+        self._reg_deadline_infeasible = metrics.counter(
+            "decode.deadline_infeasible")
+        self._reg_deadline_expired = metrics.counter(
+            "decode.deadline_expired")
+        self._reg_kv_leaked = metrics.counter("decode.kv_leaked")
+        self._reg_ttft = metrics.histogram("decode.ttft_s")
+        self._reg_step = metrics.histogram("decode.step_s")
+        self._reg_active = metrics.gauge("decode.active")
+        self._reg_kv = metrics.gauge("decode.kv_used_pages")
 
-        self._workers = [threading.Thread(
-            target=self._worker_main, args=(rep,), daemon=True,
-            name=f"dk-decode-worker-{rep.index}")
-            for rep in self._replicas]
+        self._workers = [self._worker_thread(rep)
+                         for rep in self._replicas]
         for t in self._workers:
             t.start()
 
@@ -233,9 +348,20 @@ class DecodeEngine:
         cache = PagedKVCache(self.num_pages, self.page_size)
         shape = (self._layers, self._heads, self.num_pages + 1,
                  self.page_size, self._dh)
-        kp = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        vp = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        return _DecodeReplica(index, self._params, cache, kp, vp)
+        stream = stream_for(self.device)
+        # the pools are made on the replica's own stream, the only one
+        # that ever touches them
+        with on_stream(stream):
+            kp = torch.zeros(shape, dtype=torch.float32,
+                             device=self.device)
+            vp = torch.zeros(shape, dtype=torch.float32,
+                             device=self.device)
+        return _DecodeReplica(index, self._params, cache, kp, vp, stream)
+
+    def _worker_thread(self, rep):
+        return threading.Thread(target=self._worker_main, args=(rep,),
+                                daemon=True,
+                                name=f"dk-decode-worker-{rep.index}")
 
     def _prefill_fn(self, params, kp, vp, tokens, length, page_idx,
                     page_off):
@@ -295,11 +421,13 @@ class DecodeEngine:
         return None
 
     def _live_replicas_locked(self):
-        return [r for r in self._replicas if not r.dead]
+        return [r for r in self._replicas
+                if not r.retiring and not r.dead and not r.killed]
 
     def _pick_replica(self, needed_pages):
         """Most free pages wins (KV is the scarce resource), round-robin
-        on ties.  Caller holds the lock."""
+        on ties; retiring and quarantined replicas are out of rotation.
+        Caller holds the lock."""
         live = self._live_replicas_locked()
         if not live:
             return None, 0
@@ -312,15 +440,36 @@ class DecodeEngine:
                 return (live[i] if best >= needed_pages else None), best
         return None, best  # pragma: no cover - unreachable
 
+    def _should_shed_locked(self):
+        """Brownout verdict for a ``batch`` admission: KV occupancy at
+        or over the watermark.  Caller holds the lock."""
+        total = used = 0
+        for r in self._live_replicas_locked():
+            st = r.cache.stats()
+            total += st["num_pages"]
+            used += st["used_pages"]
+        if total and used / total >= self._shed_watermark:
+            return "kv_watermark"
+        return None
+
     def submit_generate(self, tokens, max_new_tokens=None, eos_id=None,
-                        on_token=None):
+                        on_token=None, deadline_s=None,
+                        priority="interactive"):
         """Admit one prompt; -> :class:`Generation` whose future
         resolves to the result doc (tokens, ttft_s, finish reason).
         Raises :class:`Overloaded` at the door (``queue_full`` /
-        ``kv_exhausted`` / ``draining`` / ``stopped``) and
-        ``ValueError`` for malformed prompts — rejected, never lost.
-        ``on_token(token)`` runs on the scheduler thread as each token
-        lands."""
+        ``kv_exhausted`` / ``draining`` / ``stopped`` /
+        ``deadline_infeasible`` / ``shed_batch``) and ``ValueError``
+        for malformed prompts — rejected, never lost.
+
+        ``deadline_s`` is the caller's end-to-end budget: infeasible
+        requests (per the observed prefill/step EWMAs) reject at the
+        door; expiry mid-decode frees the slot between steps and
+        resolves ``finish="deadline"``.  ``priority`` is
+        ``interactive`` (default) or ``batch``; ``batch`` sheds first
+        in a brownout.  ``on_token(token)`` runs on the scheduler
+        thread as each token lands."""
+        fault_point("decode.admit")
         toks = [int(t) for t in tokens]
         if not toks:
             raise ValueError("empty prompt")
@@ -341,30 +490,77 @@ class DecodeEngine:
                 f"prompt + max_new_tokens = {total} exceeds the "
                 f"model's seq_len ({self.seq_len})")
         eos = self.eos_id if eos_id is None else int(eos_id)
+        if priority not in ("interactive", "batch"):
+            raise ValueError(
+                f"priority={priority!r} must be 'interactive' or "
+                "'batch'")
+        if deadline_s is not None:
+            deadline_s = float(deadline_s)
+            if not deadline_s > 0:
+                raise ValueError(
+                    f"deadline_s={deadline_s} must be > 0")
         with self._cond:
             if self._draining or self._stopped:
                 self._n_rejected += 1
+                self._reg_rejected.inc()
                 raise Overloaded(
                     "draining" if self._draining else "stopped")
             if self._outstanding >= self.max_queue:
                 self._n_rejected += 1
+                self._reg_rejected.inc()
                 raise Overloaded("queue_full",
                                  pending=self._outstanding,
                                  capacity=self.max_queue)
+            if priority == "batch":
+                shed_why = self._should_shed_locked()
+                if shed_why is not None:
+                    # counted decode.shed, NOT decode.rejected: a shed
+                    # that burned the rejection budget would amplify
+                    # itself
+                    self._n_shed += 1
+                    self._reg_shed.inc()
+                    events.emit("decode_shed", reason=shed_why,
+                                prompt_len=len(toks))
+                    raise Overloaded("shed_batch",
+                                     pending=self._outstanding,
+                                     capacity=self.max_queue)
+            if deadline_s is not None \
+                    and self._ewma_prefill is not None \
+                    and self._ewma_step is not None:
+                est = self._ewma_prefill + max_new * self._ewma_step
+                if est > deadline_s:
+                    self._n_rejected += 1
+                    self._reg_rejected.inc()
+                    self._n_deadline_infeasible += 1
+                    self._reg_deadline_infeasible.inc()
+                    events.emit("decode_deadline", phase="admission",
+                                deadline_s=deadline_s,
+                                estimate_s=round(est, 6))
+                    raise Overloaded("deadline_infeasible")
             sid = next(self._seq_ids)
             needed = max(1, -(-total // self.page_size))
             rep, best_free = self._pick_replica(needed)
             if rep is None:
                 self._n_rejected += 1
+                self._reg_rejected.inc()
                 raise Overloaded("kv_exhausted", pending=needed,
                                  capacity=best_free)
+            # the allocator's own fault point (decode.kv_alloc) fires
+            # inside; a raise here admits nothing and leaks nothing
             pages = rep.cache.alloc(sid, total)
-            seq = _Sequence(sid, toks, max_new, eos, on_token,
-                            rep.params, pages)
+            seq = _Sequence(
+                sid, toks, max_new, eos, on_token, rep.params, pages,
+                deadline=(None if deadline_s is None
+                          else time.monotonic() + deadline_s))
             rep.queue.append(seq)
             self._outstanding += 1
             self._n_admitted += 1
+            self._reg_active.set(self._outstanding)
             self._cond.notify_all()
+        self._reg_admitted.inc()
+        events.emit("decode_admit", sid=sid, prompt_len=len(toks),
+                    max_new=max_new, replica=rep.index,
+                    pages=len(pages))
         return Generation(self, seq)
 
     def generate(self, tokens, max_new_tokens=None, eos_id=None,
@@ -386,7 +582,8 @@ class DecodeEngine:
                 # to resolve the future: nothing is left to cancel
                 return False
             seq.cancelled = True
-            # still queued? finish it here, never occupying a slot
+            # still queued on some replica? finish it here, never
+            # occupying a slot
             for rep in self._replicas:
                 if seq in rep.queue:
                     rep.queue.remove(seq)
@@ -395,6 +592,8 @@ class DecodeEngine:
                     break
             self._cond.notify_all()
         if dequeued:
+            events.emit("decode_cancel", sid=seq.sid,
+                        generated=len(seq.generated()))
             self._resolve(seq, "cancelled")
         return True  # active: the scheduler retires it next iteration
 
@@ -409,39 +608,52 @@ class DecodeEngine:
     def _finish_locked(self, rep, seq, finish):
         """Account one sequence's exit (caller holds the lock): reclaim
         its pages, bump counters.  The single reclamation seam for
-        complete / cancel / error / stop — zero leaked pages by
-        construction."""
+        complete / cancel / error / deadline / stop — zero leaked pages
+        by construction."""
         rep.cache.free(seq.sid)
+        self._account_exit_locked(seq, finish)
+
+    def _account_exit_locked(self, seq, finish):
+        """The bookkeeping half of an exit — callers (quarantine) whose
+        pages were already reclaimed on the dead replica use this
+        directly."""
         seq.finished = True
         self._outstanding -= 1
         if finish == "error":
             self._n_errors += 1
+            self._reg_errors.inc()
         elif finish == "cancelled":
             self._n_cancelled += 1
+            self._reg_cancelled.inc()
+        elif finish == "deadline":
+            # the CALLER's budget ran out: the future resolves with the
+            # tokens produced so far, counted on its own meter
+            self._n_deadline_expired += 1
+            self._reg_deadline_expired.inc()
         elif finish == "stopped":
             # a close(drain=False) abort is a rejection, not a model
             # error — rejected-not-lost, same as the door
             self._n_rejected += 1
+            self._reg_rejected.inc()
         else:
             self._n_completed += 1
+            self._reg_completed.inc()
+        self._reg_active.set(self._outstanding)
+        self._reg_kv.set(sum(r.cache.used_pages()
+                             for r in self._replicas))
         self._cond.notify_all()
-
-    def _fail_locked(self, rep, seqs, error, failed):
-        for seq in seqs:
-            if seq in rep.active:
-                rep.active.remove(seq)
-            self._finish_locked(rep, seq, "error")
-            failed.append((seq, error))
 
     def _emit_token(self, seq, token):
         seq.tokens.append(int(token))
         self._n_tokens += 1
+        self._reg_tokens.inc()
         if seq.on_token is not None:
             try:
                 seq.on_token(int(token))
             # a caller's token callback must never kill the scheduler
-            except Exception:  # noqa: BLE001
-                pass
+            except Exception as e:  # noqa: BLE001
+                events.emit("decode_error", sid=seq.sid,
+                            where="on_token", error=type(e).__name__)
 
     def _sequence_done(self, seq, token):
         if seq.eos_id is not None and int(token) == seq.eos_id:
@@ -452,17 +664,27 @@ class DecodeEngine:
 
     def _prefill(self, rep, seq):
         """Run one admitted prompt through the prefill ladder; emits
-        the first generated token (TTFT) or fails the sequence typed."""
+        the first generated token (TTFT) or fails the sequence typed.
+
+        A RECOVERED sequence (``seq.tokens`` longer than the prompt)
+        replays the same prefill over the prompt only — its prediction
+        is a token the stream already delivered, so it is discarded and
+        the teacher-forced decode steps replay the rest."""
         rung = self._rung_for(seq.prompt_len, self.prefill_ladder)
         toks = np.zeros((rung,), np.int64)
-        toks[:seq.prompt_len] = seq.tokens
+        toks[:seq.prompt_len] = seq.tokens[:seq.prompt_len]
         page_idx = np.full((rung,), rep.cache.scratch_page, np.int64)
         ps = self.page_size
         for t in range(seq.prompt_len):
             page_idx[t] = seq.pages[t // ps]
         page_off = np.arange(rung, dtype=np.int64) % ps
         dev = self.device
+        t0 = time.perf_counter()
+        tw0 = time.time()
+        if events.enabled():
+            spans.span_at("serve.queue_wait", seq.ctx, seq.tw, tw0)
         try:
+            perf.count_dispatch()
             first = int(self._prefill_fn(
                 seq.params, rep.kp, rep.vp,
                 torch.from_numpy(toks).to(dev), seq.prompt_len,
@@ -470,28 +692,63 @@ class DecodeEngine:
                 torch.from_numpy(page_off).to(dev)))
         # a failed prefill lands TYPED on its own future, pages reclaimed
         except Exception as e:  # noqa: BLE001
-            failed = []
             with self._cond:
-                self._fail_locked(rep, [seq], e, failed)
+                rep.active.remove(seq)
+                self._finish_locked(rep, seq, "error")
+            events.emit("decode_error", sid=seq.sid, where="prefill",
+                        error=type(e).__name__)
             self._resolve(seq, None, error=e)
             return
+        dt = time.perf_counter() - t0
         with self._cond:
             self._shapes.add(("prefill", rung))
+            self._ewma_prefill = (
+                dt if self._ewma_prefill is None
+                else 0.8 * self._ewma_prefill + 0.2 * dt)
         seq.kv_len = seq.prompt_len
-        seq.ttft_s = time.monotonic() - seq.t
+        replay = len(seq.tokens) > seq.prompt_len
+        if not replay:
+            seq.ttft_s = time.monotonic() - seq.t
+            ex = ((seq.ctx.trace_id, seq.ctx.span_id)
+                  if seq.ctx is not None else None)
+            self._m_ttft.observe(seq.ttft_s, exemplar=ex)
+            self._reg_ttft.observe(seq.ttft_s, exemplar=ex)
+        if events.enabled():
+            spans.span_at("serve.prefill", seq.ctx, tw0, time.time(),
+                          rung=rung, replica=rep.index)
+        events.emit("decode_prefill", sid=seq.sid, rung=rung,
+                    replica=rep.index, duration_s=dt,
+                    ttft_s=seq.ttft_s, replay=replay)
+        if replay:
+            # the first generated token was emitted before the crash;
+            # the replayed prediction stands for that same token —
+            # discard it, the canonical seq.tokens drive the
+            # teacher-forced catch-up steps
+            return
         self._emit_token(seq, first)
         finish = self._sequence_done(seq, first)
         if finish is not None:
             with self._cond:
                 rep.active.remove(seq)
                 self._finish_locked(rep, seq, finish)
+            events.emit("decode_complete", sid=seq.sid, finish=finish,
+                        generated=len(seq.generated()),
+                        steps=seq.steps)
             self._resolve(seq, finish)
 
     def _step_group(self, rep, group):
         """One decode step for ``group`` (same pinned params), padded
-        to a decode-ladder rung.  A failed dispatch fails exactly this
-        group's sequences, typed, pages reclaimed (pools and ``kv_len``
-        only advance on success)."""
+        to a decode-ladder rung.  A failed dispatch retries IN PLACE
+        (``step_retries`` — safe: pools and ``kv_len`` only advance on
+        success); past the retries the replica quarantines when a
+        survivor exists (the group migrates and replays), else it
+        fails exactly this group's sequences, typed, pages reclaimed.
+
+        The input token is ``seq.tokens[seq.kv_len]`` — the last token
+        in steady state, a teacher-forced KNOWN token while a recovered
+        sequence catches back up (its predictions are discarded until
+        ``kv_len`` reaches the frontier, so streams never see a
+        duplicate)."""
         rung = self._rung_for(len(group), self.decode_ladder)
         ps = self.page_size
         toks = np.zeros((rung,), np.int64)
@@ -508,26 +765,62 @@ class DecodeEngine:
             woff[i] = seq.kv_len % ps
             lengths[i] = seq.kv_len + 1
         dev = self.device
-        try:
-            nxt = self._decode_fn(
-                group[0].params, rep.kp, rep.vp,
-                *(torch.from_numpy(a).to(dev) for a in (
-                    toks, positions, tables, wpage, woff, lengths))
-            ).cpu().numpy()
-        # a failed step lands TYPED on this group's futures
-        except Exception as e:  # noqa: BLE001
-            failed = []
+        t0 = time.perf_counter()
+        err = None
+        for attempt in range(1 + self.step_retries):
+            try:
+                fault_point("decode.step")
+                perf.count_dispatch()
+                nxt = self._decode_fn(
+                    group[0].params, rep.kp, rep.vp,
+                    *(torch.from_numpy(a).to(dev) for a in (
+                        toks, positions, tables, wpage, woff, lengths))
+                ).cpu().numpy()
+                err = None
+                break
+            # a failed step retries in place, then quarantines or lands
+            # TYPED
+            except Exception as e:  # noqa: BLE001
+                err = e
+                if attempt < self.step_retries:
+                    events.emit("decode_error", where="step_retry",
+                                n=len(group), replica=rep.index,
+                                attempt=attempt,
+                                error=type(e).__name__)
+        if err is not None:
             with self._cond:
-                self._fail_locked(rep, group, e, failed)
-            for seq, err in failed:
+                survivors = [r for r in self._live_replicas_locked()
+                             if r is not rep]
+            if survivors:
+                # a peer can hold this work: quarantine this replica,
+                # migrate + replay — the futures never see the failure
+                raise _ReplicaDead(err)
+            with self._cond:
+                for seq in group:
+                    rep.active.remove(seq)
+                    self._finish_locked(rep, seq, "error")
+            events.emit("decode_error", where="step", n=len(group),
+                        replica=rep.index, error=type(err).__name__)
+            for seq in group:
                 self._resolve(seq, None, error=err)
             return
+        dt = time.perf_counter() - t0
+        self._m_step.observe(dt)
+        self._reg_step.observe(dt)
         with self._cond:
             self._shapes.add(("decode", rung))
+            self._ewma_step = (dt if self._ewma_step is None
+                               else 0.8 * self._ewma_step + 0.2 * dt)
+        events.emit("decode_step", replica=rep.index, rung=rung,
+                    n=len(group), duration_s=dt)
         finished = []
         for i, seq in enumerate(group):
             seq.kv_len += 1
             seq.steps += 1
+            if seq.kv_len < len(seq.tokens):
+                # replay catch-up: this prediction is a token the
+                # stream already delivered before the crash — discard
+                continue
             self._emit_token(seq, int(nxt[i]))
             finish = self._sequence_done(seq, int(nxt[i]))
             if finish is not None:
@@ -538,58 +831,98 @@ class DecodeEngine:
                     rep.active.remove(seq)
                     self._finish_locked(rep, seq, finish)
             for seq, finish in finished:
+                events.emit("decode_complete", sid=seq.sid,
+                            finish=finish,
+                            generated=len(seq.generated()),
+                            steps=seq.steps)
                 self._resolve(seq, finish)
 
     def _worker_main(self, rep):
-        """Thread body: the scheduler loop plus the crash boundary.  An
-        unexpected escape takes the replica out of rotation and fails
-        every sequence it holds typed, pages reclaimed — never a hang
-        on a silently dead thread."""
+        """Thread body: the scheduler loop plus the crash boundary.
+        ANY escape — the :class:`_ReplicaDead` signal (kill seam, step
+        failure past retries) or an unexpected scheduler bug —
+        quarantines the replica so its sequences migrate or resolve
+        typed instead of hanging on a silently dead thread."""
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), on_stream(rep.stream):
                 self._worker_loop(rep)
-        # the crash boundary of a scheduler thread: sequences land typed
+        except _ReplicaDead as e:
+            self._quarantine(rep, e.cause)
+        # a crashed worker quarantines its replica; sequences migrate or
+        # land typed, never hang
         except Exception as e:  # noqa: BLE001
-            failed = []
-            with self._cond:
-                rep.dead = True
-                held = list(rep.active) + list(rep.queue)
-                rep.queue.clear()
-                self._fail_locked(rep, held, e, failed)
-            for seq, err in failed:
-                self._resolve(seq, None, error=err)
+            self._quarantine(rep, e)
 
     def _worker_loop(self, rep):
         while True:
             dropped = []
             with self._cond:
-                # the idle park: every admit, cancel and lifecycle exit
-                # notifies this cond, and the predicate re-checks stop
+                # pending orphans hold the park open: an idle replica
+                # has its whole pool free, so the next placement pass
+                # below always lands them
                 while (not rep.queue and not rep.active
-                       and not self._stopped):
+                       and not self._orphans
+                       and not self._stopped and not rep.retiring
+                       and not rep.killed):
+                    # the idle park: every admit, cancel and lifecycle
+                    # exit notifies this cond, and the predicate
+                    # re-checks stop / retire / kill on wake
                     self._cond.wait()
                 if self._stopped:
                     break
-                # retire cancelled actives, refill free slots — the
-                # continuous-batching seam: between iterations, never a
-                # batch barrier
+                if rep.killed:
+                    raise _ReplicaDead(Overloaded("replica_lost"))
+                if rep.retiring and not rep.queue and not rep.active:
+                    break
+                o_migrated, o_dropped = \
+                    self._try_place_orphans_locked()
+                # retire cancelled and deadline-expired actives, refill
+                # free slots — the continuous-batching seam: between
+                # iterations, never a batch barrier.  An expired
+                # deadline frees the slot HERE, between steps.
+                now = time.monotonic()
                 for seq in list(rep.active):
-                    if seq.cancelled:
+                    fin = ("cancelled" if seq.cancelled else
+                           "deadline" if seq.deadline is not None
+                           and now > seq.deadline else None)
+                    if fin is not None:
                         rep.active.remove(seq)
-                        self._finish_locked(rep, seq, "cancelled")
-                        dropped.append(seq)
+                        self._finish_locked(rep, seq, fin)
+                        dropped.append((seq, fin))
                 while rep.queue and len(rep.active) < self.max_slots:
                     seq = rep.queue.popleft()
-                    if seq.cancelled:
-                        self._finish_locked(rep, seq, "cancelled")
-                        dropped.append(seq)
+                    fin = ("cancelled" if seq.cancelled else
+                           "deadline" if seq.deadline is not None
+                           and now > seq.deadline else None)
+                    if fin is not None:
+                        self._finish_locked(rep, seq, fin)
+                        dropped.append((seq, fin))
                         continue
                     rep.active.append(seq)
+                # prefill candidates by state, not by admission order:
+                # a recovered sequence re-enters here with kv_len == 0
+                # and replays exactly like a fresh admission
                 prefills = [s for s in rep.active if s.kv_len == 0]
-            for seq in dropped:
-                self._resolve(seq, "cancelled")
+            for seq, target in o_migrated:
+                self._reg_recovered.inc()
+                events.emit("decode_recover", sid=seq.sid, src=None,
+                            dst=target.index,
+                            generated=len(seq.generated()),
+                            recoveries=seq.recoveries)
+            dropped.extend(o_dropped)
+            for seq, fin in dropped:
+                if fin == "cancelled":
+                    events.emit("decode_cancel", sid=seq.sid,
+                                generated=len(seq.generated()))
+                else:
+                    events.emit("decode_deadline", sid=seq.sid,
+                                phase="expiry",
+                                generated=len(seq.generated()))
+                self._resolve(seq, fin)
             for seq in prefills:
                 self._prefill(rep, seq)
+                if rep.killed:
+                    raise _ReplicaDead(Overloaded("replica_lost"))
             with self._cond:
                 # group by pinned params: a hot reload means at most a
                 # couple of groups until old sequences drain
@@ -601,9 +934,204 @@ class DecodeEngine:
                 work = list(groups.values())
             for group in work:
                 self._step_group(rep, group)
+                if rep.killed:
+                    raise _ReplicaDead(Overloaded("replica_lost"))
+            self._maybe_self_check()
+
+    # -- survivability: quarantine + sequence-level recovery ------------
+    def kill_replica(self, index):
+        """Chaos seam: crash one replica worker (the thread analogue of
+        SIGKILL on a replica process).  The worker observes the flag at
+        its next seam, quarantines the replica — pages freed, in-flight
+        sequences re-admitted onto survivors and replayed — and exits.
+        Refused (``ValueError``) for the LAST live replica: whole-pod
+        loss is not a survivable event."""
+        with self._cond:
+            rep = next((r for r in self._replicas
+                        if r.index == int(index)), None)
+            if rep is None or rep.dead or rep.killed:
+                raise ValueError(
+                    f"kill_replica({index}): no such live replica")
+            live = self._live_replicas_locked()
+            if rep in live and len(live) <= 1:
+                raise ValueError(
+                    "kill_replica: refusing to kill the last live "
+                    "replica (whole-pod loss is out of scope)")
+            rep.killed = True
+            self._cond.notify_all()
+        return rep.index
+
+    def _place_locked(self, seq):
+        """Re-admission placement (caller holds the lock): the
+        surviving replica with the most free pages that can hold the
+        sequence's WORST-CASE reservation — the same door contract as
+        submit_generate.  -> the replica, or None when nowhere fits.
+        Every replica shares the engine's device, so the sequence keeps
+        its pinned params."""
+        total = seq.prompt_len + seq.max_new
+        live = self._live_replicas_locked()
+        live.sort(key=lambda r: -r.cache.stats()["free_pages"])
+        for rep in live:
+            try:
+                seq.pages = rep.cache.alloc(seq.sid, total)
+            except PagesExhausted:
+                continue
+            return rep
+        return None
+
+    def _fits_somewhere_locked(self, seq):
+        """Could ANY live replica's whole pool hold this sequence's
+        worst-case reservation?  If yes, a full-but-alive pool is a
+        capacity wait, not a loss."""
+        total = seq.prompt_len + seq.max_new
+        return any(r.cache.pages_for(total) <= r.cache.num_pages
+                   for r in self._live_replicas_locked())
+
+    def _readmit_locked(self, seq, target):
+        seq.kv_len = 0          # replay regenerates the KV
+        seq.recoveries += 1
+        target.queue.append(seq)
+        self._n_recovered += 1
+
+    def _try_place_orphans_locked(self):
+        """Place pending orphans — recovered sequences waiting for
+        survivor capacity (caller holds the lock).  They hold NO pages
+        while pending; placement reserves worst-case, exactly like
+        admission.  -> (migrated, dropped) pairs for the caller to emit
+        events / resolve futures OUTSIDE the lock."""
+        migrated, dropped = [], []
+        if not self._orphans:
+            return migrated, dropped
+        now = time.monotonic()
+        still = []
+        for seq in self._orphans:
+            fin = ("cancelled" if seq.cancelled else
+                   "deadline" if seq.deadline is not None
+                   and now > seq.deadline else None)
+            if fin is not None:
+                self._account_exit_locked(seq, fin)
+                dropped.append((seq, fin))
+                continue
+            target = self._place_locked(seq)
+            if target is None:
+                still.append(seq)
+                continue
+            self._readmit_locked(seq, target)
+            migrated.append((seq, target))
+        self._orphans[:] = still
+        if migrated:
+            self._cond.notify_all()
+        return migrated, dropped
+
+    def _quarantine(self, rep, cause):
+        """Take a crashed replica out of service and carry its
+        sequences over: free every page it held, re-admit each
+        in-flight sequence onto a survivor (``kv_len`` reset — the
+        replay regenerates its KV from the canonical tokens), park what
+        fits a survivor's pool but not its current free list (placed as
+        capacity frees), and resolve typed only what no survivor could
+        EVER hold.  Futures never hang; pages never leak."""
+        with self._cond:
+            rep.killed = True
+            rep.dead = True
+            rep.retiring = True     # out of _pick_replica rotation
+            orphans = list(rep.active) + list(rep.queue)
+            del rep.active[:]
+            rep.queue.clear()
+            for seq in orphans:
+                rep.cache.free(seq.sid)
+            self._n_quarantines += 1
+            self._cond.notify_all()
+        self._reg_quarantines.inc()
+        events.emit("decode_quarantine", replica=rep.index,
+                    orphans=len(orphans), cause=type(cause).__name__)
+        recover_err = None
+        try:
+            fault_point("decode.recover")
+        # a failed recovery resolves every orphan TYPED — never a hang
+        except Exception as e:  # noqa: BLE001
+            recover_err = e
+        migrated = []
+        resolved = []
+        with self._cond:
+            for seq in orphans:
+                if seq.cancelled:
+                    self._account_exit_locked(seq, "cancelled")
+                    resolved.append((seq, "cancelled", None))
+                    continue
+                target = (None if recover_err is not None
+                          else self._place_locked(seq))
+                if target is None:
+                    if recover_err is None \
+                            and self._fits_somewhere_locked(seq):
+                        # survivors exist but are full RIGHT NOW: the
+                        # sequence was admitted once, so it WAITS for
+                        # capacity instead of failing
+                        self._orphans.append(seq)
+                        continue
+                    # no survivor can EVER hold it (or recovery itself
+                    # is the injected failure): typed, never hung
+                    err = recover_err if recover_err is not None \
+                        else cause
+                    if not isinstance(err, BaseException):
+                        err = Overloaded("replica_lost")
+                    self._account_exit_locked(seq, "error")
+                    resolved.append((seq, None, err))
+                    continue
+                self._readmit_locked(seq, target)
+                migrated.append((seq, target))
+            self._cond.notify_all()
+        for seq, target in migrated:
+            self._reg_recovered.inc()
+            events.emit("decode_recover", sid=seq.sid,
+                        src=rep.index, dst=target.index,
+                        generated=len(seq.generated()),
+                        recoveries=seq.recoveries)
+        for seq, fin, err in resolved:
+            if fin == "cancelled":
+                events.emit("decode_cancel", sid=seq.sid,
+                            generated=len(seq.generated()))
+            else:
+                events.emit("decode_error", sid=seq.sid,
+                            where="quarantine",
+                            error=type(err).__name__)
+            self._resolve(seq, fin, error=err)
+
+    def _maybe_self_check(self):
+        now = time.monotonic()
+        with self._cond:
+            if now < self._next_self_check:
+                return
+            self._next_self_check = now + self._self_check_interval
+        self.self_check()
+
+    def self_check(self):
+        """Reconcile every allocator against the sequences the
+        scheduler actually holds — the periodic backstop behind
+        :meth:`assert_no_leaks`.  An allocation owned by NO queued or
+        active sequence is a leak: reclaimed here, counted on
+        ``decode.kv_leaked``, and reported.  -> pages reclaimed."""
+        leaked = 0
+        stale = []
+        with self._cond:
+            for rep in self._replicas:
+                owned = {s.sid for s in rep.active}
+                owned.update(s.sid for s in rep.queue)
+                for sid in rep.cache.sequence_ids():
+                    if sid not in owned:
+                        n = rep.cache.free(sid)
+                        leaked += n
+                        stale.append((rep.index, sid, n))
+            if leaked:
+                self._n_kv_leaked += leaked
+        for rep_index, sid, n in stale:
+            self._reg_kv_leaked.inc(n)
+            events.emit("decode_kv_leak", replica=rep_index, sid=sid,
+                        pages=n)
+        return leaked
 
     # -- hot reload -----------------------------------------------------
-    def set_params(self, state):
+    def set_params(self, state, step=None):
         """Swap every replica's params reference.  In-flight sequences
         keep their pinned params (finish on what they started with);
         sequences admitted after this call see the new ones.  ``state``
@@ -612,12 +1140,50 @@ class DecodeEngine:
         params = (state["params"]
                   if isinstance(state, dict) and "params" in state
                   else state)
-        params = params_from_jax(params, self.device)
+        params = put_params(params, [self.device])[self.device]
         with self._cond:
             for rep in self._replicas:
                 rep.params = params
             self._params = params
             self.reload_count += 1
+        metrics.counter("serve.reloads").inc()
+        events.emit("serve_reload", step=step, role="decode",
+                    replicas=len(self._replicas))
+
+    # -- elastic replica set --------------------------------------------
+    def resize(self, n):
+        """Grow or shrink the replica set.  Grow: fresh replicas with
+        fresh KV pools and streams on the engine's device.  Shrink:
+        retired replicas stop admitting, finish every sequence they
+        hold, then exit (nothing admitted is ever dropped).  -> the new
+        live replica count."""
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"resize({n}): must keep >= 1 replica")
+        started = []
+        with self._cond:
+            if self._stopped or self._draining:
+                raise Overloaded(
+                    "stopped" if self._stopped else "draining")
+            live = [r for r in self._replicas if not r.retiring]
+            cur = len(live)
+            if n < cur:
+                for rep in live[n:]:
+                    rep.retiring = True
+                self._rr = 0
+                self._cond.notify_all()
+            elif n > cur:
+                for _ in range(n - cur):
+                    idx = self._next_replica_index
+                    self._next_replica_index += 1
+                    rep = self._make_replica(idx)
+                    self._replicas.append(rep)
+                    t = self._worker_thread(rep)
+                    self._workers.append(t)
+                    started.append(t)
+        for t in started:
+            t.start()
+        return n
 
     # -- lifecycle ------------------------------------------------------
     def drain(self, timeout_s=None):
@@ -627,9 +1193,13 @@ class DecodeEngine:
         t0 = time.perf_counter()
         with self._cond:
             self._draining = True
+            backlog = self._outstanding
             self._cond.notify_all()
-            deadline = (None if timeout_s is None
-                        else time.monotonic() + timeout_s)
+        events.emit("serve_drain_begin", backlog=backlog,
+                    role="decode")
+        deadline = (None if timeout_s is None
+                    else time.monotonic() + timeout_s)
+        with self._cond:
             while self._outstanding:
                 remaining = (None if deadline is None
                              else deadline - time.monotonic())
@@ -639,11 +1209,13 @@ class DecodeEngine:
                         f"in flight after {timeout_s}s")
                 self._cond.wait(remaining)
         self._shutdown_threads()
-        return {"delivered": self._n_completed,
-                "errored": self._n_errors,
-                "rejected": self._n_rejected,
-                "cancelled": self._n_cancelled,
-                "duration_s": time.perf_counter() - t0}
+        out = {"delivered": self._n_completed,
+               "errored": self._n_errors,
+               "rejected": self._n_rejected,
+               "cancelled": self._n_cancelled,
+               "duration_s": time.perf_counter() - t0}
+        events.emit("decode_drain", **out)
+        return out
 
     def _shutdown_threads(self):
         with self._cond:
@@ -680,7 +1252,13 @@ class DecodeEngine:
                 del rep.active[:]
             for rep, seq in orphans:
                 self._finish_locked(rep, seq, "stopped")
+            pending = list(self._orphans)
+            self._orphans[:] = []
+            for seq in pending:   # page-less: bookkeeping half only
+                self._account_exit_locked(seq, "stopped")
         for _, seq in orphans:
+            self._resolve(seq, None, error=Overloaded("stopped"))
+        for seq in pending:
             self._resolve(seq, None, error=Overloaded("stopped"))
 
     def __enter__(self):
@@ -699,8 +1277,10 @@ class DecodeEngine:
         return not self._stopped
 
     def kv_stats(self):
-        """Aggregate + per-replica page-pool accounting."""
-        per = [r.cache.stats() for r in self._replicas]
+        """Aggregate + per-replica page-pool accounting (retired
+        replicas left out)."""
+        per = [r.cache.stats() for r in self._replicas
+               if not r.retiring]
         total = sum(p["num_pages"] for p in per)
         used = sum(p["used_pages"] for p in per)
         return {
@@ -737,6 +1317,7 @@ class DecodeEngine:
             outstanding = self._outstanding
             shapes = sorted(self._shapes)
             live = len(self._live_replicas_locked())
+            dead = sum(1 for r in self._replicas if r.dead)
         return {
             "replicas": live,
             "device": str(self.device),
@@ -753,6 +1334,14 @@ class DecodeEngine:
             "errors": self._n_errors,
             "cancelled": self._n_cancelled,
             "tokens": self._n_tokens,
+            "quarantines": self._n_quarantines,
+            "recovered": self._n_recovered,
+            "shed": self._n_shed,
+            "deadline_infeasible": self._n_deadline_infeasible,
+            "deadline_expired": self._n_deadline_expired,
+            "kv_leaked": self._n_kv_leaked,
+            "orphans_pending": len(self._orphans),
+            "replicas_dead": dead,
             "reloads": self.reload_count,
             "shapes_dispatched": shapes,
             "retrace_count": len(shapes),
@@ -760,4 +1349,6 @@ class DecodeEngine:
                               + len(self.decode_ladder)),
             "draining": self._draining,
             "kv": self.kv_stats(),
+            "ttft_s": self._m_ttft.summary(),
+            "step_s": self._m_step.summary(),
         }

@@ -33,13 +33,15 @@ additionally serializes alloc/free per replica under its scheduler
 lock — the lock here makes ``stats()`` safe from any thread.
 
 Copied from the JAX package's ``serving/kv_cache.py`` (it is framework
-free) without the ``decode.kv_alloc`` fault point: fault injection is
-not ported yet.
+free), with its ``decode.kv_alloc`` fault point on the port's
+``resilience/faults.py``.
 """
 
 from __future__ import annotations
 
 import threading
+
+from dist_keras_tpu_torch.resilience.faults import fault_point
 
 
 class PagesExhausted(RuntimeError):
@@ -98,6 +100,7 @@ class PagedKVCache:
         list.  Raises :class:`PagesExhausted` (side-effect free) when
         the free list cannot cover it, ``ValueError`` on a duplicate
         ``seq_id`` (an accounting bug, not load)."""
+        fault_point("decode.kv_alloc")
         n = self.pages_for(tokens)
         with self._lock:
             if seq_id in self._held:
