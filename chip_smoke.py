@@ -102,6 +102,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    operations and idle share.  The hand-written kernels' counters,
    zeroed before it, stay 0.
 
+12. checkpoints and resume on the card: a full ADAG training state of
+   CUDA tensors (the MNIST CNN's center, 4 stacked workers, their
+   stacked adam state, the device generator's state, a bf16 leaf)
+   through save and restore onto CUDA templates, bit for bit, chunked
+   and differential (a re-save of the unchanged state writes no chunk
+   byte); ``ckpt.save_stall_s`` against ``ckpt.write_s`` for states of
+   64 and 256 MB made on the card with ``DK_CKPT_ASYNC`` on (the stall
+   well under the write) and off (the stall the whole write); under
+   deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` is set at
+   import), SingleTrainer on the MNIST MLP and ADAG on the MNIST CNN
+   with dropout: two uninterrupted runs bit-equal (the control), a run
+   that sends itself a real SIGTERM under ``handle_preemption=True``
+   exits ``Preempted`` (143) with a verified saved step, and a fresh
+   trainer resumed from it ends bit-equal to the uninterrupted run, the
+   resumed ADAG through its phase-10 gate; ADAG samples/s at
+   ``bench_adag_mnist_cnn``'s shape without saves and with
+   ``checkpoint_every_windows`` (3 saves per run).  The hand-written
+   kernels' counters, zeroed before it, stay 0.
+
+``python3 chip_smoke.py --phase12`` runs only phases 1 and 12.
 ``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
 K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
 two trees' K5 can be timed on the same inputs in one run.
@@ -124,6 +144,10 @@ import urllib.request
 from pathlib import Path
 
 import numpy as np
+
+# phase 12's resume checks run under deterministic algorithms, and
+# cuBLAS's deterministic mode needs its workspace pinned before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = Path(__file__).resolve().parent
 MODEL = dict(input_dim=32, seq_len=2048, d_model=768, n_heads=6,
@@ -2804,6 +2828,360 @@ def decode_survivability(rng, fa, fu, da, gpu, dev, model_cfg=None,
     return counts
 
 
+# -- phase 12: checkpoints and resume on the card ---------------------------
+STALL_MB = (64, 256)            # bench.py's bench_ckpt_async_save sizes
+STALL_REPS = 3
+CKPT_BENCH_EPOCHS, CKPT_EVERY_WINDOWS = 12, 4   # 3 cadence saves per run
+PREEMPT_EPOCH = 3               # SIGTERM at this epoch's end (of 6)
+
+
+def bits_equal(a, b):
+    """Two tensors (or numpy arrays) with the same bits."""
+    import torch
+
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(view[t.element_size()]) for t in (a, b))
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def tree_differ(got, want):
+    """-> the paths whose leaves differ in structure or bits (empty when
+    the two trees are bit-equal)."""
+    from dist_keras_tpu_torch.checkpoint import _flatten
+
+    g, w = _flatten(got)[0], _flatten(want)[0]
+    if [p for p, _ in g] != [p for p, _ in w]:
+        return ["<structure>"]
+    return [p for (p, a), (_, b) in zip(g, w) if not bits_equal(a, b)]
+
+
+def checkpoint_round_trip(gpu):
+    """A full ADAG training state of CUDA tensors — the MNIST CNN's
+    center, its 4 stacked workers, their stacked adam state and the
+    device generator's state — through save and restore onto a CUDA
+    template, bit for bit, chunked and differential."""
+    import tempfile
+
+    import torch
+
+    from dist_keras_tpu_torch.checkpoint import Checkpointer
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.ops.optimizers import get_optimizer
+    from dist_keras_tpu_torch.utils.pytree import (
+        tree_leaves,
+        tree_map,
+        tree_stack,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    center = [{k: v.to(dev) for k, v in p.items()}
+              for p in mnist_cnn(seed=3).params]
+    local = tree_map(lambda x: x + torch.randn(
+        x.shape, generator=gen, device=dev).to(x.dtype),
+        tree_stack(center, ADAG_WORKERS))
+    opt = tree_stack(get_optimizer("adam").init(center), ADAG_WORKERS)
+    opt = {"count": opt["count"] + 5,
+           "mu": tree_map(lambda x: torch.randn(
+               x.shape, generator=gen, device=dev), opt["mu"]),
+           "nu": tree_map(lambda x: torch.rand(
+               x.shape, generator=gen, device=dev), opt["nu"])}
+    state = {"center": center, "local": local, "opt_state": opt,
+             "rng": gen.get_state(),
+             "bf16": torch.randn(4096, device=dev).to(torch.bfloat16)}
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    template = tree_map(torch.empty_like, state)
+    for name, env in (("chunked", {"DK_CKPT_CHUNK_MB": "1"}),
+                      ("differential", {"DK_CKPT_CHUNK_MB": "1",
+                                        "DK_CKPT_DIFF": "1"})):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                ck = Checkpointer(d)
+                ck.save(1, state).wait(timeout_s=120)
+                ck.save(2, state).wait(timeout_s=120)   # diff: all skipped
+                stats = ck.last_diff_stats
+                step, got = ck.restore(template=template)
+                on_card = all(x.device == y.device for x, y in zip(
+                    tree_leaves(got), tree_leaves(state)))
+                verified = ck.verify(2)
+                differ = tree_differ(got, state)
+                ok = (step == 2 and verified == "ok" and on_card
+                      and not differ)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        print(f"  round trip {name}: {nbytes / 2**20:.1f} MB of CUDA "
+              f"tensors (center, 4 stacked workers, stacked adam state, "
+              f"generator state, a bf16 leaf) restored onto CUDA "
+              f"templates bit for bit: {ok}"
+              + (f"; second save wrote {stats['bytes_written']} B, skipped "
+                 f"{stats['skipped']} of {stats['chunks']} chunks"
+                 if stats else "") + f" on {gpu}")
+        require(ok, f"the {name} round trip is not bit-exact: step {step}, "
+                    f"verify {verified}, on the templates' devices "
+                    f"{on_card}, leaves that differ {differ[:6]}")
+        if stats:
+            require(stats["bytes_written"] == 0,
+                    "a differential re-save of an unchanged state wrote "
+                    "chunk bytes")
+
+
+def save_stall(gpu):
+    """``ckpt.save_stall_s`` (the caller's wall in ``save``) against
+    ``ckpt.write_s`` (the writer's wall) for states of 64 and 256 MB made
+    on the card, with ``DK_CKPT_ASYNC`` on and off; each save is waited
+    for before the next.  -> the rows printed."""
+    import tempfile
+
+    import torch
+
+    from dist_keras_tpu_torch.checkpoint import Checkpointer
+    from dist_keras_tpu_torch.observability import metrics
+
+    rows = []
+    dev = torch.device("cuda")
+    for mb in STALL_MB:
+        n = mb * 2**20 // 4 // 8
+        state = {f"w{i}": torch.randn(n, device=dev) for i in range(8)}
+        torch.cuda.synchronize()
+        for async_on in ("1", "0"):
+            os.environ["DK_CKPT_ASYNC"] = async_on
+            stalls, writes = [], []
+            with tempfile.TemporaryDirectory() as d:
+                ck = Checkpointer(d, max_to_keep=2)
+                for rep in range(STALL_REPS + 1):
+                    metrics.histogram("ckpt.save_stall_s").reset()
+                    metrics.histogram("ckpt.write_s").reset()
+                    # the training loop's boundary: the state was just
+                    # produced by kernels still running
+                    state = {k: v * 1.0 for k, v in state.items()}
+                    ck.save(rep, state).wait(timeout_s=300)
+                    snap = metrics.snapshot()["histograms"]
+                    if rep:   # the first save warms the pinned pool
+                        stalls.append(snap["ckpt.save_stall_s"]["max"])
+                        writes.append(snap["ckpt.write_s"]["max"])
+            os.environ.pop("DK_CKPT_ASYNC", None)
+            stall, write = float(np.median(stalls)), float(np.median(writes))
+            rows.append((mb, async_on, stall, write))
+            print(f"  save {mb} MB (8 f32 leaves on the card), DK_CKPT_ASYNC="
+                  f"{async_on}: ckpt.save_stall_s median {stall * 1e3:.2f} "
+                  f"ms, ckpt.write_s median {write * 1e3:.2f} ms "
+                  f"({mb / write / 1024:.2f} GB/s written and hashed) over "
+                  f"{STALL_REPS} saves on {gpu}")
+        del state
+        torch.cuda.empty_cache()
+    for mb in STALL_MB:
+        (a_stall, a_write), (s_stall, s_write) = [
+            (st, wr) for m, _, st, wr in rows if m == mb]
+        require(a_stall < 0.5 * a_write,
+                f"{mb} MB async save stalled {a_stall:.3f} s, not well "
+                f"under its write {a_write:.3f} s")
+        require(s_stall >= s_write,
+                f"{mb} MB synchronous save stalled {s_stall:.3f} s, less "
+                f"than its write {s_write:.3f} s")
+    return rows
+
+
+def deterministic(on):
+    """Deterministic algorithms for the resume checks (cuBLAS's workspace
+    is pinned by CUBLAS_WORKSPACE_CONFIG, set before CUDA starts)."""
+    import torch
+
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def preempt_and_resume(name, make, data, gpu, check=None):
+    """Two uninterrupted runs (the control: bit-equal), then a run with
+    ``handle_preemption=True`` that sends itself a real SIGTERM at the end
+    of epoch PREEMPT_EPOCH and exits ``Preempted`` with a verified saved
+    step, then a fresh trainer resumed from that step: its weights and
+    its losses equal the uninterrupted run's, bit for bit."""
+    import signal
+    import tempfile
+    import warnings
+
+    from dist_keras_tpu_torch.checkpoint import Checkpointer
+    from dist_keras_tpu_torch.resilience import preemption
+    from dist_keras_tpu_torch.resilience.preemption import Preempted
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        runs = []
+        for _ in range(2):
+            t = make()
+            m = t.train(data, shuffle=True)
+            runs.append((t, m))
+        (ta, ma), (tb, mb) = runs
+        control = all(bits_equal(a, b) for a, b in zip(
+            ma.get_weights(), mb.get_weights())) and bits_equal(
+            np.asarray(ta.get_history()), np.asarray(tb.get_history()))
+
+        def sigterm(trainer, epoch, logs):
+            if epoch == PREEMPT_EPOCH:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        with tempfile.TemporaryDirectory() as d:
+            t1 = make(checkpoint_dir=d, handle_preemption=True,
+                      callbacks=[sigterm])
+            code = saved = None
+            try:
+                t1.train(data, shuffle=True)
+            except Preempted as e:
+                code, saved = e.code, e.saved_step
+            preemption.clear()
+            verified = (saved is not None
+                        and Checkpointer(d).verify(saved) == "ok")
+            t2 = make(checkpoint_dir=d, resume=True)
+            resumed = t2.train(data, shuffle=True)
+    nondet = sorted({str(w.message).split(".")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    h_full = np.asarray(ta.get_history())
+    h_res = np.asarray(t2.get_history())
+    flat = (h_full.reshape(h_full.shape[0], -1) if h_full.ndim > 1
+            else h_full)
+    flat_res = (h_res.reshape(h_res.shape[0], -1) if h_res.ndim > 1
+                else h_res)
+    tail = flat[..., flat.shape[-1] - flat_res.shape[-1]:]
+    equal = all(bits_equal(a, b) for a, b in zip(
+        resumed.get_weights(), ma.get_weights())) and bits_equal(
+        flat_res, tail)
+    print(f"  {name}: two uninterrupted runs bit-equal: {control}; SIGTERM "
+          f"at epoch {PREEMPT_EPOCH} -> Preempted code {code}, saved step "
+          f"{saved} verified {verified}; resumed in a fresh trainer from "
+          f"step {saved}: weights and the {flat_res.shape[-1]} resumed "
+          f"losses per worker bit-equal to the uninterrupted run: {equal} "
+          f"on {gpu}")
+    if nondet:
+        print(f"    ops without a deterministic CUDA path: {nondet}")
+    require(control, f"{name}: two uninterrupted runs differ on the card")
+    require(code == 143 and verified,
+            f"{name}: the SIGTERM gave code {code}, saved step {saved}")
+    require(equal, f"{name}: the resumed run differs from the "
+                   f"uninterrupted one")
+    if check is not None:
+        check(resumed, t2)
+
+
+def adag_with_saves(gpu):
+    """ADAG samples/s at ``bench_adag_mnist_cnn``'s shape, without saves
+    and with ``checkpoint_every_windows=CKPT_EVERY_WINDOWS`` (async
+    saves), alternated twice; samples over ``get_training_time()``, which
+    includes the end-of-run drain of the last save."""
+    import tempfile
+
+    import torch
+
+    from dist_keras_tpu_torch.data import Dataset
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.trainers import ADAG
+
+    rng = np.random.default_rng(0)
+    n = ADAG_BENCH_BATCH * ADAG_BENCH_STEPS
+    y = rng.integers(0, 10, n)
+    ds = Dataset({"features": rng.normal(size=(n, 28, 28, 1)).astype(
+        np.float32), "label": y,
+        "label_encoded": np.eye(10, dtype=np.float32)[y]})
+
+    def run(saves):
+        with tempfile.TemporaryDirectory() as d:
+            kw = ({"checkpoint_dir": d,
+                   "checkpoint_every_windows": CKPT_EVERY_WINDOWS}
+                  if saves else {})
+            t = ADAG(mnist_cnn(), num_workers=ADAG_WORKERS,
+                     communication_window=ADAG_WINDOW,
+                     worker_optimizer="adam", batch_size=ADAG_BENCH_BATCH,
+                     num_epoch=CKPT_BENCH_EPOCHS, label_col="label_encoded",
+                     compute_dtype=torch.bfloat16, **kw)
+            t.train(ds)
+            steps = t._checkpointer.all_steps() if saves else []
+        h = np.asarray(t.get_history())
+        require(np.isfinite(h).all(), "the ADAG bench run is not finite")
+        return h.size * ADAG_BENCH_BATCH / t.get_training_time(), steps
+
+    run(False)   # warm-up
+    out, kept = {False: [], True: []}, []
+    for saves in (False, True, True, False):
+        sps, steps = run(saves)
+        out[saves].append(sps)
+        kept = steps or kept
+    off, on = float(np.median(out[False])), float(np.median(out[True]))
+    print(f"  ADAG at bench_adag_mnist_cnn's shape ({CKPT_BENCH_EPOCHS} "
+          f"windows, bf16, adam): {off:.1f} samples/s without saves "
+          f"({', '.join(f'{v:.1f}' for v in out[False])}), {on:.1f} with "
+          f"checkpoint_every_windows={CKPT_EVERY_WINDOWS} "
+          f"({', '.join(f'{v:.1f}' for v in out[True])}; steps kept "
+          f"{kept}) = {100 * (off - on) / off:.2f}% slower on {gpu}")
+    require(kept and kept[-1] == CKPT_BENCH_EPOCHS,
+            f"the final cadence save is missing: {kept}")
+    return off, on
+
+
+def checkpoints_and_resume(fa, fu, da, gpu):
+    """Phase 12: the round trip, the save stall, SingleTrainer (MNIST
+    MLP) and ADAG (MNIST CNN, with dropout) preempted by a real SIGTERM
+    and resumed bit-equal under deterministic algorithms, the resumed
+    ADAG through its phase-10 gate, ADAG with cadence saves; no
+    hand-written kernel launched."""
+    import torch
+
+    from dist_keras_tpu_torch.models import mnist_cnn, mnist_mlp
+    from dist_keras_tpu_torch.trainers import ADAG, SingleTrainer
+
+    t0 = time.perf_counter()
+    zero_kernel_counts(fa, fu, da)
+    checkpoint_round_trip(gpu)
+    save_stall(gpu)
+    train, test = mnist_sets()
+    deterministic(True)
+    try:
+        preempt_and_resume(
+            "SingleTrainer mnist_mlp (adam, 6 epochs of the phase-9 gate)",
+            lambda **kw: SingleTrainer(
+                mnist_mlp(), worker_optimizer="adam",
+                optimizer_kwargs={"learning_rate": 1e-3}, batch_size=64,
+                num_epoch=GATE_EPOCHS, features_col="fn", label_col="le",
+                **kw), train, gpu)
+
+        def gate(model, t):
+            acc = accuracy(model, test, "fi")
+            print(f"  resumed ADAG through the phase-10 gate "
+                  f"adag_mnist_cnn_w12: accuracy {acc:.4f} (threshold "
+                  f"{GATE_ACC}) on {gpu}")
+            require(acc >= GATE_ACC,
+                    f"the resumed ADAG's accuracy {acc} < {GATE_ACC}")
+
+        preempt_and_resume(
+            "ADAG mnist_cnn with dropout (4 workers, window 12, adam, "
+            "the phase-10 gate)",
+            lambda **kw: ADAG(
+                mnist_cnn(), num_workers=ADAG_WORKERS,
+                communication_window=ADAG_WINDOW, worker_optimizer="adam",
+                optimizer_kwargs={"learning_rate": 3e-3}, batch_size=64,
+                num_epoch=GATE_EPOCHS, features_col="fi", label_col="le",
+                **kw), train, gpu, check=gate)
+    finally:
+        deterministic(False)
+    torch.cuda.empty_cache()
+    adag_with_saves(gpu)
+    counts = kernel_counts(fa, fu, da)
+    print(f"  hand-written kernels launched by phase 12: {counts} (none is "
+          f"on this path)")
+    require(not any(counts.values()),
+            f"phase 12 launched a hand-written kernel: {counts}")
+    print(f"  phase 12 wall {time.perf_counter() - t0:.1f} s on {gpu}")
+
+
 def main(argv=None):
     import argparse
 
@@ -2815,6 +3193,9 @@ def main(argv=None):
                          "rungs (phase 6's inputs), from the "
                          "dist_keras_tpu_torch of CHECKOUT, to compare two "
                          "trees in one run")
+    ap.add_argument("--phase12", action="store_true",
+                    help="run only phase 1 (the card) and phase 12 "
+                         "(checkpoints and resume); no kernel is built")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
@@ -2846,6 +3227,10 @@ def main(argv=None):
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     print(f"  allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if a.phase12:
+        print("phase 12: checkpoints and resume on the card")
+        checkpoints_and_resume(fa, fu, da, gpu)
+        return 0
 
     # phases 1-7 run the knob-off backward (K2 + K3); phase 7b turns it on
     os.environ.pop("DK_FUSED_BWD", None)
@@ -2969,6 +3354,8 @@ def main(argv=None):
     print("phase 11b: decode survivability at phase 5's widths")
     decode_survivability(np.random.default_rng(5), fa, fu, da, gpu, dev)
     print(f"  phase 11 wall {time.perf_counter() - t11:.1f} s on {gpu}")
+    print("phase 12: checkpoints and resume on the card")
+    checkpoints_and_resume(fa, fu, da, gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,12 @@ kernel on it.  And the rest of serving: ``ServingEngine`` behind
 (replica kill and replay, deadlines, brownout shedding, self-check,
 resize, fault points), with copies of ``resilience/faults.py``,
 ``world.py`` and ``preemption.py`` and ``observability/spans.py`` and
-``perf.py``.
+``perf.py``.  And checkpoints, resume and preemption: ``checkpoint.py``
+(atomic and two-phase commits, manifests, the async writer, the
+differential and remote tiers, the elastic restore), copies of
+``resilience/retry.py``, ``coordination.py``, ``store.py``,
+``elastic.py`` and ``supervisor.py``, and every trainer's
+``checkpoint_dir`` / ``resume`` / ``handle_preemption``.
 """
 
 __version__ = "0.1.0"

@@ -5,11 +5,10 @@ free) on the port's ``world``, ``knobs`` and ``events``.  The registry
 (:data:`KNOWN_POINTS`) is the reference's, point for point and in its
 order, so one seed draws one chaos schedule in both packages.  The
 port raises at only the points whose subsystems it has ported (the
-``serve.*`` and ``decode.*`` seams so far); the rest stay registered
-and never fire.  ``exc=PeerLost`` / ``exc=BarrierTimeout`` name
-``resilience/coordination.py``, which is not ported: a ``DK_FAULTS``
-entry naming either is refused at parse time (ROADMAP queue 1, item
-15).
+checkpoint, coordination, remote-store, ``serve.*`` and ``decode.*``
+seams so far); the rest stay registered and never fire.
+``exc=PeerLost`` / ``exc=BarrierTimeout`` resolve through the port's
+``resilience/coordination.py``, as in the reference.
 
 The reference tolerated worker loss for free because Spark re-ran failed
 partitions; this TPU-native port has to *prove* its failure story instead
@@ -286,12 +285,11 @@ def _parse_env_entry(entry):
             "point[@at[xN]][:k=v,...]")
     exc_name = opts.get("exc", "FaultInjected")
     if exc_name in ("PeerLost", "BarrierTimeout"):
-        # the reference resolves these through resilience/coordination,
-        # which the port does not have yet: refuse, never arm a stand-in
-        raise ValueError(
-            f"DK_FAULTS entry {entry!r}: exc={exc_name} needs "
-            "resilience/coordination.py, which is not ported yet "
-            "(ROADMAP queue 1, item 15)")
+        # lazy: coordination imports this module at its top level, so
+        # the reverse import must stay inside the parse path
+        from dist_keras_tpu_torch.resilience import coordination
+
+        exc = getattr(coordination, exc_name)
     else:
         exc = _EXC_NAMES.get(exc_name, FaultInjected)
     value = opts.get("value")

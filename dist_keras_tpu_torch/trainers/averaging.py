@@ -16,7 +16,10 @@ Both run their steps as a Python loop over the global step index, the
 worker-stacked step (``trainers/step.py``) on data resident on the
 device, with one device ``torch.Generator`` seeded with ``seed`` for
 every replica's dropout (``windowed.py`` says why it cannot reproduce
-the JAX package's per-worker streams).  Streaming
+the JAX package's per-worker streams).  Checkpoints are step-granular,
+as the reference's: Averaging saves ``{"params", "local", "opt_state",
+"rng"}``, Ensemble ``{"params", "opt_state", "rng"}`` (``params`` being
+the stacked replicas), ``rng`` the generator's state.  Streaming
 (``stream_chunk_steps``, ``max_resident_bytes``) is not ported yet and
 raises (ROADMAP queue 1, item 20).
 """
@@ -30,6 +33,7 @@ from dist_keras_tpu_torch.parallel.collectives import tree_pmean_sync
 from dist_keras_tpu_torch.trainers.base import DistributedTrainer
 from dist_keras_tpu_torch.trainers.chunking import (
     init_streaming,
+    reject_stale_checkpoint,
     run_chunked,
     units_first,
 )
@@ -59,6 +63,22 @@ class AveragingTrainer(DistributedTrainer):
         opt_state = self._stack_workers(opt_init(params))
         generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
+        hint = ("if this checkpoint predates step-granular "
+                "AveragingTrainer state (params only, step counted "
+                "epochs not steps), restart training or point "
+                "checkpoint_dir at a fresh directory")
+        start_t, restored = self._maybe_resume(hint)
+        reject_stale_checkpoint(
+            restored, "local", "AveragingTrainer",
+            "params only; its step counts epochs, not steps")
+        if restored is not None:
+            state = self._restored(
+                restored, {"params": params, "local": local,
+                           "opt_state": opt_state,
+                           "rng": generator.get_state()}, start_t, hint)
+            params, local = state["params"], state["local"]
+            opt_state = state["opt_state"]
+            generator.set_state(state["rng"])
 
         def dispatch(i, T, steps_done, data):
             nonlocal params, local, opt_state
@@ -82,10 +102,16 @@ class AveragingTrainer(DistributedTrainer):
             return torch.stack(losses, 1)   # (workers, T)
 
         history = run_chunked(
-            self, xs, ys, total=self.num_epoch * spe, per_epoch=spe,
+            self, xs, ys, start=start_t, total=self.num_epoch * spe,
+            per_epoch=spe,
+            cadence=(self.checkpoint_every * spe
+                     if self.checkpoint_every else None),
             samples_per_unit=n * self.batch_size, dispatch=dispatch,
-            sync_ref=lambda: params, carry_leaves=(params, local, opt_state),
-            worker_axis=True)
+            sync_ref=lambda: params,
+            state_fn=lambda: {"params": params, "local": local,
+                              "opt_state": opt_state,
+                              "rng": generator.get_state()},
+            carry_leaves=(params, local, opt_state), worker_axis=True)
         return self._finalize(params, history)
 
 
@@ -133,6 +159,20 @@ class EnsembleTrainer(DistributedTrainer):
         opt_state = self._stack_workers(opt_init(params), self.num_models)
         generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
+        hint = ("if this checkpoint predates step-granular "
+                "EnsembleTrainer state (no rng leaf, step counted epochs "
+                "not steps), restart training or point checkpoint_dir at "
+                "a fresh directory")
+        start_t, restored = self._maybe_resume(hint)
+        reject_stale_checkpoint(
+            restored, "rng", "EnsembleTrainer",
+            "no rng leaf; its step counts epochs, not steps")
+        if restored is not None:
+            state = self._restored(
+                restored, {"params": stacked, "opt_state": opt_state,
+                           "rng": generator.get_state()}, start_t, hint)
+            stacked, opt_state = state["params"], state["opt_state"]
+            generator.set_state(state["rng"])
 
         def dispatch(i, T, steps_done, data):
             nonlocal stacked, opt_state
@@ -145,9 +185,14 @@ class EnsembleTrainer(DistributedTrainer):
             return torch.stack(losses, 1)   # (num_models, T)
 
         self.history = run_chunked(
-            self, xs, ys, total=self.num_epoch * spe, per_epoch=spe,
+            self, xs, ys, start=start_t, total=self.num_epoch * spe,
+            per_epoch=spe,
+            cadence=(self.checkpoint_every * spe
+                     if self.checkpoint_every else None),
             samples_per_unit=self.num_models * self.batch_size,
             dispatch=dispatch, sync_ref=lambda: stacked,
+            state_fn=lambda: {"params": stacked, "opt_state": opt_state,
+                              "rng": generator.get_state()},
             carry_leaves=(stacked, opt_state), worker_axis=True)
         # one device->host copy for the whole ensemble, then slice
         host = fetch_global(stacked)

@@ -13,13 +13,24 @@ trainer's one device (``parallel/mesh.py``), where the JAX package puts
 one worker on each device of a mesh.  ``master_host`` / ``master_port``
 are accepted and ignored, as there.
 
+Checkpoints, resume and preemption take the JAX package's kwargs and
+semantics: ``checkpoint_dir`` (with ``checkpoint_every`` epochs,
+default 1, and ``max_checkpoints`` retained), ``resume`` (``True`` for
+the latest verified step, or an explicit step, as the auto-resume
+supervisor passes it) and ``handle_preemption`` (SIGTERM/SIGINT ->
+boundary checkpoint -> typed ``Preempted``).  The chunked dispatch loop
+(``trainers/chunking.py``) owns the cadence saves and the preemption
+exit; this class owns the checkpointer, the restore
+(:meth:`Trainer._maybe_resume`) and the end-of-run drain.  A run's
+random stream is the trainer's ``torch.Generator``: its state is the
+checkpoint's ``rng`` leaf, so a resumed run draws the dropout masks an
+uninterrupted one would.  A checkpoint whose ``rng`` leaf is a JAX
+PRNG key was written by the reference and is refused typed.
+
 Not ported yet, and raising when asked for instead of being ignored:
-checkpoints, resume and preemption (``checkpoint_dir``,
-``checkpoint_every``, ``max_checkpoints``, ``resume``,
-``handle_preemption``: ROADMAP queue 1, item 19), and workers spread
-over several cards or hosts (a ``mesh``, the multi-host environment:
-item 12b).  The JAX package's jit cache has no counterpart: the port
-compiles nothing.
+workers spread over several cards or hosts (a ``mesh``, the multi-host
+environment, ``DK_COORD_WORLD`` > 1: ROADMAP queue 1, item 12b).  The
+JAX package's jit cache has no counterpart: the port compiles nothing.
 """
 
 from __future__ import annotations
@@ -27,14 +38,22 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
+from dist_keras_tpu_torch.checkpoint import (
+    CheckpointCorrupt,
+    CheckpointFormatError,
+    apply_template,
+)
 from dist_keras_tpu_torch.comm import backend as comm
 from dist_keras_tpu_torch.observability import events
 from dist_keras_tpu_torch.observability import metrics as obs_metrics
 from dist_keras_tpu_torch.ops.losses import get_loss
 from dist_keras_tpu_torch.ops.optimizers import get_optimizer
 from dist_keras_tpu_torch.parallel.mesh import worker_mesh
+from dist_keras_tpu_torch.resilience import coordination
 from dist_keras_tpu_torch.resilience.guards import normalize_policy
+from dist_keras_tpu_torch.utils import knobs
 from dist_keras_tpu_torch.utils.device import resolve_device
 from dist_keras_tpu_torch.utils.pytree import tree_map, tree_stack
 from dist_keras_tpu_torch.utils.serialization import (
@@ -42,11 +61,15 @@ from dist_keras_tpu_torch.utils.serialization import (
     serialize_model,
 )
 
-# kwargs of the reference's Trainer that wait for checkpoint.py and
-# resilience/ (ROADMAP queue 1, item 19), with their off values
-_UNPORTED = {"checkpoint_dir": None, "checkpoint_every": None,
-             "max_checkpoints": 3, "resume": False,
-             "handle_preemption": False}
+
+def _refuse_multi_host():
+    """``DK_COORD_WORLD`` > 1 asks for workers across hosts."""
+    world = knobs.raw("DK_COORD_WORLD")
+    if world is not None and int(world) > 1:
+        raise NotImplementedError(
+            f"DK_COORD_WORLD={world}: workers across hosts are not ported "
+            "yet (ROADMAP queue 1, item 12b: workers across cards through "
+            "torch.distributed); a trainer runs on one card")
 
 
 class Trainer:
@@ -58,17 +81,7 @@ class Trainer:
                  checkpoint_dir=None, checkpoint_every=None,
                  max_checkpoints=3, resume=False, callbacks=None,
                  nan_policy="raise", handle_preemption=False, device=None):
-        given = {"checkpoint_dir": checkpoint_dir,
-                 "checkpoint_every": checkpoint_every,
-                 "max_checkpoints": max_checkpoints, "resume": resume,
-                 "handle_preemption": handle_preemption}
-        unported = sorted(
-            k for k, v in given.items()
-            if type(v) is not type(_UNPORTED[k]) or v != _UNPORTED[k])
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: checkpoints, resume and preemption "
-                "are not ported yet (ROADMAP queue 1, item 19)")
+        _refuse_multi_host()
         self.device = resolve_device(device)
         self.serialized_model = serialize_model(keras_model)
         self.loss = loss
@@ -84,6 +97,30 @@ class Trainer:
         # device) in; None keeps the columns' own dtypes (uint8 images
         # then cross at 1/4 the f32 volume and the step casts them)
         self.data_dtype = data_dtype
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = (int(checkpoint_every)
+                                 if checkpoint_every else None)
+        if self.checkpoint_every and not self.checkpoint_dir:
+            raise ValueError(
+                "checkpoint_every requires checkpoint_dir (otherwise the "
+                "dispatch would be chunked but nothing ever saved)")
+        if self.checkpoint_dir and self.checkpoint_every is None:
+            self.checkpoint_every = 1
+        self.max_checkpoints = int(max_checkpoints)
+        # resume: False = fresh run; True = continue from the latest
+        # (verified — restore() falls back past a corrupt step) step;
+        # an INT = continue from exactly that step (what the auto-resume
+        # supervisor passes as its resume_step)
+        if isinstance(resume, bool) or resume is None:
+            self.resume = bool(resume)
+        else:
+            self.resume = int(resume)
+        # install SIGTERM/SIGINT handlers around the dispatch loop; on
+        # delivery, checkpoint at the next chunk boundary and raise
+        # resilience.Preempted (exit code 128+signum)
+        self.handle_preemption = bool(handle_preemption)
+        self._checkpointer = None
+        self._last_ckpt_epoch = None  # units of the last save
         self.callbacks = list(callbacks or [])
         # what the loss sentinel does on NaN/Inf: "raise", "skip" (the
         # step keeps the previous params/opt state), "halt", or None
@@ -102,6 +139,16 @@ class Trainer:
                     num_epoch=self.num_epoch, batch_size=self.batch_size)
 
     def record_training_end(self):
+        # drain any in-flight async checkpoint save first (bounded by
+        # the coordination deadline) so a completed train() leaves its
+        # last cadence save promoted — but never raise from here: it
+        # also runs right before `raise Preempted`, and a raise would
+        # replace the typed exit.  The clean path surfaces deferred
+        # background-save errors in ChunkRunner.run's post-record probe.
+        if self._checkpointer is not None:
+            self._checkpointer.wait_until_finished(
+                timeout_s=coordination.default_timeout_s(),
+                raise_errors=False)
         self._t_stop = time.time()
         events.emit("train_end", trainer=type(self).__name__,
                     seconds=self.get_training_time())
@@ -152,6 +199,72 @@ class Trainer:
         for cb in self.callbacks:
             hook = getattr(cb, "on_epoch_end", cb)
             hook(self, epochs_done, logs)
+
+    # ---- checkpoint / resume ----
+    def _checkpointer_or_none(self):
+        if self.checkpoint_dir and self._checkpointer is None:
+            from dist_keras_tpu_torch.checkpoint import Checkpointer
+
+            self._checkpointer = Checkpointer(
+                self.checkpoint_dir, max_to_keep=self.max_checkpoints)
+        return self._checkpointer
+
+    def _maybe_resume(self, incompatible_hint=None):
+        """-> (start units, restored host state | None).
+
+        The restore is verified (a corrupt step is quarantined and the
+        previous one loaded); the RETURNED step is authoritative, so the
+        cadence counter and the dispatch start follow the state
+        actually loaded.  Transient I/O errors, ``CheckpointCorrupt``
+        and ``CheckpointFormatError`` propagate as themselves (the
+        supervisor retries the first two); anything else is re-raised
+        as a ``ValueError`` carrying ``incompatible_hint``."""
+        self._last_ckpt_epoch = None
+        ckptr = self._checkpointer_or_none()
+        # resume=0 is an EXPLICIT step (the supervisor's resume_step can
+        # be the unit-0 preemption save): test identity against False
+        if self.resume is False or ckptr is None:
+            return 0, None
+        explicit = None if self.resume is True else int(self.resume)
+        if explicit is None and ckptr.latest_step() is None:
+            return 0, None
+        try:
+            step, state = ckptr.restore(step=explicit)
+        except (OSError, CheckpointCorrupt, CheckpointFormatError):
+            raise
+        # dklint: ignore[broad-except] re-raised with an actionable hint
+        except Exception as e:
+            if incompatible_hint:
+                raise ValueError(
+                    f"checkpoint restore failed ({type(e).__name__}: {e}); "
+                    f"{incompatible_hint}") from e
+            raise
+        events.emit("resume", step=int(step), requested=explicit,
+                    trainer=type(self).__name__)
+        self._last_ckpt_epoch = int(step)
+        return int(step), state
+
+    def _restored(self, restored, template, step, hint):
+        """The restored host state on ``template``'s structure, dtypes
+        and devices.  The ``rng`` leaf must be a ``torch.Generator``
+        state (uint8): a JAX PRNG key (uint32) means the reference wrote
+        the checkpoint, and its random stream cannot continue here."""
+        rng = restored.get("rng") if isinstance(restored, dict) else None
+        if rng is not None and getattr(rng, "dtype", None) not in (
+                np.uint8, torch.uint8):
+            raise CheckpointFormatError(
+                f"checkpoint step {step} in {self.checkpoint_dir} was "
+                "written by the JAX package: its 'rng' leaf is a JAX PRNG "
+                f"key ({getattr(rng, 'dtype', type(rng))}), not a "
+                "torch.Generator state, and its random stream cannot "
+                "continue in the port.  Carry the weights and optimizer "
+                "state over instead: Checkpointer.restore, then "
+                "utils/bridge.py's params_from_jax and "
+                "opt_state_from_optax, and start a port run from them")
+        try:
+            return apply_template(restored, template)
+        except ValueError as e:
+            raise ValueError(f"{e}; {hint}") from e
 
     # ---- shared plumbing ----
     def _fresh_model(self):
@@ -209,6 +322,7 @@ class DistributedTrainer(Trainer):
                 "workers on the trainer's one device")
         # single-process bring-up: raises on a multi-host environment
         comm.initialize()
+        _refuse_multi_host()
         super().__init__(keras_model, **kw)
         self.num_workers = int(num_workers)
         # master_host/master_port: reference PS kwargs, accepted for parity

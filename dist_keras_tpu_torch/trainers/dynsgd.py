@@ -19,6 +19,14 @@ a masked ``psum`` at every step; here a step where nobody commits runs
 no merge at all, and a step where someone does reads its scale and mask
 rows from the schedule, uploaded once with the data, so nothing in the
 loop reads a value back from the card.
+
+Checkpoints are step-granular (``checkpoint_every_windows`` counts
+windows of ``communication_window`` steps, ``checkpoint_every``
+epochs): the payload is the reference's ``{"center", "pulled",
+"local", "opt_state", "last_seen", "global_count", "rng"}``.  The two
+counters are the schedule's at the saved step (int32, ``(workers,)``
+and ``()``); a resume checks them against the schedule, so a checkpoint
+of another worker count or window is refused.
 """
 
 from __future__ import annotations
@@ -57,6 +65,18 @@ def commit_schedule(total_steps, window, num_workers):
     return commits, staleness, scale.astype(np.float32)
 
 
+def counters_at(commits, t):
+    """-> ``(last_seen, global_count)`` before step ``t``: the commit
+    counters the reference carries, from the schedule's first ``t``
+    rows (int32, ``(workers,)`` and ``()``)."""
+    last_seen = np.zeros(commits.shape[1], np.int32)
+    global_count = 0
+    for row in commits[:t]:
+        global_count += int(row.sum())
+        last_seen = np.where(row, global_count, last_seen).astype(np.int32)
+    return last_seen, np.asarray(global_count, np.int32)
+
+
 def _lead(v, x):
     """A per-worker ``(W,)`` vector shaped to broadcast over ``x``."""
     return v.reshape((-1,) + (1,) * (x.dim() - 1))
@@ -93,6 +113,45 @@ class DynSGD(AsynchronousDistributedTrainer):
         opt_state = self._stack_workers(opt_init(center))
         generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
+        hint = ("if this checkpoint predates step-granular DynSGD "
+                "training state (no 'rng' leaf, step counted epochs not "
+                "steps), restart training or point checkpoint_dir at a "
+                "fresh directory")
+        start_t, restored = self._maybe_resume(hint)
+        if restored is not None:
+            if "rng" not in restored:
+                raise ValueError(
+                    "checkpoint predates step-granular DynSGD training "
+                    "state (no 'rng' leaf; its step counts epochs, not "
+                    "steps) — restart training or point checkpoint_dir "
+                    "at a fresh directory")
+            last_seen, global_count = counters_at(commits, start_t)
+            state = self._restored(
+                restored, {"center": center, "pulled": pulled,
+                           "local": local, "opt_state": opt_state,
+                           "last_seen": last_seen,
+                           "global_count": global_count,
+                           "rng": generator.get_state()}, start_t, hint)
+            if not (np.array_equal(state["last_seen"], last_seen)
+                    and int(state["global_count"]) == int(global_count)):
+                raise ValueError(
+                    f"checkpoint step {start_t}'s DynSGD commit counters "
+                    f"(last_seen {state['last_seen'].tolist()}, "
+                    f"global_count {int(state['global_count'])}) are not "
+                    "this run's schedule's — it was written with another "
+                    "num_workers or communication_window")
+            center, pulled = state["center"], state["pulled"]
+            local, opt_state = state["local"], state["opt_state"]
+            generator.set_state(state["rng"])
+
+        def state_fn():
+            last_seen, global_count = counters_at(commits, done[0])
+            return {"center": center, "pulled": pulled, "local": local,
+                    "opt_state": opt_state, "last_seen": last_seen,
+                    "global_count": global_count,
+                    "rng": generator.get_state()}
+
+        done = [start_t]   # steps dispatched so far (state_fn's step)
 
         def commit(t):
             nonlocal center, pulled, local
@@ -124,12 +183,18 @@ class DynSGD(AsynchronousDistributedTrainer):
                     commit(t)
                     carry = (local, opt_state, generator)
             local, opt_state, _ = carry
+            done[0] = steps_done + T
             return torch.stack(losses, 1)   # (workers, T)
 
+        W = self.communication_window
         history = run_chunked(
-            self, xs, ys, total=total_t, per_epoch=spe,
+            self, xs, ys, start=start_t, total=total_t, per_epoch=spe,
+            cadence=(self.checkpoint_every_windows * W
+                     if self.checkpoint_every_windows
+                     else self.checkpoint_every * spe
+                     if self.checkpoint_every else None),
             samples_per_unit=n * self.batch_size, dispatch=dispatch,
-            sync_ref=lambda: center,
+            sync_ref=lambda: center, state_fn=state_fn,
             carry_leaves=(center, pulled, local, opt_state, scale_d,
                           commits_d),
             worker_axis=True)

@@ -16,12 +16,19 @@ the trainer's device:
   reference's PRNG chain is.
 
 ``data_dtype=None`` ships the dataset's own dtype (uint8 images) and
-casts on the device inside the step.  Streaming (``stream_chunk_steps``,
-``max_resident_bytes``) is not ported yet and raises.
+casts on the device inside the step.
+
+Checkpoints are step-granular, as the reference's: the payload is
+``{"params", "opt_state", "rng", "t_units"}`` saved every
+``checkpoint_every`` epochs (in steps), ``rng`` being the generator's
+state, so a resumed run continues the very random stream.  Streaming
+(``stream_chunk_steps``, ``max_resident_bytes``) is not ported yet and
+raises.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dist_keras_tpu_torch.trainers.base import Trainer
@@ -51,6 +58,28 @@ class SingleTrainer(Trainer):
         opt_state = opt_init(params)
         generator = torch.Generator(device=dev).manual_seed(self.seed)
 
+        # t_units marks the checkpoint's step counter as STEP-granular
+        # (the reference's older format counted epochs)
+        hint = ("if this checkpoint predates step-granular SingleTrainer "
+                "state (no 't_units' leaf, step counted epochs not "
+                "steps), restart training or point checkpoint_dir at a "
+                "fresh directory")
+        start_t, restored = self._maybe_resume(hint)
+        if restored is not None:
+            if "t_units" not in restored:
+                raise ValueError(
+                    "checkpoint predates step-granular SingleTrainer "
+                    "state (no 't_units' leaf; its step counts epochs, "
+                    "not steps) — restart training or point "
+                    "checkpoint_dir at a fresh directory")
+            state = self._restored(
+                restored, {"params": params, "opt_state": opt_state,
+                           "rng": generator.get_state(),
+                           "t_units": np.zeros((), np.int32)},
+                start_t, hint)
+            params, opt_state = state["params"], state["opt_state"]
+            generator.set_state(state["rng"])
+
         def dispatch(i, T, steps_done, data):
             nonlocal params, opt_state
             xs, ys = data
@@ -64,7 +93,14 @@ class SingleTrainer(Trainer):
             return losses
 
         history = run_chunked(
-            self, xb, yb, total=self.num_epoch * spb, per_epoch=spb,
+            self, xb, yb, start=start_t, total=self.num_epoch * spb,
+            per_epoch=spb,
+            cadence=(self.checkpoint_every * spb
+                     if self.checkpoint_every else None),
             samples_per_unit=self.batch_size, dispatch=dispatch,
-            sync_ref=lambda: params, carry_leaves=(params, opt_state))
+            sync_ref=lambda: params,
+            state_fn=lambda: {"params": params, "opt_state": opt_state,
+                              "rng": generator.get_state(),
+                              "t_units": np.zeros((), np.int32)},
+            carry_leaves=(params, opt_state))
         return self._finalize(params, history)

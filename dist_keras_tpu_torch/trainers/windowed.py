@@ -36,9 +36,15 @@ feeds every worker's dropout (each worker draws its own mask through
 cannot reproduce the JAX package's ``fold_in(fold_in(key, epoch),
 worker)`` threefry streams, only their distribution.
 
-Not ported yet, each raising: ``checkpoint_every_windows`` (ROADMAP queue
-1, item 19) and ``stream_chunk_windows`` / ``max_resident_bytes`` (item
-20).
+Checkpoints: ``checkpoint_every_windows`` cuts the run at window
+boundaries, mid-epoch (``checkpoint_every`` counts epochs); the payload
+is the reference's ``{"center", "local", "opt_state", "rng"}`` with the
+generator's state as ``rng``, plus the ``pending`` commit under
+``comm_overlap`` — and a ``pending`` checkpoint refuses to resume with
+the overlap off, as in the reference.
+
+Not ported yet, each raising: ``stream_chunk_windows`` /
+``max_resident_bytes`` (ROADMAP queue 1, item 20).
 """
 
 from __future__ import annotations
@@ -82,13 +88,17 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
                  parallelism_factor=1, checkpoint_every_windows=None,
                  stream_chunk_windows=None, max_resident_bytes=None,
                  comm_overlap=None, **kw):
-        if checkpoint_every_windows is not None:
-            raise NotImplementedError(
-                "checkpoint_every_windows: checkpoints, resume and "
-                "preemption are not ported yet (ROADMAP queue 1, item 19)")
         init_streaming(self, stream_chunk_windows, max_resident_bytes)
         super().__init__(keras_model, num_workers=num_workers, **kw)
         self.communication_window = int(communication_window)
+        # window-granular cadence: a preemption then loses at most this
+        # many windows, not a whole epoch
+        self.checkpoint_every_windows = (
+            int(checkpoint_every_windows) if checkpoint_every_windows
+            else None)
+        if self.checkpoint_every_windows and not self.checkpoint_dir:
+            raise ValueError(
+                "checkpoint_every_windows requires checkpoint_dir")
         self.parallelism_factor = int(parallelism_factor)
         # overlapped window merges: None defers to the DK_COMM_OVERLAP
         # knob at train() time, an explicit bool pins it per trainer
@@ -129,6 +139,15 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             f"{type(self).__name__} defines no commit/absorb overlap "
             "decomposition — DK_COMM_OVERLAP needs both (or run this "
             "trainer with the blocked merge: comm_overlap=False)")
+
+    def _ckpt_cadence_windows(self, wpe):
+        """Save cadence in WINDOW units — the single source both the
+        chunk plan and the save decision use."""
+        if self.checkpoint_every_windows:
+            return self.checkpoint_every_windows
+        if self.checkpoint_every:
+            return self.checkpoint_every * wpe
+        return None
 
     # --- shared training loop ------------------------------------------
     def train(self, dataset, shuffle=False):
@@ -173,6 +192,45 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         pending = tree_zeros_like(center) if overlap else None
         generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
+        hint = ("if this checkpoint predates window-granular training "
+                "state (no 'rng' leaf, step counted epochs not windows), "
+                "restart training or point checkpoint_dir at a fresh "
+                "directory; if it carries a 'pending' leaf the run was "
+                "overlapped — resume with DK_COMM_OVERLAP=1")
+        start_w, restored = self._maybe_resume(hint)
+        if restored is not None:
+            if "rng" not in restored:
+                raise ValueError(
+                    "checkpoint predates window-granular training state "
+                    "(no 'rng' leaf; its step counts epochs, not "
+                    "windows) — restart training or point "
+                    "checkpoint_dir at a fresh directory")
+            if "pending" in restored and not overlap:
+                raise ValueError(
+                    "checkpoint carries an in-flight overlapped window "
+                    "commit (a 'pending' leaf: it was written under "
+                    "DK_COMM_OVERLAP=1) — resume with DK_COMM_OVERLAP=1 "
+                    "so the commit lands, or restart from a fresh "
+                    "checkpoint_dir")
+            template = {"center": center, "local": local,
+                        "opt_state": opt_state,
+                        "rng": generator.get_state()}
+            if overlap and "pending" in restored:
+                template["pending"] = pending
+            state = self._restored(restored, template, start_w, hint)
+            center, local = state["center"], state["local"]
+            opt_state = state["opt_state"]
+            generator.set_state(state["rng"])
+            # a blocked-era checkpoint resumes into an overlapped run
+            # with nothing in flight: a zero commit at the first boundary
+            pending = state.get("pending", pending)
+
+        def state_fn():
+            state = {"center": center, "local": local,
+                     "opt_state": opt_state, "rng": generator.get_state()}
+            if overlap:
+                state["pending"] = pending
+            return state
 
         def window(xw, yw):
             nonlocal center, pending, local, opt_state
@@ -204,9 +262,10 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             return torch.stack(losses, 1).reshape(n, K, W)
 
         history = run_chunked(
-            self, xs, ys, total=total_w, per_epoch=wpe,
+            self, xs, ys, start=start_w, total=total_w, per_epoch=wpe,
+            cadence=self._ckpt_cadence_windows(wpe),
             samples_per_unit=n * W * self.batch_size, dispatch=dispatch,
-            sync_ref=lambda: center,
+            sync_ref=lambda: center, state_fn=state_fn,
             carry_leaves=(center, pending, local, opt_state),
             worker_axis=True)
         if overlap:

@@ -156,8 +156,8 @@ def test_dynsgd_schedule_is_the_references(steps, window, n):
 
 
 @pytest.mark.parametrize("kw", [
-    {"stream_chunk_steps": 2}, {"max_resident_bytes": 1 << 20},
-    {"checkpoint_every": 1}], ids=lambda kw: next(iter(kw)))
+    {"stream_chunk_steps": 2}, {"max_resident_bytes": 1 << 20}],
+    ids=lambda kw: next(iter(kw)))
 def test_unported_kwargs_raise(kw):
     _, tm = _models()
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):

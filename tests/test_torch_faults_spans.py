@@ -85,10 +85,11 @@ def test_blank_entry_parses_to_nothing(pkg):
 
 
 @pytest.mark.parametrize("exc", ["PeerLost", "BarrierTimeout"])
-def test_coordination_exceptions_are_refused_naming_item_15(exc):
-    with pytest.raises(ValueError, match="item 15"):
-        t_faults._parse_env_entry(f"coord.barrier@0:exc={exc}")
-    # the reference resolves them through resilience/coordination
+def test_coordination_exceptions_resolve_as_the_reference(exc):
+    from dist_keras_tpu_torch.resilience import coordination
+
+    spec = t_faults._parse_env_entry(f"coord.barrier@0:exc={exc}")
+    assert spec.exc is getattr(coordination, exc)
     assert jax_faults._parse_env_entry(
         f"coord.barrier@0:exc={exc}").exc.__name__ == exc
 

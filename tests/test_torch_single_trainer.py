@@ -161,10 +161,7 @@ def test_nan_policy_halt_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    {"checkpoint_dir": "ck"}, {"checkpoint_every": 2},
-    {"max_checkpoints": 5}, {"resume": True}, {"resume": 0},
-    {"handle_preemption": True}, {"stream_chunk_steps": 2},
-    {"max_resident_bytes": 1 << 20}],
+    {"stream_chunk_steps": 2}, {"max_resident_bytes": 1 << 20}],
     ids=lambda kw: next(iter(kw)))
 def test_unported_kwargs_raise(kw):
     _, tm = _models()
@@ -190,3 +187,18 @@ def test_chunk_plan_matches_jax():
             assert tc.chunk_plan(start, total, per_epoch,
                                  epoch_bounds=bounds) == jc.chunk_plan(
                 start, total, per_epoch, epoch_bounds=bounds)
+
+
+def test_chunk_plan_cadence_matches_jax():
+    from dist_keras_tpu.trainers import chunking as jc
+    from dist_keras_tpu_torch.trainers import chunking as tc
+
+    for start, total, per_epoch in [(0, 18, 6), (4, 18, 6), (0, 7, 7),
+                                    (9, 9, 3), (2, 23, 5), (7, 40, 4)]:
+        for bounds in (False, True):
+            for cadence in (None, 1, 3, 5):
+                assert tc.chunk_plan(
+                    start, total, per_epoch, epoch_bounds=bounds,
+                    cadence=cadence) == jc.chunk_plan(
+                    start, total, per_epoch, epoch_bounds=bounds,
+                    cadence=cadence)

@@ -42,6 +42,8 @@ _IMPORTS_JAX_PACKAGE = re.compile(
     r"^\s*(from|import)\s+dist_keras_tpu(\.|\s|$)", re.M)
 _IMPORTS_JAX = re.compile(r"^\s*(from|import)\s+(jax|jaxlib)(\.|\s|$)",
                           re.M)
+_IMPORTS_JAX_LIBS = re.compile(
+    r"^\s*(from|import)\s+(optax|orbax|ml_dtypes|flax|chex)(\.|\s|$)", re.M)
 
 
 def _sources():
@@ -59,12 +61,16 @@ def test_import_leaves_jax_out_of_sys_modules():
         "    p.__path__, prefix='dist_keras_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax'\n"
-        "             or k.startswith(('jax.', 'dist_keras_tpu.')))\n"
+        "bad = sorted(k for k in sys.modules if k in ('jax', 'optax',\n"
+        "             'orbax', 'ml_dtypes') or k.startswith(('jax.',\n"
+        "             'optax.', 'orbax.', 'ml_dtypes.', 'dist_keras_tpu.')))\n"
         "assert len(mods) >= 45, mods\n"
         "for m in ('parallel.transformer_tp', 'ops.optimizers',\n"
         "          'trainers.single', 'models.model', 'trainers.step',\n"
-        "          'trainers.chunking', 'data.predictors', 'ops.losses'):\n"
+        "          'trainers.chunking', 'data.predictors', 'ops.losses',\n"
+        "          'checkpoint', 'resilience.retry', 'resilience.store',\n"
+        "          'resilience.coordination', 'resilience.elastic',\n"
+        "          'resilience.supervisor'):\n"
         "    assert 'dist_keras_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "assert 'dist_keras_tpu' not in sys.modules\n"
@@ -104,6 +110,47 @@ def test_copied_modules_work_with_jax_blocked(tmp_path):
     assert '"kind": "fused_bwd_rejected"' in line
 
 
+def test_a_reference_checkpoint_restores_with_jax_and_optax_blocked(
+        tmp_path, monkeypatch):
+    """A step the JAX package wrote (an optax adam state, chunked leaves)
+    restores, verifies and converts in an interpreter where jax, optax,
+    orbax, ml_dtypes and the JAX package cannot be imported — as on the
+    machine with the card."""
+    import jax
+    import jax.numpy as jnp
+
+    from dist_keras_tpu.checkpoint import Checkpointer
+    from dist_keras_tpu.ops.optimizers import get_optimizer
+
+    params = [{"kernel": np.arange(60, dtype=np.float32).reshape(6, 10),
+               "bias": np.ones(10, np.float32)}]
+    opt = get_optimizer("adam").init(jax.tree.map(jnp.asarray, params))
+    monkeypatch.setenv("DK_CKPT_CHUNK_MB", "0.0001")
+    Checkpointer(str(tmp_path)).save(3, {
+        "params": params, "opt_state": jax.tree.map(np.asarray, opt)}).wait()
+    code = (
+        "import importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'optax', 'orbax',\n"
+        "                                  'ml_dtypes', 'dist_keras_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from dist_keras_tpu_torch.checkpoint import Checkpointer\n"
+        "from dist_keras_tpu_torch.utils.bridge import opt_state_from_optax\n"
+        f"ck = Checkpointer({str(tmp_path)!r})\n"
+        "assert ck.verify(3) == 'ok'\n"
+        "step, st = ck.restore()\n"
+        "s = opt_state_from_optax('adam', st['opt_state'])\n"
+        "assert sorted(s) == ['count', 'mu', 'nu'], s\n"
+        "assert float(st['params'][0]['kernel'][5, 9]) == 59.0\n"
+        "print('ok', step)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok 3"
+
+
 def test_import_builds_nothing_and_touches_no_card():
     code = ("import torch\n"
             "import dist_keras_tpu_torch.serving\n"
@@ -117,8 +164,9 @@ def test_import_builds_nothing_and_touches_no_card():
     assert out.returncode == 0, out.stderr
 
 
-@pytest.mark.parametrize("pattern", [_IMPORTS_JAX_PACKAGE, _IMPORTS_JAX],
-                         ids=["dist_keras_tpu", "jax"])
+@pytest.mark.parametrize("pattern", [_IMPORTS_JAX_PACKAGE, _IMPORTS_JAX,
+                                     _IMPORTS_JAX_LIBS],
+                         ids=["dist_keras_tpu", "jax", "optax-orbax"])
 def test_no_port_file_imports_jax_or_the_jax_package(pattern):
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in _sources()
