@@ -121,7 +121,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``checkpoint_every_windows`` (3 saves per run).  The hand-written
    kernels' counters, zeroed before it, stay 0.
 
-``python3 chip_smoke.py --phase12`` runs only phases 1 and 12.
+13. parameter-server mode: a ``PSServer`` process and
+   ``PSWorkerTrainer`` processes on the card (each started fresh, never
+   forked).  13a is ``gates.py``'s PS gate: on the blobs MLP (sgd 0.05,
+   window 4) one of two workers is SIGKILLed mid-run and a replacement
+   joins, the survivors' models reach the DynSGD floor 0.80, SIGTERM
+   drains the server (exit 143) to a final checkpoint that verifies and
+   restores to the sha it printed, ``report.summarize`` attributes the
+   lapse, the joins and per-worker commits; then 4 chaos seeds over
+   ``ps.pull`` / ``ps.commit`` / ``ps.join`` each end completed or typed
+   with a verified step.  13b: ``mnist_mlp()`` at full width, one server
+   and 4 worker processes sharing the card (window 12, adam 1e-3, batch
+   64, 6 epochs of the phase-9 gate set, each shuffling with its own
+   seed): the final center's held-out accuracy >= 0.90, uncompressed and
+   with ``DK_PS_COMPRESS=int8`` (wire ratio >= 2); samples/s summed over
+   the workers from the first join to the last commit, commits/s, the
+   staleness histogram, one window's wall split (steps, delta and copy,
+   encode, commit, merge) and each worker's device idle share over one
+   window cycle; one worker on the card against one on the CPU, 3
+   windows, within 1e-4.  The hand-written kernels' counters, zeroed
+   before it, stay 0.
+
+``python3 chip_smoke.py --phase12`` runs only phases 1 and 12;
+``--phase13`` only phases 1 and 13.
 ``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
 K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
 two trees' K5 can be timed on the same inputs in one run.
@@ -1828,14 +1850,15 @@ def no_dropout_cnn(seed):
     return m
 
 
-def accuracy(model, test, col):
+def accuracy(model, test, col, device=None):
     from dist_keras_tpu_torch.data import (
         AccuracyEvaluator,
         LabelIndexTransformer,
         ModelPredictor,
     )
 
-    pred = ModelPredictor(model, features_col=col).predict(test)
+    pred = ModelPredictor(model, features_col=col,
+                          device=device).predict(test)
     pred = LabelIndexTransformer(input_col="prediction").transform(pred)
     return AccuracyEvaluator(prediction_col="prediction_index",
                              label_col="label").evaluate(pred)
@@ -3182,6 +3205,654 @@ def checkpoints_and_resume(fa, fu, da, gpu):
     print(f"  phase 12 wall {time.perf_counter() - t0:.1f} s on {gpu}")
 
 
+# -- phase 13: parameter-server mode (a server process, worker processes on
+# the card) ------------------------------------------------------------------
+PS_ACC_FLOOR = 0.80        # gates.py's _PS_ACC_FLOOR, the pinned DynSGD floor
+PS_BLOBS = dict(hidden=(16,), input_dim=8, num_classes=2)
+PS_CHAOS_SEEDS = 4
+PS_TIMEOUT_S = 180         # the longest any one process of the phase may run
+PS_WORKERS, PS_WINDOW = 4, 12
+PS_PHASES = ("ps_steps", "ps_delta", "ps_encode", "ps_commit", "ps_merge")
+
+
+def tree_sha(tree):
+    """The sha256 of a numpy tree (keys sorted, paths and bytes): the
+    drained server prints it, the checkpoint must restore to it."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (str(k),))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (str(i),))
+        else:
+            h.update("/".join(path).encode())
+            h.update(np.asarray(t).tobytes())
+
+    walk(tree, ())
+    return h.hexdigest()
+
+
+def blobs_columns():
+    """The PS gate's set (``gates.py``): 512 rows of two gaussian blobs in
+    8 dimensions, one-hot labels."""
+    rng = np.random.default_rng(0)
+    n, d = 512, 8
+    y = rng.integers(0, 2, size=n)
+    centers = np.stack([np.full(d, -1.0), np.full(d, 1.0)])
+    x = (centers[y] + rng.normal(size=(n, d))).astype(np.float32)
+    return {"features": x, "label": y,
+            "label_encoded": np.eye(2, dtype=np.float32)[y]}
+
+
+def ps_role(cfg):
+    """A process of phase 13, started by :class:`PSProcs`: the server
+    (``"server"``) or one worker (``"worker"``).  Its launch counters of
+    K1-K5, zeroed before it starts, are printed as ``PS_KERNELS {json}``
+    however it ends (a SIGKILL aside)."""
+    sys.path.insert(0, str(ROOT))
+    from dist_keras_tpu_torch.ops import decode_attention as da
+    from dist_keras_tpu_torch.ops import flash_attention as fa
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
+
+    zero_kernel_counts(fa, fu, da)
+    try:
+        if cfg["role"] == "server":
+            return ps_server_role(cfg)
+        return ps_worker_role(cfg, lambda: kernel_counts(fa, fu, da))
+    finally:
+        print("PS_KERNELS " + json.dumps(kernel_counts(fa, fu, da)),
+              flush=True)
+
+
+def ps_server_role(cfg):
+    """The center-variable server: binds a free port and publishes
+    ``host:port`` atomically; SIGTERM drains it through the preemption
+    path (final checkpoint, waited), it prints ``PS_FINAL clock sha`` and
+    exits 143."""
+    from dist_keras_tpu_torch.models import mnist_mlp
+    from dist_keras_tpu_torch.ps import PSServer
+    from dist_keras_tpu_torch.resilience.preemption import Preempted
+
+    work = cfg["work"]
+    srv = PSServer(params=mnist_mlp(seed=0, **cfg["arch"]).params, port=0,
+                   window=cfg["window"], ckpt_dir=os.path.join(work, "ck"),
+                   ckpt_every_commits=cfg["ckpt_every"])
+    srv.install_signal_drain(poll_s=0.02)
+    host, port = srv.address
+    tmp = os.path.join(work, ".addr.tmp")
+    with open(tmp, "w") as f:
+        f.write(f"{host}:{port}")
+    os.replace(tmp, os.path.join(work, "addr"))
+    try:
+        srv.run_forever()
+    except Preempted:
+        clock, center = srv.center.state()
+        print("PS_FINAL", clock, tree_sha(center), flush=True)
+        raise
+    return 0
+
+
+def wait_address(run, server=None, log=""):
+    """The ``host:port`` the server of ``run`` published (it binds a free
+    port), waited for up to 90 s; a dead ``server`` process fails it."""
+    path = Path(run) / "addr"
+    t0 = time.perf_counter()
+    while not path.exists():
+        require(server is None or server.poll() is None,
+                f"the server of {run} died: {log}")
+        require(time.perf_counter() - t0 < 90,
+                f"the server of {run} published no address in 90 s")
+        time.sleep(0.01)
+    return path.read_text().strip()
+
+
+def ps_worker_role(cfg, counts):
+    """One ``PSWorkerTrainer`` on ``cfg["device"]``: trains, then prints
+    ``PS_WORKER_DONE {json}`` (its commits, bytes, samples, the
+    ``perf.phase.ps_*`` window split, accuracy on its own rows when
+    asked; with ``profile``, the device time of its whole run under
+    ``torch.profiler``); a typed failure prints ``TYPED`` and exits 2.
+    ``counts()`` reads its K1-K5 launch counters."""
+    import contextlib
+
+    from dist_keras_tpu_torch.data import Dataset
+    from dist_keras_tpu_torch.models import mnist_mlp
+    from dist_keras_tpu_torch.observability import metrics
+    from dist_keras_tpu_torch.ps import PSError, PSWorkerTrainer
+    from dist_keras_tpu_torch.resilience.faults import FaultInjected
+
+    ds = Dataset(blobs_columns() if cfg["data"] == "blobs"
+                 else dict(np.load(cfg["data"])))
+    addr = wait_address(cfg["run"])
+    t = PSWorkerTrainer(
+        mnist_mlp(seed=0, **cfg["arch"]), server_addr=addr,
+        communication_window=cfg["window"],
+        worker_optimizer=cfg["opt"],
+        optimizer_kwargs={"learning_rate": cfg["lr"]},
+        batch_size=cfg["batch"], num_epoch=cfg["epochs"],
+        features_col=cfg["x"], label_col=cfg["y"], seed=cfg["seed"],
+        device=cfg["device"])
+    gate = cfg.get("gate")
+    if gate:
+        # CUDA up and the data loaded: wait until every worker is, so the
+        # workers train side by side from their first join
+        import torch
+
+        torch.zeros(1, device=t.device).add_(1)
+        Path(f"{gate}.{cfg['rank']}").touch()
+        t0 = time.perf_counter()
+        while not os.path.exists(gate):
+            require(time.perf_counter() - t0 < 120, "no start signal")
+            time.sleep(0.005)
+    ready = cfg.get("ready")
+    if ready:
+        def pacing(trainer, epoch, logs):
+            # publish the lease id once committed and the launch counters
+            # at every epoch's end, and stretch the run so the parent's
+            # SIGKILL lands mid-training
+            for path, text in ((ready + ".kernels", json.dumps(counts())),
+                               (ready, str(trainer.worker_id))):
+                with open(path + ".tmp", "w") as f:
+                    f.write(text)
+                os.replace(path + ".tmp", path)
+            time.sleep(0.05)
+
+        t.callbacks.append(pacing)
+    prof = None
+    if cfg.get("profile"):
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+    try:
+        with prof or contextlib.nullcontext():
+            model = t.train(ds, shuffle=cfg["shuffle"])
+    except (FaultInjected, PSError, OSError) as e:
+        print(f"TYPED {type(e).__name__}: {e}", flush=True)
+        return 2
+    hists = metrics.snapshot()["histograms"]
+    out = {"rank": cfg["rank"], "wid": t.worker_id,
+           "device": str(t.device), "commits": len(t.commit_log),
+           "staleness": [s for _, s, _ in t.commit_log],
+           "stale_rejections": t.stale_rejections,
+           "bytes": t.commit_bytes,
+           "samples": len(t.get_history()) * cfg["batch"],
+           "loss_head": float(np.mean(t.get_history()[:8])),
+           "loss_tail": float(np.mean(t.get_history()[-8:])),
+           "phases_ms": {p: hists[f"perf.phase.{p}"]["total"] * 1e3
+                         / hists[f"perf.phase.{p}"]["count"]
+                         for p in PS_PHASES},
+           "windows_ms": sum(hists[f"perf.phase.{p}"]["total"]
+                             for p in PS_PHASES) * 1e3,
+           "commit_ms": {q: hists["perf.phase.ps_commit"][q] * 1e3
+                         for q in ("p50", "p95", "max")}}
+    if prof is not None:
+        from torch.autograd import DeviceType
+
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        out["busy_ms"] = sum(e.self_device_time_total for e in ops) / 1e3
+        out["ops"] = sum(e.count for e in ops)
+    if cfg.get("eval"):
+        out["acc"] = accuracy(model, ds, cfg["x"], device=cfg["device"])
+    print("PS_WORKER_DONE " + json.dumps(out), flush=True)
+    return 0
+
+
+class PSProcs:
+    """Phase 13's processes, each a fresh ``python3 chip_smoke.py
+    --ps-role`` (never a fork of this process, which has started CUDA),
+    its output in a file under ``work``; :meth:`close` kills any still
+    running."""
+
+    def __init__(self, work):
+        self.work = Path(work)
+        self.procs = []
+        self.kernels = {}      # K1-K5 launches summed over the processes
+        self.counted = []      # the labels whose launches are in it
+        self.env = {k: v for k, v in os.environ.items()
+                    if not k.startswith(("DK_COORD", "DK_FAULTS", "DK_OBS",
+                                         "DK_CKPT", "DK_ALERT", "DK_PS"))}
+
+    def spawn(self, label, cfg, **env):
+        log = open(self.work / f"{label}.log", "w")
+        p = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ps-role",
+             json.dumps(cfg)], stdout=log, stderr=subprocess.STDOUT,
+            env={**self.env, **env}, cwd=str(ROOT))
+        log.close()
+        p.label = label
+        self.procs.append(p)
+        return p
+
+    def output(self, p):
+        return (self.work / f"{p.label}.log").read_text()
+
+    def finish(self, p):
+        try:
+            p.wait(timeout=PS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            raise SmokeFailure(f"{p.label}: HANG (killed at {PS_TIMEOUT_S} "
+                               f"s): {self.output(p)[-400:]}")
+        out = self.output(p)
+        m = re.search(r"^PS_KERNELS (.*)$", out, re.M)
+        require(m, f"{p.label}: printed no launch counters: {out[-400:]}")
+        self.add_kernels(p.label, json.loads(m.group(1)))
+        return out
+
+    def add_kernels(self, label, counts):
+        for k, n in counts.items():
+            self.kernels[k] = self.kernels.get(k, 0) + n
+        self.counted.append(label)
+
+    def server(self, run, arch, window, ckpt_every, **env):
+        os.makedirs(run, exist_ok=True)
+        return self.spawn(f"server_{Path(run).name}", {
+            "role": "server", "work": str(run), "arch": arch,
+            "window": window, "ckpt_every": ckpt_every},
+            DK_COORD_RANK="0", **env)
+
+    def wait_files(self, paths, procs):
+        """Waits until every one of ``paths`` exists (the workers of
+        ``procs`` waiting at their gates) — fails if one of ``procs``
+        died, or after 120 s."""
+        t0 = time.perf_counter()
+        while not all(os.path.exists(f) for f in paths):
+            require(all(p.poll() is None for p in procs)
+                    and time.perf_counter() - t0 < 120,
+                    "a worker died or hung before training: " + "; ".join(
+                        self.output(p)[-300:] for p in procs))
+            time.sleep(0.01)
+
+    def stop(self, server):
+        """SIGTERM -> the drain: exit 143 and -> {"clock", "sha"}."""
+        import signal
+
+        server.send_signal(signal.SIGTERM)
+        out = self.finish(server)
+        require(server.returncode == 143,
+                f"{server.label} exited {server.returncode}, wanted 143 "
+                f"(SIGTERM drain): {out[-400:]}")
+        m = re.search(r"^PS_FINAL (\d+) ([0-9a-f]{64})$", out, re.M)
+        require(m, f"{server.label}: no PS_FINAL line: {out[-400:]}")
+        return {"clock": int(m.group(1)), "sha": m.group(2)}
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def worker_result(procs, p):
+    out = procs.finish(p)
+    m = re.search(r"^PS_WORKER_DONE (.*)$", out, re.M)
+    require(p.returncode == 0 and m,
+            f"{p.label}: rc={p.returncode}: {out.strip()[-400:]}")
+    return json.loads(m.group(1))
+
+
+def ps_check(run, final, label, obs_dir=None, killed_wid=None, min_joins=0):
+    """The drained server's latest promoted step is its final clock,
+    verifies ``ok`` and restores bit-equal to the sha it printed; with
+    ``obs_dir`` the report attributes the killed worker's lapse, the
+    joins and per-worker commits.  -> the restored center."""
+    from dist_keras_tpu_torch.checkpoint import Checkpointer
+    from dist_keras_tpu_torch.observability import report
+
+    ck = Checkpointer(os.path.join(run, "ck"), rank=0, world=1)
+    latest = ck.latest_step()
+    require(latest == final["clock"],
+            f"{label}: latest promoted step {latest} != drained clock "
+            f"{final['clock']}")
+    require(ck.verify(latest) == "ok", f"{label}: step {latest} did not "
+                                       f"verify ok")
+    step, state = ck.restore(step=latest)
+    require(step == latest and int(np.asarray(state["clock"])) == latest,
+            f"{label}: restore({latest}) gave step {step}")
+    sha = tree_sha(state["center"])
+    require(sha == final["sha"], f"{label}: restored center sha {sha[:12]} "
+                                 f"!= drained {final['sha'][:12]}")
+    if obs_dir is not None:
+        s = report.summarize(report.read_events(obs_dir))["ps"]
+        lapsed = [lp["wid"] for lp in s["lapses"]]
+        require(killed_wid is None or killed_wid in lapsed,
+                f"{label}: killed worker {killed_wid} not attributed in "
+                f"lapses {lapsed}")
+        require(len(s["joins"]) >= min_joins,
+                f"{label}: {len(s['joins'])} joins attributed, wanted "
+                f"{min_joins}")
+        require(sum(s["commits_by_worker"].values()) >= 1,
+                f"{label}: no per-worker commits attributed")
+    return state["center"]
+
+
+def ps_gate(procs, work, gpu, device):
+    """13a: ``gates.py``'s ``run_ps_gate`` with the workers on the card."""
+    run = os.path.join(work, "main")
+    obs = os.path.join(run, "obs")
+    os.makedirs(obs, exist_ok=True)
+    t0 = time.perf_counter()
+    server = procs.server(run, PS_BLOBS, 4, 4, DK_OBS_DIR=obs,
+                          DK_PS_LEASE_S="1.0")
+    common = {"role": "worker", "run": run, "data": "blobs",
+              "arch": PS_BLOBS, "window": 4, "opt": "sgd", "lr": 0.05,
+              "batch": 16, "x": "features", "y": "label_encoded",
+              "device": device, "shuffle": False, "eval": True}
+
+    def worker(rank, epochs, seed):
+        return procs.spawn(f"gate_worker_{rank}", {
+            **common, "rank": rank, "epochs": epochs, "seed": seed,
+            "ready": os.path.join(run, f"ready_{rank}")},
+            DK_OBS_DIR=obs, DK_COORD_RANK=str(rank))
+
+    w1, w2 = worker(1, 8, 1), worker(2, 8, 2)
+    ready = Path(run) / "ready_2"
+    while not ready.exists():
+        require(w2.poll() is None and time.perf_counter() - t0 < 120,
+                f"worker 2 never became ready to kill: "
+                f"{procs.output(w2)[-400:]}")
+        time.sleep(0.02)
+    killed_wid = ready.read_text().strip()
+    w2.kill()
+    w2.wait()
+    # the killed worker's launches up to its last epoch's end
+    procs.add_kernels(w2.label, json.loads(
+        Path(run, "ready_2.kernels").read_text()))
+    w3 = worker(3, 4, 3)
+    done = [worker_result(procs, w) for w in (w1, w3)]
+    for r in done:
+        require(r["device"].startswith(device),
+                f"worker {r['rank']} trained on {r['device']}")
+        require(r["acc"] >= PS_ACC_FLOOR,
+                f"worker {r['rank']}: accuracy {r['acc']} below the pinned "
+                f"DynSGD floor {PS_ACC_FLOOR}")
+    time.sleep(2.5)   # the killed worker's lease (1 s) lapses, the reaper logs it
+    final = procs.stop(server)
+    ps_check(run, final, "13a", obs_dir=obs, killed_wid=killed_wid,
+             min_joins=3)
+    print(f"  13a kill and rejoin: worker 2 ({killed_wid}) SIGKILLed after "
+          f"its first epoch, worker 3 joined at a later clock; accuracies "
+          + ", ".join(f"worker {r['rank']} {r['acc']:.4f} ({r['commits']} "
+                      f"commits, staleness max {max(r['staleness'])})"
+                      for r in done)
+          + f" (floor {PS_ACC_FLOOR}); SIGTERM -> 143, final step "
+          f"{final['clock']} verified and restored to sha "
+          f"{final['sha'][:12]}; the lapse, 3+ joins and per-worker commits "
+          f"attributed by report.summarize; "
+          f"{time.perf_counter() - t0:.1f} s on {gpu}")
+
+    # the chaos sweep, the seeds side by side: every run ends completed or
+    # typed with a verified promoted step, none hangs
+    t0 = time.perf_counter()
+    runs = [os.path.join(work, f"chaos_{seed}")
+            for seed in range(PS_CHAOS_SEEDS)]
+    servers = [procs.server(r, PS_BLOBS, 4, 4) for r in runs]
+    workers = [procs.spawn(f"chaos_worker_{seed}", {
+        **common, "run": runs[seed], "rank": 1, "epochs": 2,
+        "seed": seed, "eval": False}, DK_COORD_RANK="1",
+        DK_FAULTS_SEED=str(7000 + seed),
+        DK_FAULTS_POINTS="ps.pull,ps.commit,ps.join", DK_FAULTS_RATE="1.0")
+        for seed in range(PS_CHAOS_SEEDS)]
+    verdicts = []
+    for seed, (w, s, r) in enumerate(zip(workers, servers, runs)):
+        out = procs.finish(w)
+        require(w.returncode in (0, 2), f"chaos seed {seed}: worker died "
+                                        f"UNTYPED (rc={w.returncode}): "
+                                        f"{out[-400:]}")
+        typed = re.search(r"^(TYPED \w+)", out, re.M)
+        require(typed if w.returncode == 2 else "PS_WORKER_DONE" in out,
+                f"chaos seed {seed}: exited {w.returncode} neither typed "
+                f"nor completed: {out[-400:]}")
+        final = procs.stop(s)
+        ps_check(r, final, f"chaos seed {seed}")
+        verdicts.append("completed" if w.returncode == 0
+                        else typed.group(1))
+        verdicts[-1] += f" (promoted step {final['clock']} verified)"
+    print(f"  13a chaos sweep, {PS_CHAOS_SEEDS} seeds over ps.pull, "
+          f"ps.commit, ps.join at DK_FAULTS_RATE=1.0: "
+          + "; ".join(f"seed {i}: {v}" for i, v in enumerate(verdicts))
+          + f"; none hung; {time.perf_counter() - t0:.1f} s on {gpu}")
+
+
+def ps_mnist_spawn(procs, work, data, device, compress=None,
+                   profile=False):
+    """13b's processes: one server and PS_WORKERS workers sharing the
+    card, ``mnist_mlp()`` at full width, window 12, adam 1e-3, batch 64,
+    6 epochs of the phase-9 gate set, each worker shuffling with its own
+    seed; with ``profile``, one epoch with each worker's whole run under
+    ``torch.profiler``.  The workers wait at the run's gate
+    (:func:`ps_start`)."""
+    tag = "profiled" if profile else compress or "f32"
+    run = os.path.join(work, f"mnist_{tag}")
+    obs = os.path.join(run, "obs")
+    os.makedirs(obs, exist_ok=True)
+    server = procs.server(run, {}, PS_WINDOW, 48, DK_OBS_DIR=obs)
+    env = {"DK_PS_COMPRESS": compress} if compress else {}
+    gate = os.path.join(run, "go")
+    workers = [procs.spawn(f"mnist_{tag}_worker_{i}", {
+        "role": "worker", "rank": i + 1, "run": run, "data": data,
+        "arch": {}, "window": PS_WINDOW, "opt": "adam", "lr": 1e-3,
+        "batch": 64, "epochs": 1 if profile else GATE_EPOCHS, "x": "fn",
+        "y": "le", "seed": i, "device": device, "shuffle": True,
+        "gate": gate, "profile": profile},
+        DK_COORD_RANK=str(i + 1), **env) for i in range(PS_WORKERS)]
+    return {"tag": tag, "run": run, "obs": obs, "server": server,
+            "workers": workers, "gate": gate}
+
+
+def ps_start(procs, r):
+    """Opens 13b run ``r``'s gate once all its workers wait there, waits
+    for them and drains its server.  -> the workers' results, the
+    restored center."""
+    procs.wait_files([f"{r['gate']}.{rank}" for rank in
+                      range(1, PS_WORKERS + 1)], r["workers"])
+    Path(r["gate"]).touch()
+    res = [worker_result(procs, w) for w in r["workers"]]
+    final = procs.stop(r["server"])
+    return res, ps_check(r["run"], final, f"13b {r['tag']}")
+
+
+def ps_mnist(procs, r, test, gpu, device):
+    """Runs 13b run ``r`` (:func:`ps_start`); prints and checks its
+    numbers.  -> them."""
+    import torch
+
+    from dist_keras_tpu_torch.models import mnist_mlp
+    from dist_keras_tpu_torch.observability import report
+
+    tag, obs = r["tag"], r["obs"]
+    res, center = ps_start(procs, r)
+    model = mnist_mlp()
+    model.set_params([{k: torch.from_numpy(np.array(v)) for k, v in
+                       p.items()} for p in center])
+    acc = accuracy(model, test, "fn", device=device)
+    evs = report.read_events(obs)
+    s = report.summarize(evs)["ps"]
+    t_join = min(e["t"] for e in evs if e["kind"] == "ps_worker_join")
+    t_last = max(e["t"] for e in evs if e["kind"] == "ps_commit")
+    span = t_last - t_join
+    commits = sum(s["commits_by_worker"].values())
+    samples = sum(r["samples"] for r in res)
+    raw = sum(r["bytes"]["raw"] for r in res)
+    wire = sum(r["bytes"]["wire"] for r in res)
+    split = {p: float(np.mean([r["phases_ms"][p] for r in res]))
+             for p in PS_PHASES}
+    print(f"  13b mnist_mlp, {PS_WORKERS} worker processes on the card, "
+          f"window {PS_WINDOW}, adam 1e-3, batch 64, {GATE_EPOCHS} epochs, "
+          f"{tag}: center accuracy {acc:.4f} on the {len(test)} held-out "
+          f"rows (threshold {GATE_ACC}); {samples} samples in {span:.3f} s "
+          f"from the first join to the last commit = {samples / span:.1f} "
+          f"samples/s summed over the workers, {commits} commits = "
+          f"{commits / span:.2f} commits/s; staleness histogram "
+          f"{dict(sorted(s['staleness_hist'].items()))}; commit payload "
+          f"{raw} B raw, {wire} B on the wire (ratio {raw / wire:.3f}) on "
+          f"{gpu}")
+    print(f"    one window's wall, mean over the workers (perf.phase.ps_*): "
+          + ", ".join(f"{p[3:]} {v:.3f} ms" for p, v in split.items())
+          + f" = {sum(split.values()):.3f} ms; commit round trip p50 / p95 "
+          f"/ max per worker: " + ", ".join(
+              "{p50:.2f} / {p95:.2f} / {max:.2f} ms".format(**r["commit_ms"])
+              for r in res))
+    require(acc >= GATE_ACC, f"13b {tag}: center accuracy {acc} < "
+                             f"{GATE_ACC}")
+    require(len(res) == PS_WORKERS and commits == sum(
+        r["commits"] for r in res), f"13b {tag}: commits do not add up")
+    return {"acc": acc, "sps": samples / span, "ratio": raw / wire,
+            "window_ms": sum(split.values())}
+
+
+def ps_idle(procs, r, window_ms, gpu):
+    """Runs 13b's profiled run ``r`` (:func:`ps_start`), apart from the
+    runs that give samples/s and the window split, and prints each
+    worker's device idle share over its window cycles: 1 - the device
+    time of its whole run (the data's upload to the card included) /
+    the wall of its ``perf.phase.ps_*`` spans; and its device time a
+    cycle against ``window_ms``, the unprofiled f32 run's window."""
+    res, _ = ps_start(procs, r)
+    for w in res:
+        require(w["busy_ms"] > 0 or not w["device"].startswith("cuda"),
+                f"worker {w['rank']}: the profiler saw no device work")
+        n = w["commits"] + w["stale_rejections"]
+        print(f"    worker {w['rank']} ({w['wid']}, {w['device']}), 1 "
+              f"epoch under torch.profiler: {n} window cycles, wall "
+              f"{w['windows_ms']:.3f} ms ({w['windows_ms'] / n:.3f} ms a "
+              f"cycle), device busy {w['busy_ms']:.3f} ms in {w['ops']} "
+              f"operations: idle "
+              f"{max(0.0, 1 - w['busy_ms'] / w['windows_ms']):.1%}; "
+              f"{w['busy_ms'] / n:.3f} ms busy a cycle against the "
+              f"unprofiled f32 window's {window_ms:.3f} ms: idle "
+              f"{max(0.0, 1 - w['busy_ms'] / n / window_ms):.1%} on {gpu}")
+
+
+def ps_card_against_cpu(train, gpu, device):
+    """One worker on the card and one on the CPU from the same weights
+    (``mnist_mlp(seed=1)``, sgd, f32, no dropout), each alone against its
+    own server (staleness 0), 3 windows of 12: the losses and the center
+    after each commit held window by window."""
+    from dist_keras_tpu_torch.models import mnist_mlp
+    from dist_keras_tpu_torch.ps import PSClient, PSServer, PSWorkerTrainer
+
+    class Recorder(PSClient):
+        def __init__(self, addr):
+            super().__init__(addr)
+            self.centers = []
+
+        def commit(self, *a, **kw):
+            resp = super().commit(*a, **kw)
+            self.centers.append(resp["center"])
+            return resp
+
+    data = train.take(PS_WINDOW * PARITY_WINDOWS * 64)
+    model, runs = mnist_mlp(seed=1), {}
+    for dev in (device, "cpu"):
+        srv = PSServer(params=model.params, port=0, window=PS_WINDOW)
+        srv.start()
+        try:
+            rec = Recorder("%s:%d" % srv.address)
+            t = PSWorkerTrainer(
+                model, client=rec, communication_window=PS_WINDOW,
+                worker_optimizer="sgd",
+                optimizer_kwargs={"learning_rate": 0.05}, batch_size=64,
+                num_epoch=1, features_col="fn", label_col="le",
+                device=dev)
+            t.train(data)
+            runs[dev] = np.asarray(t.get_history()), rec.centers
+        finally:
+            srv.close()
+    (hc, cc), (hh, ch) = runs[device], runs["cpu"]
+    require(len(cc) == len(ch) == PARITY_WINDOWS,
+            f"card against CPU: {len(cc)} / {len(ch)} windows")
+    errs = []
+    for k in range(PARITY_WINDOWS):
+        w = slice(k * PS_WINDOW, (k + 1) * PS_WINDOW)
+        loss = float(np.max(np.abs(hc[w] - hh[w]) / np.abs(hh[w])))
+        center = max(float(np.abs(a[key] - b[key]).max()
+                           / np.abs(b[key]).max())
+                     for a, b in zip(cc[k], ch[k]) for key in b)
+        errs.append((loss, center))
+    print(f"  13b card against CPU ({PARITY_WINDOWS} windows of "
+          f"{PS_WINDOW} sgd steps, f32, TF32 off, one worker each): per "
+          f"window, losses' max rel err / center's max err of each leaf's "
+          f"largest entry: "
+          + ", ".join(f"{a:.3e} / {b:.3e}" for a, b in errs)
+          + f" (held to {CARD_CPU_TOL}) on {gpu}")
+    require(all(a <= CARD_CPU_TOL and b <= CARD_CPU_TOL for a, b in errs),
+            "the card's PS worker disagrees with the CPU's")
+
+
+def ps_mode(fa, fu, da, gpu, device="cuda"):
+    """Phase 13: the PS gate on the card (kill and rejoin, drain,
+    attribution, chaos), then ``mnist_mlp()`` at full width with 4 worker
+    processes sharing the card (uncompressed, int8, and a profiled run
+    for the idle share), and card against CPU; no hand-written kernel
+    launched in any of its processes."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    def mnist_data():
+        train, test = mnist_sets()
+        path = os.path.join(work, "mnist.npz")
+        np.savez(path, fn=train["fn"], le=train["le"], label=train["label"])
+        return train, test, path
+
+    t0 = time.perf_counter()
+    zero_kernel_counts(fa, fu, da)
+    work = tempfile.mkdtemp(prefix="dk_ps_phase13_")
+    procs = PSProcs(work)
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            sets = pool.submit(mnist_data)   # 13b's rows, made during 13a
+            print("phase 13a: the PS gate on the card")
+            ps_gate(procs, work, gpu, device)
+            train, test, data = sets.result()
+        print("phase 13b: mnist_mlp at full width, 4 workers sharing the "
+              "card")
+        # one run after the other, so no run's processes share the host
+        # with another's
+        plain = ps_mnist(procs, ps_mnist_spawn(procs, work, data, device),
+                         test, gpu, device)
+        int8 = ps_mnist(procs, ps_mnist_spawn(procs, work, data, device,
+                                              compress="int8"),
+                        test, gpu, device)
+        require(int8["ratio"] >= 2.0,
+                f"int8 commit payload ratio {int8['ratio']} < 2")
+        print(f"  13b int8 against f32: {int8['sps']:.1f} against "
+              f"{plain['sps']:.1f} samples/s, accuracy {int8['acc']:.4f} "
+              f"against {plain['acc']:.4f}, wire ratio {int8['ratio']:.3f} "
+              f"on {gpu}")
+        # the profiled run's processes start while the card-against-CPU
+        # check runs here, and train after it, at their gate
+        profiled = ps_mnist_spawn(procs, work, data, device, profile=True)
+        ps_card_against_cpu(train, gpu, device)
+        print("  13b device idle share, a run of its own (the runs above "
+              "are not profiled):")
+        ps_idle(procs, profiled, plain["window_ms"], gpu)
+    finally:
+        procs.close()
+        shutil.rmtree(work, ignore_errors=True)
+    counts = kernel_counts(fa, fu, da)
+    procs.add_kernels("phase 13's own process", counts)
+    print(f"  hand-written kernels launched by phase 13, summed over its "
+          f"{len(procs.counted)} processes (this one, every server and "
+          f"worker; the SIGKILLed worker up to its last epoch's end): "
+          f"{procs.kernels} (none is on this path)")
+    require(len(procs.counted) == len(procs.procs) + 1,
+            f"{len(procs.procs) + 1 - len(procs.counted)} of phase 13's "
+            f"processes reported no launch counters")
+    require(not any(procs.kernels.values()),
+            f"phase 13 launched a hand-written kernel: {procs.kernels}")
+    print(f"  phase 13 wall {time.perf_counter() - t0:.1f} s on {gpu}")
+
+
 def main(argv=None):
     import argparse
 
@@ -3196,7 +3867,15 @@ def main(argv=None):
     ap.add_argument("--phase12", action="store_true",
                     help="run only phase 1 (the card) and phase 12 "
                          "(checkpoints and resume); no kernel is built")
+    ap.add_argument("--phase13", action="store_true",
+                    help="run only phase 1 (the card) and phase 13 "
+                         "(parameter-server mode); no kernel is built")
+    ap.add_argument("--ps-role", metavar="JSON",
+                    help="(phase 13's own processes) run one server or "
+                         "worker of the phase, configured by JSON")
     a = ap.parse_args(argv)
+    if a.ps_role:
+        return ps_role(json.loads(a.ps_role))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -3230,6 +3909,10 @@ def main(argv=None):
     if a.phase12:
         print("phase 12: checkpoints and resume on the card")
         checkpoints_and_resume(fa, fu, da, gpu)
+        return 0
+    if a.phase13:
+        print("phase 13: parameter-server mode on the card")
+        ps_mode(fa, fu, da, gpu)
         return 0
 
     # phases 1-7 run the knob-off backward (K2 + K3); phase 7b turns it on
@@ -3356,6 +4039,9 @@ def main(argv=None):
     print(f"  phase 11 wall {time.perf_counter() - t11:.1f} s on {gpu}")
     print("phase 12: checkpoints and resume on the card")
     checkpoints_and_resume(fa, fu, da, gpu)
+    torch.cuda.empty_cache()
+    print("phase 13: parameter-server mode on the card")
+    ps_mode(fa, fu, da, gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

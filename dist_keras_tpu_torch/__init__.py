@@ -42,7 +42,12 @@ resize, fault points), with copies of ``resilience/faults.py``,
 differential and remote tiers, the elastic restore), copies of
 ``resilience/retry.py``, ``coordination.py``, ``store.py``,
 ``elastic.py`` and ``supervisor.py``, and every trainer's
-``checkpoint_dir`` / ``resume`` / ``handle_preemption``.
+``checkpoint_dir`` / ``resume`` / ``handle_preemption``.  And
+parameter-server mode (``ps/``): the center-variable server with its
+center in numpy on the host, the HTTP client, the delta codec and the
+in-process pair (copies of the JAX package's, on the same wire and
+checkpoints), ``PSWorkerTrainer`` training its windows on the card, and
+the run report (``observability/report.py``).
 """
 
 __version__ = "0.1.0"

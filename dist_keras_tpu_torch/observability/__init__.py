@@ -3,8 +3,10 @@ the same file formats: the structured event log
 (:mod:`~dist_keras_tpu_torch.observability.events`, under
 ``DK_OBS_DIR``), the metrics registry
 (:mod:`~dist_keras_tpu_torch.observability.metrics`), span tracing
-(:mod:`~dist_keras_tpu_torch.observability.spans`) and the perf
-attribution counters (:mod:`~dist_keras_tpu_torch.observability.perf`).
+(:mod:`~dist_keras_tpu_torch.observability.spans`), the perf
+attribution counters (:mod:`~dist_keras_tpu_torch.observability.perf`)
+and the merged run report
+(:mod:`~dist_keras_tpu_torch.observability.report`).
 The flight recorder, time series, watchdog, SLO plane, ``/statusz`` and
 the Prometheus exposition are ROADMAP queue 1, item 18."""
 

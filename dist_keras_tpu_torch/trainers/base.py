@@ -30,6 +30,8 @@ PRNG key was written by the reference and is refused typed.
 Not ported yet, and raising when asked for instead of being ignored:
 workers spread over several cards or hosts (a ``mesh``, the multi-host
 environment, ``DK_COORD_WORLD`` > 1: ROADMAP queue 1, item 12b).  The
+one trainer that takes ``DK_COORD_WORLD`` > 1 is ``ps.PSWorkerTrainer``,
+one process on one card talking HTTP to a parameter server.  The
 JAX package's jit cache has no counterpart: the port compiles nothing.
 """
 
@@ -73,6 +75,11 @@ def _refuse_multi_host():
 
 
 class Trainer:
+    # a PS worker (ps/worker.py) is one process on one card talking HTTP
+    # and takes the multi-host launch environment; every other trainer
+    # refuses it (item 12b)
+    accepts_coord_world = False
+
     def __init__(self, keras_model, loss="categorical_crossentropy",
                  worker_optimizer="adam", optimizer_kwargs=None,
                  features_col="features", label_col="label",
@@ -81,7 +88,8 @@ class Trainer:
                  checkpoint_dir=None, checkpoint_every=None,
                  max_checkpoints=3, resume=False, callbacks=None,
                  nan_policy="raise", handle_preemption=False, device=None):
-        _refuse_multi_host()
+        if not self.accepts_coord_world:
+            _refuse_multi_host()
         self.device = resolve_device(device)
         self.serialized_model = serialize_model(keras_model)
         self.loss = loss
