@@ -142,8 +142,37 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    windows, within 1e-4.  The hand-written kernels' counters, zeroed
    before it, stay 0.
 
+14. the serving fabric: 14a, a ``RouterServer`` in this process over two
+   backend processes (``--serve-role``: the phase-5 model in a
+   ``DecodeEngine`` behind a ``ServingServer``, started fresh, never
+   forked) sharing the card and one ``DK_OBS_DIR``; the routed against
+   the direct p50 / p99 of ``/generate`` over the prompt set; concurrent
+   clients, each request with its own ``traceparent`` (some streamed,
+   some with ``deadline_s`` / ``x-dk-priority``), while one backend is
+   SIGKILLed: every answer 200 and oracle-equal, a typed 503 with
+   ``Retry-After``, or a stream's ``backend_stream_lost`` record, no
+   transport error; the dead backend evicted within
+   ``DK_ROUTE_STALE_S``, restarted on its port (``decode.step`` slowed)
+   and re-admitted; a hedged ``/generate`` whose slow primary loses and
+   is cancelled, its KV pages back at zero; ``/statusz``, ``/tracez`` and
+   the Prometheus scrape at 200 on every backend and the router; the
+   SIGTERM drain leaving no KV page; one stitched trace (client ->
+   ``route.forward`` -> ``serve.generate`` -> the replica stage) per
+   answered request; K1 and K5 launched on the backends, K2-K4 never.
+   14b: a ``BlueGreenEngine`` of two ``ServingEngine``s over
+   ``mnist_mlp()`` under continuous submit load, fed by a
+   ``CheckpointWatcher``: two cutovers, each serving the plain forward of
+   the new params, a corrupt step skipped, no request lost; then the
+   ``ReplicaAutoscaler`` over a hand-fed ``serve.pending`` ring, tick
+   for tick as the JAX gate.  14c: a backend with ``DK_SLO`` and a tight
+   ``DK_SLO_TTFT_S`` sheds ``priority="batch"`` as ``shed_batch`` while
+   interactive requests stay oracle-equal; the scrape's exemplars resolve
+   to retained traces; its SIGTERM drain leaves a flight dump the report
+   CLI's ``--dumps`` reads.  14d: ``serving/bench.py``'s decode,
+   survivability and predict records on the card.
+
 ``python3 chip_smoke.py --phase12`` runs only phases 1 and 12;
-``--phase13`` only phases 1 and 13.
+``--phase13`` only phases 1 and 13; ``--phase14`` only phases 1 and 14.
 ``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
 K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
 two trees' K5 can be timed on the same inputs in one run.
@@ -1552,6 +1581,15 @@ def zero_kernel_counts(fa, fu, da):
     fa.flash_fwd_launches = fa.flash_bwd_dq_launches = 0
     fa.flash_bwd_dkv_launches = fu.fused_bwd_launches = 0
     da.paged_decode_launches = 0
+
+
+def write_kernel_counts(prefix, fa, fu, da):
+    """One ``<prefix> {json}`` line in a single write to the standard
+    output, so no other output of the process (another thread, a C++
+    warning on the shared log) lands inside it, and a SIGKILL cannot
+    cut it."""
+    os.write(1, f"{prefix} {json.dumps(kernel_counts(fa, fu, da))}\n"
+             .encode())
 
 
 def mnist_sets():
@@ -3265,8 +3303,7 @@ def ps_role(cfg):
             return ps_server_role(cfg)
         return ps_worker_role(cfg, lambda: kernel_counts(fa, fu, da))
     finally:
-        print("PS_KERNELS " + json.dumps(kernel_counts(fa, fu, da)),
-              flush=True)
+        write_kernel_counts("PS_KERNELS", fa, fu, da)
 
 
 def ps_server_role(cfg):
@@ -3404,25 +3441,29 @@ def ps_worker_role(cfg, counts):
     return 0
 
 
-class PSProcs:
-    """Phase 13's processes, each a fresh ``python3 chip_smoke.py
-    --ps-role`` (never a fork of this process, which has started CUDA),
-    its output in a file under ``work``; :meth:`close` kills any still
-    running."""
+class RoleProcs:
+    """A phase's processes, each a fresh ``python3 chip_smoke.py <flag>
+    JSON`` (never a fork of this process, which has started CUDA), its
+    output in a file under ``work``.  Each prints its K1-K5 launch
+    counters as ``<prefix> {json}`` lines, the last of which counts;
+    :meth:`close` kills any still running."""
 
-    def __init__(self, work):
+    ENV_DROP = ("DK_COORD", "DK_FAULTS", "DK_OBS", "DK_CKPT", "DK_ALERT",
+                "DK_PS", "DK_SLO", "DK_TRACE", "DK_ROUTE")
+
+    def __init__(self, work, flag, prefix, timeout_s):
         self.work = Path(work)
+        self.flag, self.prefix, self.timeout_s = flag, prefix, timeout_s
         self.procs = []
         self.kernels = {}      # K1-K5 launches summed over the processes
         self.counted = []      # the labels whose launches are in it
         self.env = {k: v for k, v in os.environ.items()
-                    if not k.startswith(("DK_COORD", "DK_FAULTS", "DK_OBS",
-                                         "DK_CKPT", "DK_ALERT", "DK_PS"))}
+                    if not k.startswith(self.ENV_DROP)}
 
     def spawn(self, label, cfg, **env):
         log = open(self.work / f"{label}.log", "w")
         p = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--ps-role",
+            [sys.executable, str(Path(__file__).resolve()), self.flag,
              json.dumps(cfg)], stdout=log, stderr=subprocess.STDOUT,
             env={**self.env, **env}, cwd=str(ROOT))
         log.close()
@@ -3433,24 +3474,62 @@ class PSProcs:
     def output(self, p):
         return (self.work / f"{p.label}.log").read_text()
 
-    def finish(self, p):
-        try:
-            p.wait(timeout=PS_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait()
-            raise SmokeFailure(f"{p.label}: HANG (killed at {PS_TIMEOUT_S} "
-                               f"s): {self.output(p)[-400:]}")
-        out = self.output(p)
-        m = re.search(r"^PS_KERNELS (.*)$", out, re.M)
-        require(m, f"{p.label}: printed no launch counters: {out[-400:]}")
-        self.add_kernels(p.label, json.loads(m.group(1)))
-        return out
-
     def add_kernels(self, label, counts):
         for k, n in counts.items():
             self.kernels[k] = self.kernels.get(k, 0) + n
         self.counted.append(label)
+
+    def count(self, p):
+        """Adds the last launch counters ``p`` printed (a flat JSON
+        object, found wherever the line starts in the shared log)."""
+        out = self.output(p)
+        found = re.findall(rf"{self.prefix} (\{{[^{{}}\n]*\}})", out)
+        require(found, f"{p.label}: printed no launch counters: "
+                       f"{out[-400:]}")
+        self.add_kernels(p.label, json.loads(found[-1]))
+
+    def finish(self, p):
+        """Waits for ``p`` (killed as a HANG after ``timeout_s``), counts
+        its launches, -> its output."""
+        try:
+            p.wait(timeout=self.timeout_s)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            raise SmokeFailure(f"{p.label}: HANG (killed at "
+                               f"{self.timeout_s} s): "
+                               f"{self.output(p)[-400:]}")
+        self.count(p)
+        return self.output(p)
+
+    def kill(self, p):
+        p.kill()
+        p.wait()
+        self.count(p)
+
+    def terminate(self, p):
+        """SIGTERM -> the drain: exit 143, -> its output."""
+        import signal
+
+        p.send_signal(signal.SIGTERM)
+        out = self.finish(p)
+        require(p.returncode == 143, f"{p.label} exited {p.returncode}, "
+                                     f"wanted 143 (SIGTERM drain): "
+                                     f"{out[-400:]}")
+        return out
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+class PSProcs(RoleProcs):
+    """Phase 13's server and worker processes (``--ps-role``)."""
+
+    def __init__(self, work):
+        super().__init__(work, "--ps-role", "PS_KERNELS", PS_TIMEOUT_S)
 
     def server(self, run, arch, window, ckpt_every, **env):
         os.makedirs(run, exist_ok=True)
@@ -3472,23 +3551,11 @@ class PSProcs:
             time.sleep(0.01)
 
     def stop(self, server):
-        """SIGTERM -> the drain: exit 143 and -> {"clock", "sha"}."""
-        import signal
-
-        server.send_signal(signal.SIGTERM)
-        out = self.finish(server)
-        require(server.returncode == 143,
-                f"{server.label} exited {server.returncode}, wanted 143 "
-                f"(SIGTERM drain): {out[-400:]}")
+        """The server's drain -> {"clock", "sha"}."""
+        out = self.terminate(server)
         m = re.search(r"^PS_FINAL (\d+) ([0-9a-f]{64})$", out, re.M)
         require(m, f"{server.label}: no PS_FINAL line: {out[-400:]}")
         return {"clock": int(m.group(1)), "sha": m.group(2)}
-
-    def close(self):
-        for p in self.procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
 
 
 def worker_result(procs, p):
@@ -3853,6 +3920,783 @@ def ps_mode(fa, fu, da, gpu, device="cuda"):
     print(f"  phase 13 wall {time.perf_counter() - t0:.1f} s on {gpu}")
 
 
+# -- phase 14: the serving fabric ------------------------------------------
+FABRIC_KNOBS = {"DK_ROUTE_PROBE_S": "0.05", "DK_ROUTE_STALE_S": "2.0",
+                "DK_ROUTE_FAILS": "2", "DK_ROUTE_READMIT_CHECKS": "2"}
+FABRIC_ROUNDS = 3          # passes over the prompt set the 14a clients send
+FABRIC_CLIENTS = 8
+FABRIC_KILL_AFTER = 6      # answered requests before backend 1 is SIGKILLed
+FABRIC_TIMING_PASSES = 6   # direct and routed passes over the prompt set
+HEDGE_SLOW_S = 0.5         # decode.step delay on the restarted backend 1
+SERVE_ROLE_TIMEOUT_S = 240  # the longest any one process of the phase may run
+SLO_ENV = {"DK_SLO": "1", "DK_SLO_TTFT_S": "1e-6", "DK_OBS_SAMPLE_S": "0.2",
+           "DK_TRACE_RETAIN": "1", "DK_TRACE_RETAIN_SLOW_S": "0.01"}
+# gates.py's router gate, autoscale mode: the serve.pending values fed
+# before each tick, and the (action, replicas) the JAX package's
+# ReplicaAutoscaler answers tick by tick (tests/test_torch_autoscale.py
+# holds the port to the same sequence)
+GATE_RING = ((1.0, 3.0, 6.0, 9.0, 10.0)
+             + (3.0, 7.0, 2.5, 6.0, 3.5, 7.5)
+             + (8.0, 9.0, 10.0, 11.0, 12.0)
+             + (1.0, 1.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+             + (0.0, 0.0, 0.0, 0.0))
+GATE_TICKS = ([(None, 1)] * 3 + [("up", 2)] + [(None, 2)] * 8
+              + [("up", 3)] + [(None, 3)] * 5 + [("down", 2)]
+              + [(None, 2)] * 3 + [("down", 1)] + [(None, 1)] * 6)
+GATE_KW = dict(floor=1, ceiling=3, depth_high=8.0, samples=4,
+               clear_checks=3, cooldown_checks=1, step=1)
+BENCH_DECODE_S, BENCH_SURV_S, BENCH_PREDICT_S = 8.0, 6.0, 4.0
+
+
+def serve_role(cfg):
+    """A decode backend of phase 14, started by :class:`FabricProcs`: the
+    full-width model (seed 0) in a ``DecodeEngine`` behind a
+    ``ServingServer`` on ``cfg["port"]`` (0: a free one, published to a
+    file); SIGTERM drains it (exit 143, ``SERVE_DONE {json}`` with its KV
+    pages in use and leaked).  Its K1-K5 launch counters print as
+    ``SERVE_KERNELS {json}`` every 0.2 s and at its end, so a SIGKILLed
+    backend's last line still counts."""
+    sys.path.insert(0, str(ROOT))
+    from dist_keras_tpu_torch.models.transformer import (
+        Transformer,
+        transformer_config,
+    )
+    from dist_keras_tpu_torch.ops import decode_attention as da
+    from dist_keras_tpu_torch.ops import flash_attention as fa
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
+    from dist_keras_tpu_torch.resilience.preemption import Preempted
+    from dist_keras_tpu_torch.serving import DecodeEngine, ServingServer
+
+    zero_kernel_counts(fa, fu, da)
+    stop = threading.Event()
+
+    def counters():
+        write_kernel_counts("SERVE_KERNELS", fa, fu, da)
+
+    def beat():
+        while not stop.wait(0.2):
+            counters()
+
+    dev = cfg["device"]
+    model = Transformer(transformer_config(**cfg["model"]), seed=0,
+                        device=dev)
+    engine = DecodeEngine(model, prefill_ladder=tuple(cfg["prefill"]),
+                          decode_ladder=tuple(cfg["decode"]),
+                          page_size=cfg["page_size"],
+                          max_new_default=cfg["max_new"], device=dev)
+    srv = ServingServer(engine, port=cfg["port"],
+                        request_timeout_s=SERVE_ROLE_TIMEOUT_S)
+    srv.install_signal_drain(poll_s=0.02)
+    threading.Thread(target=beat, daemon=True).start()
+    host, port = srv.address
+    path = Path(cfg["work"]) / f"addr_{cfg['label']}"
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(f"{host}:{port}")
+    os.replace(tmp, path)
+    try:
+        srv.run_forever()
+    except Preempted:
+        st = engine.stats()
+        print("SERVE_DONE " + json.dumps({
+            "kv_used": engine.kv_stats()["used_pages"],
+            "leaked": engine.self_check(), "completed": st["completed"],
+            "cancelled": st["cancelled"], "shed": st["shed"],
+            "errors": st["errors"]}), flush=True)
+        raise
+    finally:
+        stop.set()
+        counters()
+    return 0
+
+
+class FabricProcs(RoleProcs):
+    """Phase 14's decode backends (``--serve-role``)."""
+
+    def __init__(self, work, device, model_cfg):
+        super().__init__(work, "--serve-role", "SERVE_KERNELS",
+                         SERVE_ROLE_TIMEOUT_S)
+        self.device = device
+        self.model_cfg = model_cfg
+
+    def backend(self, label, port=0, **env):
+        (self.work / f"addr_{label}").unlink(missing_ok=True)
+        return self.spawn(label, {
+            "label": label, "work": str(self.work), "port": port,
+            "device": self.device, "model": self.model_cfg,
+            "prefill": PREFILL_LADDER, "decode": DECODE_LADDER,
+            "page_size": PAGE_SIZE, "max_new": MAX_NEW}, **env)
+
+    def address(self, p):
+        path = self.work / f"addr_{p.label}"
+        t0 = time.perf_counter()
+        while not path.exists():
+            require(p.poll() is None,
+                    f"{p.label} died: {self.output(p)[-600:]}")
+            require(time.perf_counter() - t0 < SERVE_ROLE_TIMEOUT_S,
+                    f"{p.label} published no address")
+            time.sleep(0.02)
+        return path.read_text().strip()
+
+    def drain(self, p):
+        """The backend's drain -> its ``SERVE_DONE`` record."""
+        out = self.terminate(p)
+        m = re.search(r"^SERVE_DONE (.*)$", out, re.M)
+        require(m, f"{p.label}: no SERVE_DONE line")
+        return json.loads(m.group(1))
+
+
+def http_call(addr, path, body=None, headers=None,
+              timeout=SERVE_ROLE_TIMEOUT_S):
+    """-> (status, headers, text): an HTTP error status is an answer; a
+    transport failure raises."""
+    host, port = addr.rsplit(":", 1)
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://{host}:{port}{path}", data=data,
+        headers={"Content-Type": "application/json", **(headers or {})},
+        method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def classify_generate(status, headers, text, want, stream):
+    """A /generate answer through the fabric -> "ok" (200, oracle-equal
+    tokens), "typed" (503 with Retry-After and an error document) or
+    "lost" (a stream's final ``backend_stream_lost`` record); anything
+    else fails."""
+    if status == 503:
+        doc = json.loads(text)
+        require("error" in doc and headers.get("Retry-After") is not None,
+                f"an untyped 503: {headers} {text[:200]}")
+        return "typed"
+    require(status == 200, f"/generate answered {status}: {text[:200]}")
+    if stream:
+        lines = [json.loads(x) for x in text.splitlines() if x.strip()]
+        require(lines and lines[-1].get("done"), "a stream without its end")
+        if "error" in lines[-1]:
+            require(lines[-1]["error"] == "backend_stream_lost"
+                    and lines[-1].get("retryable") is True,
+                    f"a stream ended with {lines[-1]}")
+            return "lost"
+        got = [x["token"] for x in lines[:-1]]
+    else:
+        got = json.loads(text)["generated"]
+    require(got == want, f"tokens differ from the oracle: {got} != {want}")
+    return "ok"
+
+
+def kv_of(addr):
+    doc = json.loads(http_call(addr, "/metricsz")[2])["engine"]
+    return doc["kv"]["used_pages"], doc["outstanding"], doc["cancelled"]
+
+
+def introspection_routes(addr, label, device):
+    """/statusz, /tracez and the Prometheus scrape, each 200; /statusz
+    names torch, and the card where the process runs on one."""
+    out = {}
+    for path in ("/statusz", "/tracez", "/metricsz?format=prometheus"):
+        status, headers, text = http_call(addr, path)
+        require(status == 200, f"{label} {path} answered {status}")
+        out[path] = text
+    build = json.loads(out["/statusz"])["build"]
+    require(build["torch"] and (build["device"] or device == "cpu"),
+            f"{label} /statusz build block: {build}")
+    return out
+
+
+def percentile_ms(xs, q):
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def serving_fabric(fa, fu, da, gpu, device="cuda", model_cfg=MODEL,
+                   prompt_lens=PROMPT_LENS, benches=True):
+    """Phase 14.  -> the K1-K5 launches its backends made in 14a."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dist_keras_tpu_torch.checkpoint import MANIFEST_NAME, Checkpointer
+    from dist_keras_tpu_torch.data.dataset import Dataset
+    from dist_keras_tpu_torch.models import mnist_mlp
+    from dist_keras_tpu_torch.models.transformer import (
+        Transformer,
+        apply_block,
+        layer_norm,
+        transformer_config,
+    )
+    from dist_keras_tpu_torch.observability import (
+        events,
+        flight,
+        metrics,
+        report,
+        spans,
+        timeseries,
+        trace_export,
+    )
+    from dist_keras_tpu_torch.ops.attention import attention
+    from dist_keras_tpu_torch.serving import (
+        BlueGreenEngine,
+        CheckpointWatcher,
+        ReplicaAutoscaler,
+        RouterServer,
+        ServingEngine,
+    )
+    from dist_keras_tpu_torch.serving import bench as serving_bench
+    from dist_keras_tpu_torch.trainers import SingleTrainer
+    from dist_keras_tpu_torch.utils.pytree import tree_map
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    work = Path(tempfile.mkdtemp(prefix="dk_fabric_phase14_"))
+    obs, obs_slo = work / "obs", work / "obs_slo"
+    procs = FabricProcs(work, device, model_cfg)
+    saved_env = {k: os.environ.get(k) for k in
+                 [*FABRIC_KNOBS, "DK_OBS_DIR", "DK_COORD_RANK"]}
+    zero_kernel_counts(fa, fu, da)
+    srv = None
+    try:
+        # the backends come up while the parent computes the oracle
+        b0 = procs.backend("b0", DK_OBS_DIR=str(obs), DK_COORD_RANK="0")
+        b1 = procs.backend("b1", DK_OBS_DIR=str(obs), DK_COORD_RANK="1")
+        c = procs.backend("slo", DK_OBS_DIR=str(obs_slo), DK_COORD_RANK="2",
+                        **SLO_ENV)
+        rng = np.random.default_rng(14)
+        prompts = [rng.integers(0, model_cfg["input_dim"], size=n).tolist()
+                   for n in prompt_lens]
+        model = Transformer(transformer_config(**model_cfg), seed=0,
+                            device=dev)
+        with torch.inference_mode():
+            oracle = [oracle_generate(model.params, p, MAX_NEW, attention,
+                                      apply_block, layer_norm)[0]
+                      for p in prompts]
+        del model
+        a0, a1, ac = (procs.address(p) for p in (b0, b1, c))
+        print(f"  backends up in {time.perf_counter() - t_phase:.1f} s "
+              f"(oracle computed meanwhile): {a0}, {a1}, slo {ac}")
+
+        # -- 14a: the fabric over /generate --------------------------------
+        print("phase 14a: RouterServer over two /generate backends")
+        os.environ.update(FABRIC_KNOBS)
+        os.environ["DK_OBS_DIR"] = str(obs)
+        os.environ["DK_COORD_RANK"] = "7"
+        for mod in (events, flight, spans, timeseries):
+            mod.reset()
+        srv = RouterServer([a0, a1], port=0)
+        raddr = "%s:%d" % srv.start()
+        for a in (a0, a1):   # warm each backend directly
+            status, _, _ = http_call(a, "/generate", {
+                "tokens": prompts[0], "max_new_tokens": 2})
+            require(status == 200, f"warm-up on {a} answered {status}")
+        # each prompt direct and routed back to back, the order
+        # alternating by pass: the difference is read per pair, and per
+        # router path (the plain forward until route.forward_s holds 20
+        # samples, then the hedge-eligible one, which rides the
+        # backend's stream)
+        direct, routed, ttft, per_token = [], [], [], []
+        diff = {"plain": {}, "hedge-eligible": {}}
+        for k in range(FABRIC_TIMING_PASSES):
+            for n, p, want in zip(prompt_lens, prompts, oracle):
+                body = {"tokens": p, "max_new_tokens": MAX_NEW}
+                pair = {}
+                for addr in ((a0, raddr) if k % 2 == 0 else (raddr, a0)):
+                    if addr == raddr:
+                        path = ("plain" if srv._hedge_delay() is None
+                                else "hedge-eligible")
+                    t0 = time.perf_counter()
+                    out = http_call(addr, "/generate", body)
+                    pair[addr] = time.perf_counter() - t0
+                    require(classify_generate(*out, want, False) == "ok",
+                            "a timed /generate was not oracle-equal")
+                    if addr == a0:
+                        doc = json.loads(out[2])
+                        ttft.append(doc["ttft_s"])
+                        per_token.append((pair[a0] - doc["ttft_s"])
+                                         / max(1, doc["steps"]))
+                direct.append(pair[a0])
+                routed.append(pair[raddr])
+                diff[path].setdefault(n, []).append(pair[raddr] - pair[a0])
+        print(f"  /generate over the prompt set {list(prompt_lens)}, "
+              f"{MAX_NEW} tokens, one at a time, {FABRIC_TIMING_PASSES} "
+              f"passes, direct and routed back to back ({len(direct)} "
+              f"each): direct p50 {percentile_ms(direct, 50):.3f} ms / max "
+              f"{max(direct) * 1e3:.3f} ms; routed p50 "
+              f"{percentile_ms(routed, 50):.3f} ms / max "
+              f"{max(routed) * 1e3:.3f} ms on {gpu}")
+        for path, by_len in diff.items():
+            pairs = [d for ds in by_len.values() for d in ds]
+            require(pairs, f"no timed request took the {path} path")
+            print(f"  routed minus direct on the {path} path, paired per "
+                  f"prompt and pass ({len(pairs)} pairs): median "
+                  f"{percentile_ms(pairs, 50):.3f} ms, p25 "
+                  f"{percentile_ms(pairs, 25):.3f} / p75 "
+                  f"{percentile_ms(pairs, 75):.3f} ms, min "
+                  f"{min(pairs) * 1e3:.3f} / max {max(pairs) * 1e3:.3f} "
+                  f"ms; median per prompt length "
+                  f"{ {n: round(percentile_ms(ds, 50), 3) for n, ds in by_len.items()} }")
+        print(f"  direct, where the time goes: TTFT (queue + prefill) p50 "
+              f"{percentile_ms(ttft, 50):.2f} ms / max "
+              f"{max(ttft) * 1e3:.2f} ms; after it, "
+              f"{percentile_ms(per_token, 50):.3f} ms a decode step (p50; "
+              f"the host's wall, HTTP and JSON included)")
+
+        jobs = [(i, r) for r in range(FABRIC_ROUNDS)
+                for i in range(len(prompts))]
+        results, errors = [], []
+        lock = threading.Lock()
+        answered = threading.Event()
+
+        def client(k):
+            for n, (i, r) in enumerate(jobs):
+                if n % FABRIC_CLIENTS != k:
+                    continue
+                stream = (n % 5 == 3)
+                body = {"tokens": prompts[i], "max_new_tokens": MAX_NEW,
+                        "stream": stream}
+                headers = {}
+                if n % 3 == 1:
+                    body["deadline_s"] = 120.0
+                if n % 4 == 2:
+                    headers["x-dk-priority"] = "interactive"
+                with spans.span("serve.client"):
+                    ctx = spans.capture()
+                    headers["traceparent"] = spans.traceparent(ctx)
+                    try:
+                        out = http_call(raddr, "/generate", body, headers)
+                        verdict = classify_generate(*out, oracle[i], stream)
+                    except Exception as e:   # noqa: BLE001 - reported
+                        with lock:
+                            errors.append(f"{type(e).__name__}: {e}")
+                        continue
+                with lock:
+                    results.append((ctx.trace_id, verdict, stream))
+                    if sum(v == "ok" for _, v, _ in results) \
+                            >= FABRIC_KILL_AFTER:
+                        answered.set()
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(FABRIC_CLIENTS)]
+        t_load = time.perf_counter()
+        for t in threads:
+            t.start()
+        require(answered.wait(SERVE_ROLE_TIMEOUT_S),
+                f"no {FABRIC_KILL_AFTER} answers before the kill: {errors}")
+        port1 = int(a1.rsplit(":", 1)[1])
+        t_kill = time.perf_counter()
+        procs.kill(b1)
+        stale_s = float(FABRIC_KNOBS["DK_ROUTE_STALE_S"])
+        while {b["addr"]: b for b in srv.pool.snapshot()}[a1]["live"]:
+            require(time.perf_counter() - t_kill < 30,
+                    "the killed backend was never evicted")
+            time.sleep(0.005)
+        evict_s = time.perf_counter() - t_kill
+        for t in threads:
+            t.join(timeout=SERVE_ROLE_TIMEOUT_S)
+        load_s = time.perf_counter() - t_load
+        require(not any(t.is_alive() for t in threads), "a client hung")
+        require(not errors, f"transport errors at the clients: {errors}")
+        verdicts = [v for _, v, _ in results]
+        print(f"  {len(jobs)} concurrent requests from {FABRIC_CLIENTS} "
+              f"clients in {load_s:.2f} s, backend 1 SIGKILLed after "
+              f"{FABRIC_KILL_AFTER} answers: {verdicts.count('ok')} x 200 "
+              f"oracle-equal, {verdicts.count('typed')} typed 503, "
+              f"{verdicts.count('lost')} backend_stream_lost; evicted "
+              f"{evict_s * 1e3:.1f} ms after the kill (DK_ROUTE_STALE_S "
+              f"{stale_s})")
+        require(len(results) == len(jobs), "a request got no answer")
+        require(evict_s <= stale_s, f"eviction took {evict_s:.3f} s")
+
+        b1r = procs.backend("b1r", port=port1, DK_OBS_DIR=str(obs),
+                          DK_COORD_RANK="1",
+                          DK_FAULTS=f"decode.step@0x100000000:action=delay,"
+                                    f"value={HEDGE_SLOW_S}")
+        procs.address(b1r)
+        t_up = time.perf_counter()
+        while srv.pool.live_count() < 2:
+            require(time.perf_counter() - t_up < SERVE_ROLE_TIMEOUT_S,
+                    "the restarted backend was never re-admitted")
+            time.sleep(0.01)
+        print(f"  backend 1 restarted on port {port1}: re-admitted "
+              f"{(time.perf_counter() - t_up) * 1e3:.1f} ms after it "
+              f"listened (DK_ROUTE_READMIT_CHECKS "
+              f"{FABRIC_KNOBS['DK_ROUTE_READMIT_CHECKS']}); evictions "
+              f"{srv.pool.evictions}, readmissions {srv.pool.readmissions}")
+        require(srv.pool.evictions >= 1 and srv.pool.readmissions >= 1,
+                "the pool recorded no eviction or no re-admission")
+
+        # a hedged /generate through the router's HTTP entry, from a
+        # client span: the slow restarted backend is forced as the
+        # primary, the hedge budget admits the hedge on its own
+        delay = srv._hedge_delay()
+        require(delay is not None, "hedging is not armed")
+        budget = srv._hedge_budget
+        earned = 0   # 14a's hedges may have spent it: one-token requests
+        while budget.tokens() + budget.ratio < 1.0:   # earn it back
+            require(earned < 20, "the hedge budget earns nothing")
+            out = http_call(raddr, "/generate", {"tokens": prompts[0],
+                                                 "max_new_tokens": 1})
+            require(out[0] == 200, f"a one-token /generate answered "
+                                   f"{out[0]}")
+            earned += 1
+        tokens0 = budget.tokens()
+        hedges = metrics.counter("route.hedges")
+        wins = metrics.counter("route.hedge_wins")
+        h0, w0 = hedges.value, wins.value
+        real_pick = srv.pool.pick
+        srv.pool.pick = (lambda exclude=(): a1 if not exclude
+                         else real_pick(exclude=exclude))
+        try:
+            with spans.span("serve.client"):
+                hedge_ctx = spans.capture()
+                out = http_call(raddr, "/generate", {
+                    "tokens": prompts[1], "max_new_tokens": MAX_NEW},
+                    {"traceparent": spans.traceparent(hedge_ctx)})
+        finally:
+            srv.pool.pick = real_pick
+        require(classify_generate(*out, oracle[1], False) == "ok",
+                "the hedged /generate was not oracle-equal")
+        require(hedges.value == h0 + 1 and wins.value == w0 + 1,
+                f"the hedge did not fire or did not win (budget "
+                f"{tokens0} tokens before)")
+        tokens1 = budget.tokens()
+        require(abs(tokens1 - (min(budget.cap, tokens0 + budget.ratio)
+                               - 1.0)) < 1e-9,
+                f"the budget went {tokens0} -> {tokens1}")
+        t_c = time.perf_counter()
+        while kv_of(a1)[:2] != (0, 0):
+            require(time.perf_counter() - t_c < 30,
+                    f"the hedge's loser kept its pages: {kv_of(a1)}")
+            time.sleep(0.02)
+        used1, _, cancelled = kv_of(a1)
+        print(f"  hedged POST /generate at the router: primary = the "
+              f"restarted backend (decode.step +{HEDGE_SLOW_S} s), hedge "
+              f"after {delay * 1e3:.1f} ms admitted by the budget "
+              f"({tokens0:.2f} -> {tokens1:.2f} tokens; {earned} one-token "
+              f"requests earned it first) won, "
+              f"oracle-equal; the loser cancelled ({cancelled}) and its "
+              f"pages back at {used1} within "
+              f"{(time.perf_counter() - t_c) * 1e3:.1f} ms")
+        require(cancelled >= 1, "the hedge's loser was not cancelled")
+        for addr, label in ((a0, "backend 0"), (a1, "backend 1"),
+                            (raddr, "router")):
+            introspection_routes(addr, label, device)
+        srv.close()
+        srv = None
+        done = [procs.drain(p) for p in (b0, b1r)]
+        for d in done:
+            require(d["kv_used"] == 0 and d["leaked"] == 0,
+                    f"KV pages left after the drain: {d}")
+        launches = dict(procs.kernels)
+        print(f"  drained: {done}; K1-K5 launches summed over the 3 "
+              f"backend processes: {launches}")
+        require(device == "cpu" or (launches["flash_fwd"] > 0
+                                    and launches["paged_decode"] > 0),
+                "flash_fwd or paged_decode never launched on the backends")
+        require(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"]
+                == launches["flash_bwd_fused"] == 0,
+                "a training kernel launched on the serving path")
+        events.reset()
+        recs = report.read_events(str(obs))
+        by = {}
+        for r in recs:
+            if r.get("kind") == "span_end":
+                by.setdefault(r.get("trace_id"), []).append(r)
+        def chain(trace, ranks):
+            """client -> route.forward -> serve.generate on one of
+            ``ranks`` -> a replica stage, in ``trace``."""
+            sp = by.get(trace, [])
+            ids = {x["span_id"]: x for x in sp}
+
+            def under(x, name):
+                return ids.get(x["parent_id"], {}).get("span") == name
+
+            return (any(x["span"] == "serve.client" for x in sp)
+                    and any(x["span"] == "route.forward"
+                            and under(x, "serve.client") for x in sp)
+                    and any(x["span"] == "serve.generate"
+                            and under(x, "route.forward")
+                            and x["rank"] in ranks for x in sp)
+                    and any(x["span"] in ("serve.prefill", "serve.queue_wait")
+                            and under(x, "serve.generate")
+                            and x["rank"] in ranks for x in sp)), sp
+
+        stitched, broken = 0, []
+        for trace, verdict, _ in results:
+            if verdict != "ok":
+                continue
+            ok, sp = chain(trace, (0, 1))
+            if ok:
+                stitched += 1
+            else:
+                broken.append([(x["span"], x["rank"], x["span_id"],
+                                x["parent_id"]) for x in sp])
+        n_ok = verdicts.count("ok")
+        ct = trace_export.connected_traces(recs)
+        connected = sum(1 for t, v, _ in results
+                        if v == "ok" and ct.get(t, {}).get("connected"))
+        hedge_ok, hedge_sp = chain(hedge_ctx.trace_id, (0,))
+        print(f"  stitched traces (client -> route.forward -> "
+              f"serve.generate -> replica stage): {stitched} of {n_ok} "
+              f"answered requests; {connected} fully connected; the "
+              f"hedged request's winner on backend 0 stitched: {hedge_ok}")
+        require(stitched == n_ok, f"answered requests without a stitched "
+                                  f"trace: {broken[:2]}")
+        require(hedge_ok, f"the hedge's winner is not stitched under "
+                          f"route.forward: {[(x['span'], x['rank']) for x in hedge_sp]}")
+
+        # -- 14b: /predict blue/green and the checkpoint watcher -----------
+        print("phase 14b: BlueGreenEngine + CheckpointWatcher over "
+              "mnist_mlp() on the card")
+        mlp = mnist_mlp(seed=0)
+        bg = BlueGreenEngine(lambda: ServingEngine(
+            mlp, replicas=1, batch_ladder=SERVE_LADDER, max_queue=100000,
+            device=device))
+        ck = Checkpointer(str(work / "ck"))
+        w = CheckpointWatcher(bg, ck, poll_s=0.02, initial_step=0).start()
+        rows = np.random.default_rng(15).normal(
+            size=(64, 784)).astype(np.float32)
+        futs, stop = [], threading.Event()
+
+        def submitter():
+            i = 0
+            while not stop.is_set():
+                futs.append(bg.submit(rows[i % len(rows)]))
+                i += 1
+                time.sleep(0.0005)
+
+        def plain(params):
+            with torch.inference_mode():
+                return mlp.apply(tree_map(lambda a: a.to(dev), params),
+                                 torch.from_numpy(rows[:16]).to(dev)
+                                 ).cpu().numpy()
+
+        def served(step, params, what):
+            t0 = time.perf_counter()
+            while w.reloads < step:
+                require(time.perf_counter() - t0 < 60,
+                        f"cutover {step} never happened (watcher errors "
+                        f"{w.errors})")
+                time.sleep(0.01)
+            err = logits_err(bg.predict(rows[:16], timeout_s=60),
+                             plain(params))
+            print(f"  cutover {step}: {what} served "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms after its "
+                  f"commit; predictions against the plain forward of its "
+                  f"params on the card: {err:.3e} (tol {SERVE_TOL:g})")
+            require(err <= SERVE_TOL, "blue/green serves wrong params")
+
+        loader = threading.Thread(target=submitter)
+        loader.start()
+        try:
+            time.sleep(0.2)
+            state = {"params": tree_map(lambda a: a.detach() * 0.5,
+                                        mlp.params)}
+            ck.save(1, state).wait()
+            served(1, state["params"], "step 1 ({params})")
+            # a real training directory: a SingleTrainer on the card
+            # saves {params, opt_state, rng, t_units} into it
+            trained = SingleTrainer(
+                mnist_mlp(seed=0), loss="categorical_crossentropy",
+                worker_optimizer="adam", batch_size=16, num_epoch=1,
+                features_col="x", label_col="y", seed=3,
+                checkpoint_dir=str(work / "ck"), device=device).train(
+                Dataset({"x": rows, "y": np.eye(10, dtype=np.float32)[
+                    np.arange(len(rows)) % 10]}))
+            step = ck.latest_step()
+            keys = sorted(ck.restore(step=step, verify=False)[1])
+            require(keys == ["opt_state", "params", "rng", "t_units"],
+                    f"the trainer saved {keys}")
+            params = tree_map(lambda a: a.detach(), trained.params)
+            served(2, params, f"the SingleTrainer's step {step} ({keys})")
+            w.stop()
+            ck.save(step + 1, {"params": mlp.params}).wait()
+            files = [f for f in (work / "ck" / f"step_{step + 1:08d}")
+                     .rglob("*") if f.is_file() and f.name != MANIFEST_NAME]
+            big = max(files, key=lambda f: f.stat().st_size)
+            with open(big, "r+b") as f:
+                b = f.read(1)
+                f.seek(0)
+                f.write(bytes([b[0] ^ 0xFF]))
+            require(w.poll_once() is None and w.skipped_corrupt == 1,
+                    "the corrupt step was not skipped")
+            got = bg.predict(rows[:16], timeout_s=60)
+            require(logits_err(got, plain(params)) <= SERVE_TOL
+                    and bg.cutovers == 2,
+                    "the corrupt step touched the serving color")
+        finally:
+            stop.set()
+            loader.join(timeout=60)
+        done_rows = [f.result(timeout=120) for f in futs]
+        st = [e.stats() for e in (bg.active, bg.standby)]
+        print(f"  {len(futs)} requests submitted across 2 cutovers and a "
+              f"skipped corrupt step: {len(done_rows)} answered, errors "
+              f"{[s['errors'] for s in st]}, cutovers {bg.cutovers}, "
+              f"active color {bg.stats()['active_engine']}")
+        require(len(done_rows) == len(futs) > 100
+                and all(s["errors"] == 0 for s in st),
+                "blue/green lost or failed a request")
+        timeseries.reset()
+        a = ReplicaAutoscaler(bg, **GATE_KW)
+        ring = timeseries.series("serve.pending")
+        ticks = []
+        for v in GATE_RING:
+            ring.append(v)
+            ticks.append((a.tick(), bg.stats()["replicas"]))
+        print(f"  autoscaler over the gate's ring: {ticks} "
+              f"(resizes {a.resizes}); standby at "
+              f"{bg.standby.stats()['replicas']} replicas")
+        require(ticks == GATE_TICKS, "the autoscaler's ticks differ from "
+                                     "the JAX gate's")
+        require(bg.predict(rows[:4], timeout_s=60).shape == (4, 10),
+                "the resized engine does not serve")
+        bg.close()
+        timeseries.reset()
+
+        # -- 14c: the SLO plane --------------------------------------------
+        print("phase 14c: DK_SLO shedding, /statusz, /tracez, the scrape, "
+              "the drain's flight dump")
+        for p, want in list(zip(prompts, oracle))[:2]:
+            out = http_call(ac, "/generate", {"tokens": p,
+                                              "max_new_tokens": MAX_NEW})
+            require(classify_generate(*out, want, False) == "ok",
+                    "the SLO backend served wrong tokens")
+        t_shed = time.perf_counter()
+        while True:
+            status, _, text = http_call(ac, "/generate", {
+                "tokens": prompts[0], "max_new_tokens": 4,
+                "priority": "batch"})
+            if status == 503 and json.loads(text).get("reason") \
+                    == "shed_batch":
+                break
+            require(status == 200, f"a batch request answered {status}")
+            require(time.perf_counter() - t_shed < 30,
+                    "batch work was never shed under DK_SLO")
+            http_call(ac, "/generate", {"tokens": prompts[0],
+                                        "max_new_tokens": 2})
+            time.sleep(0.1)
+        slz = json.loads(http_call(ac, "/statusz")[2])["slz"]
+        firing = sorted(o["objective"] for o in slz["objectives"]
+                        if o.get("firing"))
+        print(f"  batch shed as shed_batch "
+              f"{(time.perf_counter() - t_shed) * 1e3:.1f} ms into the "
+              f"burn; firing objectives {firing}")
+        require("generate_ttft" in firing, "the TTFT objective is not "
+                                           "firing")
+        for p, want in list(zip(prompts, oracle))[2:5]:
+            out = http_call(ac, "/generate", {"tokens": p,
+                                              "max_new_tokens": MAX_NEW})
+            require(classify_generate(*out, want, False) == "ok",
+                    "interactive work was not served oracle-equal")
+        routes = introspection_routes(ac, "SLO backend", device)
+        exemplars = set(re.findall(r'^# \{span_id="[0-9a-f]+",trace_id="'
+                                   r'([0-9a-f]+)"\}',
+                                   routes["/metricsz?format=prometheus"],
+                                   re.M))
+        tz = json.loads(routes["/tracez"])
+        done_c = procs.drain(c)
+        recs = report.read_events(str(obs_slo))
+        kept = {r.get("trace_id") for r in recs if r.get("trace_id")}
+        dumps = sorted(obs_slo.glob("flightrec-*-preempt.json"))
+        cli = subprocess.run(
+            [sys.executable, "-m", "dist_keras_tpu_torch.observability",
+             str(obs_slo), "--dumps", "--traces"], cwd=str(ROOT),
+            capture_output=True, text=True, timeout=120)
+        print(f"  scrape exemplars {len(exemplars)}, all on retained "
+              f"traces {exemplars <= kept}; /tracez ring "
+              f"{tz['n']} records; drain {done_c}; preempt "
+              f"dumps {[d.name for d in dumps]}; `python -m "
+              f"dist_keras_tpu_torch.observability --dumps --traces` rc "
+              f"{cli.returncode}: {cli.stdout.splitlines()[:1]}")
+        require(exemplars and exemplars <= kept,
+                "the scrape's exemplars do not resolve to retained traces")
+        require(done_c["shed"] >= 1 and done_c["kv_used"] == 0,
+                f"the SLO backend's drain: {done_c}")
+        require(dumps and cli.returncode == 0 and "ok " in cli.stdout,
+                f"the drain's flight dump does not read back: "
+                f"{cli.stdout[-300:]} {cli.stderr[-300:]}")
+        total = dict(procs.kernels)
+        total.update({k: total[k] + v
+                      for k, v in kernel_counts(fa, fu, da).items()})
+        require(total["flash_bwd_dq"] == total["flash_bwd_dkv"]
+                == total["flash_bwd_fused"] == 0,
+                "a training kernel launched in phase 14")
+
+        # -- 14d: the offered-load serving benchmark -----------------------
+        if benches:
+            print("phase 14d: serving/bench.py on the card")
+            widths = dict(vocab=model_cfg["input_dim"],
+                          seq_len=model_cfg["seq_len"],
+                          d_model=model_cfg["d_model"],
+                          n_heads=model_cfg["n_heads"],
+                          n_layers=model_cfg["n_layers"],
+                          prefill_ladder=PREFILL_LADDER,
+                          decode_ladder=DECODE_LADDER, page_size=PAGE_SIZE,
+                          device=device)
+
+            def bench(name, run, decode, what):
+                """One bench record on this process, its own K1-K5
+                launches counted from 0: K1 and K5 on a decode bench,
+                none on the predict bench, K2-K4 never."""
+                zero_kernel_counts(fa, fu, da)
+                rec = run()
+                n = kernel_counts(fa, fu, da)
+                print(f"  {name} bench ({what}; {gpu}): {json.dumps(rec)}; "
+                      f"its launches {n}")
+                require(n["flash_bwd_dq"] == n["flash_bwd_dkv"]
+                        == n["flash_bwd_fused"] == 0,
+                        f"the {name} bench launched a training kernel")
+                if decode:
+                    require(device == "cpu" or (n["flash_fwd"] > 0
+                                                and n["paged_decode"] > 0),
+                            f"the {name} bench did not run K1 and K5: {n}")
+                else:
+                    require(not any(n.values()),
+                            f"the {name} bench launched a kernel: {n}")
+                return rec
+
+            rec = bench("decode", lambda: serving_bench.run_decode_benchmark(
+                duration_s=BENCH_DECODE_S, replicas=2, **widths), True,
+                f"{BENCH_DECODE_S} s, 2 replicas, phase 5's widths and "
+                f"ladders")
+            require(rec["errors"] == 0 and rec["completed"]
+                    == rec["submitted"] > 0 and rec["retrace_count"]
+                    <= rec["retrace_bound"], "the decode bench failed")
+            rec = bench("survivability",
+                        lambda: serving_bench.run_survivability_benchmark(
+                            duration_s=BENCH_SURV_S, **widths), True,
+                        f"{BENCH_SURV_S} s, the JAX CLI's 4 s lengthened; "
+                        f"replica 0 killed at a third")
+            require(rec["errors"] == 0 and rec["kv_leaked_pages"] == 0
+                    and rec["quarantines"] == 1,
+                    "the survivability bench failed")
+            rec = bench("predict", lambda: serving_bench.run_serving_benchmark(
+                duration_s=BENCH_PREDICT_S, feature_dim=784,
+                hidden=(500, 225), num_classes=10, device=device), False,
+                f"mnist_mlp()'s widths, {BENCH_PREDICT_S} s, the bench's "
+                f"default")
+            require(rec["errors"] == 0
+                    and rec["completed"] == rec["submitted"] > 0,
+                    "the predict bench failed")
+        print(f"  phase 14 wall {time.perf_counter() - t_phase:.1f} s on "
+              f"{gpu}")
+        return launches
+    finally:
+        if srv is not None:
+            srv.close()
+        procs.close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for mod in (events, flight, spans):
+            mod.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None):
     import argparse
 
@@ -3870,12 +4714,20 @@ def main(argv=None):
     ap.add_argument("--phase13", action="store_true",
                     help="run only phase 1 (the card) and phase 13 "
                          "(parameter-server mode); no kernel is built")
+    ap.add_argument("--phase14", action="store_true",
+                    help="run only phase 1 (the card) and phase 14 (the "
+                         "serving fabric); builds K1 and K5 only")
     ap.add_argument("--ps-role", metavar="JSON",
                     help="(phase 13's own processes) run one server or "
                          "worker of the phase, configured by JSON")
+    ap.add_argument("--serve-role", metavar="JSON",
+                    help="(phase 14's own processes) run one decode "
+                         "backend of the phase, configured by JSON")
     a = ap.parse_args(argv)
     if a.ps_role:
         return ps_role(json.loads(a.ps_role))
+    if a.serve_role:
+        return serve_role(json.loads(a.serve_role))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -3913,6 +4765,13 @@ def main(argv=None):
     if a.phase13:
         print("phase 13: parameter-server mode on the card")
         ps_mode(fa, fu, da, gpu)
+        return 0
+    if a.phase14:
+        print("phase 14: the serving fabric on the card")
+        built = _build.build(["flash_fwd", "paged_decode"])
+        print(f"  built {sorted(built)} before the backends start")
+        fabric_launches = serving_fabric(fa, fu, da, gpu)
+        print(f"  launches on the fabric's backends: {fabric_launches}")
         return 0
 
     # phases 1-7 run the knob-off backward (K2 + K3); phase 7b turns it on
@@ -4042,6 +4901,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     print("phase 13: parameter-server mode on the card")
     ps_mode(fa, fu, da, gpu)
+    torch.cuda.empty_cache()
+    print("phase 14: the serving fabric on the card")
+    fabric_launches = serving_fabric(fa, fu, da, gpu)
+    print(f"  launches on the fabric's backends: {fabric_launches}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,8 @@ and rotated segments kept; ``seq`` stays monotonic across rotations).
 Event schema: every record carries ``t`` (``time.time()``), ``seq`` (a
 per-process monotonic counter), ``rank`` (``DK_COORD_RANK`` > ``RANK``,
 as ``torchrun`` exports it, > 0), ``kind``, and the emitting seam's
-keyword fields.  The flight recorder the JAX package attaches to this
-log is not ported; the trace-context and retention seams stay, empty.
+keyword fields.  The flight recorder (``flight.py``) attaches to this
+log at its first resolution and rings a copy of every record.
 """
 
 from __future__ import annotations
@@ -43,26 +43,28 @@ _lock = threading.Lock()
 _resolved = False      # has the DK_OBS_DIR decision been made?
 _writer = None         # EventWriter when enabled, None when disabled
 _warned = False        # one dropped-event warning per process
-_ctx_provider = None   # current trace identity per thread (a seam)
-_retainer = None       # tail-based trace-retention policy (a seam)
+_ctx_provider = None   # spans.py: current trace identity per thread
+_sink = None           # flight.py: in-memory ring copy of each record
+_retainer = None       # flight.py: tail-based trace-retention policy
 
 
 def _set_context_provider(fn):
-    """Register a trace-context provider (the JAX package's
-    ``spans._current_ids``; the port has none yet): every emitted event
-    is stamped with the current thread's open-span trace identity via
-    ``setdefault``."""
+    """Register the trace-context provider (``spans._current_ids``):
+    every emitted event is stamped with the current thread's open-span
+    trace identity via ``setdefault`` — so breadcrumb events stitch
+    into the span tree without their seams knowing about tracing."""
     global _ctx_provider
     _ctx_provider = fn
 
 
 def _set_retainer(fn):
-    """Register a tail-based retention policy (the JAX package's
-    ``flight.TraceRetention.offer``; the port has none yet): called with
-    each fully-stamped record and the writer BEFORE the file write;
-    returning True means the policy took custody and the record is not
-    written now.  ``None`` (the default) keeps the write path
-    untouched."""
+    """Register the tail-based retention policy
+    (``flight.TraceRetention.offer``): called with each fully-stamped
+    record and the writer BEFORE the file write; returning True means
+    the policy took custody (buffered for a keep/drop decision at
+    request end) and the record is not written now.  ``None`` (the
+    default, and whenever ``DK_TRACE_RETAIN`` is off) keeps the write
+    path untouched."""
     global _retainer
     _retainer = fn
 
@@ -226,7 +228,8 @@ class EventWriter:
         return record
 
     def emit(self, kind, **fields):
-        """Write one event line; -> the record dict.  Raises on failure — the module-level
+        """Write one event line; -> the record dict (the flight
+        recorder's ring copy).  Raises on failure — the module-level
         :func:`emit` is the never-throws wrapper."""
         return self.write(self.make_record(kind, **fields))
 
@@ -270,12 +273,22 @@ def _resolve():
         if directory:
             try:
                 _writer = EventWriter(directory)
-            # event-log open failure degrades to disabled + one warning
+            # dklint: ignore[broad-except] event-log open failure degrades to disabled + one warning
             except Exception as e:
                 _warn_once(f"could not open event log in "
                            f"{directory!r}: {e!r}")
                 _writer = None
         _resolved = True
+    if _writer is not None:
+        try:
+            # the flight recorder rides the same DK_OBS_DIR gate: it
+            # rings a copy of every record and arms the crash hooks
+            from dist_keras_tpu_torch.observability import flight
+
+            flight.attach()
+        # dklint: ignore[broad-except] the recorder is best-effort; the event log must come up without it
+        except Exception as e:  # pragma: no cover - recorder optional
+            _warn_once(f"flight recorder unavailable: {e!r}")
 
 
 def _warn_once(msg):
@@ -338,19 +351,24 @@ def emit(kind, **fields):
             # request ends — the tail-based decision point
             return
         w.write(rec)
-    # the never-throws emit contract: dropped event + one warning
+        sink = _sink
+        if sink is not None:
+            sink(rec)
+    # dklint: ignore[broad-except] the never-throws emit contract: dropped event + one warning
     except Exception as e:
         _warn_once(f"event emit failed ({kind}): {e!r}")
 
 
 def reset():
     """Close the writer and forget the cached ``DK_OBS_DIR`` decision —
-    tests that flip the env need a fresh resolution."""
-    global _resolved, _writer, _warned, _retainer
+    tests that flip the env need a fresh resolution.  The flight-
+    recorder sink detaches too (re-attached at the next resolution)."""
+    global _resolved, _writer, _warned, _sink, _retainer
     with _lock:
         if _writer is not None:
             _writer.close()
         _writer = None
         _resolved = False
         _warned = False
+        _sink = None
         _retainer = None

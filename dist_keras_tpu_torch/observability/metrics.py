@@ -1,6 +1,6 @@
 """Process-wide metrics registry — named counters, gauges, histograms; a
 copy of the JAX package's ``observability/metrics.py`` on the port's
-``events`` and ``knobs`` (its Prometheus rendering is not ported yet).
+``events`` and ``knobs``.
 
 ``utils/profiling.StepTimer`` sketched this in miniature (a list of
 per-call durations with summary stats); this module grows it into the
@@ -412,11 +412,12 @@ def emit_snapshot(**extra):
 def to_prometheus(**kw):
     """Prometheus text exposition (format 0.0.4) of the registry — the
     one scrape format the serving ``/metricsz?format=prometheus``
-    endpoint and the standalone per-host exporter both serve.  Not
-    ported yet."""
-    raise NotImplementedError(
-        "metrics.to_prometheus is not ported yet (ROADMAP queue 1, item "
-        "18: the rest of observability/)")
+    endpoint and the standalone per-host exporter both serve.  Kwargs
+    pass through to :func:`observability.prometheus.render` (lazy
+    import keeps this module http-free)."""
+    from dist_keras_tpu_torch.observability import prometheus
+
+    return prometheus.render(**kw)
 
 
 def reset():

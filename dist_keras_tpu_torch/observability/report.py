@@ -1,10 +1,9 @@
 """Multi-host run report — merge per-host event logs into one timeline; a
 copy of the JAX package's ``observability/report.py`` (stdlib only) on
-the same event files, without its SLO section (``slo_summary`` /
-``render_slo`` read ``trace_export.py``: ROADMAP queue 1, item 18).
+the same event files.
 
-The launcher (or anyone pointed at a ``DK_OBS_DIR`` after the fact, by
-:func:`render` / :func:`write_report`; the CLI is item 18) merges the per-host
+The launcher (or anyone pointed at a ``DK_OBS_DIR`` after the fact —
+``python -m dist_keras_tpu_torch.observability <dir>``) merges the per-host
 ``events-rank_{i}.jsonl`` files into a single timeline ordered by
 ``(time, rank, seq)`` and summarizes it: per-phase durations (from
 spans), coordination-op durations, retry counts, checkpoint commits,

@@ -115,7 +115,7 @@ class AsyncMerge:
         merge first."""
         if self._inflight is not None:
             self.wait()
-        # fault_point("comm.merge") slots in here (item 18), and
+        # fault_point("comm.merge") slots in here (item 22), and
         # perf.phase("comm_overlap") around the enqueue (item 22)
         result = self._fn(*args)
         cards = {x.device for x in tree_leaves(result)

@@ -19,9 +19,8 @@ EXISTING ``resilience.preemption`` path, ``/healthz`` + ``/metricsz``:
   staleness scaling ``1/(1+staleness)``; over-cap staleness -> **409**
   (typed ``StaleCommit``), draining -> **503**, malformed -> **400**.
 - ``GET /healthz`` — 200 serving / 503 draining;
-  ``GET /metricsz`` — center stats + metrics registry (JSON;
-  ``?format=prometheus`` answers 501 until ``observability/prometheus.py``
-  is ported, ROADMAP queue 1, item 18).
+  ``GET /metricsz`` — center stats + metrics registry (JSON, or the
+  Prometheus text exposition with ``?format=prometheus``).
 
 **Elastic membership is the normal case.**  Workers hold leases
 (``DK_PS_LEASE_S``); the reaper thread drops a lapsed worker from
@@ -119,14 +118,20 @@ class _Handler(BaseHTTPRequestHandler):
                                        "clock": st["clock"],
                                        "workers": st["workers"]})
         elif path == "/metricsz":
+            st = srv.center.stats()
             if "format=prometheus" in query:
-                self._reply_json(501, {
-                    "error": "not_implemented",
-                    "detail": "/metricsz?format=prometheus "
-                              "(observability/prometheus.py) is not "
-                              "ported yet (ROADMAP queue 1, item 18)"})
+                from dist_keras_tpu_torch.observability import prometheus
+
+                extras = {f"ps.server.{k}": v for k, v in st.items()
+                          if isinstance(v, (int, float))
+                          and not isinstance(v, bool)}
+                self._reply_bytes(
+                    200,
+                    prometheus.render(extra_gauges=extras).encode(
+                        "utf-8"),
+                    prometheus.CONTENT_TYPE)
             else:
-                self._reply_json(200, {"ps": srv.center.stats(),
+                self._reply_json(200, {"ps": st,
                                        "registry": _metrics.snapshot()})
         else:
             self._reply_json(404, {"error": "not_found",

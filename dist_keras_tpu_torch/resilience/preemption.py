@@ -1,11 +1,9 @@
 """Preemption-safe shutdown: catch SIGTERM/SIGINT, checkpoint, exit 128+N.
 
 A copy of the JAX package's ``resilience/preemption.py`` (it is
-framework free).  In the port its one user so far is the serving
-server's signal drain (``ServingServer.install_signal_drain``); the
-trainers' ``handle_preemption`` waits for checkpoints (ROADMAP queue 1,
-items 15 and 19), and :func:`on_request` dumps no flight record before
-its callback, because the flight recorder is not ported (item 18).
+framework free).  Its users are the trainers' ``handle_preemption`` and
+the serving server's signal drain (``ServingServer.install_signal_drain``);
+:func:`on_request` dumps the flight record before its callback.
 
 TPU pods are preemptible: the scheduler sends SIGTERM and gives the
 process a grace window.  A trainer with ``handle_preemption=True``
@@ -206,6 +204,18 @@ def on_request(callback, poll_s=0.05):
         while not stop.is_set():
             sig = _requested
             if sig is not None:
+                try:
+                    # flight-record the tail BEFORE the reaction: the
+                    # callback (a serving drain) may outlive the grace
+                    # window — the post-mortem must already be on disk.
+                    # Ordinary thread context here, so dumping is safe
+                    # (the signal handler itself stays emit-free).
+                    from dist_keras_tpu_torch.observability import flight
+
+                    flight.dump("preempt", signum=int(sig))
+                # dklint: ignore[broad-except] the dump is best-effort; the drain callback must still run
+                except Exception:  # pragma: no cover - dump optional
+                    pass
                 try:
                     callback(sig)
                 finally:

@@ -48,9 +48,8 @@ futures and no batch barrier.
 - **Brownout shedding.**  ``priority="batch"`` admissions shed typed
   (``Overloaded("shed_batch")``) while KV occupancy sits at or above
   ``DK_DECODE_SHED_WATERMARK``; sheds count ``decode.shed``, not
-  ``decode.rejected``.  The reference also sheds while an SLO objective
-  breaches (``observability/slo.py``), which is not ported: the engine
-  refuses to start with ``DK_SLO`` on (ROADMAP queue 1, item 18).
+  ``decode.rejected``, and also while an SLO objective breaches
+  (``observability/slo.breaching()``, armed by ``DK_SLO``).
 - **The kernels.**  On CUDA, prefill attention is the flash-forward
   kernel (``ops/flash_attention.py``) and each decode step's attention
   the paged-decode kernel (``ops/decode_attention.py``) — replayed
@@ -80,6 +79,7 @@ import torch
 
 from dist_keras_tpu_torch.models.transformer import layer_norm, mlp_half
 from dist_keras_tpu_torch.observability import events, metrics, perf, spans
+from dist_keras_tpu_torch.observability import slo as _slo
 from dist_keras_tpu_torch.ops.decode_attention import paged_attention_auto
 from dist_keras_tpu_torch.ops.flash_attention import attention_auto
 from dist_keras_tpu_torch.resilience.faults import fault_point
@@ -225,12 +225,6 @@ class DecodeEngine:
                  max_queue=256, max_new_default=16, eos_id=None,
                  device=None, step_retries=1, shed_watermark=None,
                  self_check_interval_s=1.0):
-        if knobs.get("DK_SLO"):
-            raise NotImplementedError(
-                "DK_SLO is on, but the SLO plane the decode engine sheds "
-                "by (observability/slo.py) is not ported yet (ROADMAP "
-                "queue 1, item 18); unset DK_SLO to shed by the KV "
-                "watermark alone")
         cfg = getattr(model, "cfg", None)
         if cfg is None:
             raise ValueError(
@@ -442,7 +436,8 @@ class DecodeEngine:
 
     def _should_shed_locked(self):
         """Brownout verdict for a ``batch`` admission: KV occupancy at
-        or over the watermark.  Caller holds the lock."""
+        or over the watermark, or any SLO objective firing.  Caller
+        holds the lock (``slo.breaching`` takes only leaf locks)."""
         total = used = 0
         for r in self._live_replicas_locked():
             st = r.cache.stats()
@@ -450,6 +445,9 @@ class DecodeEngine:
             used += st["used_pages"]
         if total and used / total >= self._shed_watermark:
             return "kv_watermark"
+        firing = _slo.breaching()
+        if firing:
+            return "slo:" + ",".join(firing)
         return None
 
     def submit_generate(self, tokens, max_new_tokens=None, eos_id=None,
@@ -1131,6 +1129,13 @@ class DecodeEngine:
         return leaked
 
     # -- hot reload -----------------------------------------------------
+    @property
+    def params(self):
+        """The params tree new sequences are admitted under, on the
+        engine's device (the hot-reload watcher restores onto it as a
+        template)."""
+        return self._params
+
     def set_params(self, state, step=None):
         """Swap every replica's params reference.  In-flight sequences
         keep their pinned params (finish on what they started with);

@@ -474,6 +474,12 @@ class ServingEngine:
                 self._cond.notify_all()
 
     # -- hot reload -----------------------------------------------------
+    @property
+    def params(self):
+        """The params tree the first replica serves, on its device (the
+        hot-reload watcher restores onto it as a template)."""
+        return self._replicas[0].params
+
     def set_params(self, state, step=None):
         """Swap every replica's parameters between batches.
 

@@ -18,19 +18,25 @@ Counterpart of ``serving/server.py``.  Endpoints:
   / ``x-dk-priority`` headers (the body wins).  Batched replies return
   the engine's result doc; ``stream: true`` answers chunked NDJSON, one
   ``{"i", "token"}`` line per token and a final ``{"done": true, ...}``
-  line.  The same typed mapping (503 incl. ``kv_exhausted``,
+  line as soon as the generation resolves (the JAX package's copy
+  waits out a 0.05 s poll first).  The same typed mapping (503 incl. ``kv_exhausted``,
   ``shed_batch`` and ``deadline_infeasible``; 400; 500; 504 — a
   timed-out generation is cancelled so its KV pages free at once); a
   predict backend answers **501**.
 - ``GET /healthz`` — **200** ``{"status": "serving"}`` while accepting;
   **503** ``{"status": "draining"}`` once drain began.
 - ``GET /metricsz`` — the engine's stats plus the process metrics
-  registry snapshot, JSON.
+  registry snapshot, JSON; ``?format=prometheus`` answers the text
+  exposition (``observability/prometheus.py``) with the engine's numeric
+  stats as ``dk_serve_engine_*`` gauges.
+- ``GET /statusz`` — the shared build / knobs / open-span / SLO document
+  (``observability/statusz.py``) plus an ``engine`` section.
+- ``GET /tracez`` — the flight recorder's ring (``observability/flight.py``).
 
-Not ported yet, and answered **501** naming ROADMAP queue 1, item 18:
-``GET /statusz`` (``observability/statusz.py``), ``GET /tracez``
-(``observability/flight.py``) and ``GET /metricsz?format=prometheus``
-(``observability/prometheus.py``).
+``start()`` and ``run_forever()`` arm the live-telemetry plane
+(``timeseries.maybe_start_sampler``: the sampler under
+``DK_OBS_SAMPLE_S``, the exporter under ``DK_METRICS_PORT``);
+``drain()`` flushes trace retention and ticks the sampler one last time.
 
 Tracing: both POST routes honour an incoming ``traceparent`` header
 (W3C ``00-<trace>-<span>-01``); the request runs under one
@@ -64,12 +70,6 @@ from dist_keras_tpu_torch.resilience import preemption
 from dist_keras_tpu_torch.serving.engine import Overloaded
 from dist_keras_tpu_torch.utils import knobs
 
-_UNPORTED = {
-    "/statusz": "observability/statusz.py",
-    "/tracez": "observability/flight.py",
-}
-
-
 def default_port(fallback=8000):
     """The port a launched serving job should bind: ``DK_SERVE_PORT``,
     else ``fallback``."""
@@ -79,24 +79,29 @@ def default_port(fallback=8000):
         return fallback
 
 
-def _not_ported(what):
-    return {"error": "not_implemented",
-            "detail": f"{what} is not ported yet (ROADMAP queue 1, item "
-                      "18: the rest of observability/)"}
+_STREAM_END = object()   # queued when a streamed generation resolves
+_STREAM_POLL_S = 0.05    # a stream's deadline check between tokens
 
 
 class _Handler(BaseHTTPRequestHandler):
     server_version = "dk-serve-torch/0.1"
     protocol_version = "HTTP/1.1"
+    # TCP_NODELAY: a streamed reply is one small write a token, and
+    # Nagle holds each behind the peer's delayed ACK of the last
+    disable_nagle_algorithm = True
     _trace_header = None  # per-request traceparent echo (do_POST sets it)
 
     def log_message(self, fmt, *args):  # quiet: the event log is the log
         pass
 
     def _reply(self, code, payload, retry_after=None):
-        body = json.dumps(payload).encode("utf-8")
+        self._reply_text(code, json.dumps(payload), "application/json",
+                         retry_after=retry_after)
+
+    def _reply_text(self, code, text, content_type, retry_after=None):
+        body = text.encode("utf-8")
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         if retry_after is not None:
             self.send_header("Retry-After", str(retry_after))
@@ -121,14 +126,36 @@ class _Handler(BaseHTTPRequestHandler):
                                   "pending": st["pending"]})
         elif path == "/metricsz":
             if "format=prometheus" in query:
-                self._reply(501, _not_ported(
-                    "/metricsz?format=prometheus "
-                    "(observability/prometheus.py)"))
+                # the scrape-plane view: registry exposition + the
+                # engine's numeric stats as dk_serve_engine_* gauges —
+                # the same rendering the standalone exporter serves
+                from dist_keras_tpu_torch.observability import prometheus
+
+                extras = {
+                    f"serve.engine.{k}": v
+                    for k, v in srv.engine.stats().items()
+                    if isinstance(v, (int, float))
+                    and not isinstance(v, bool)}
+                self._reply_text(
+                    200, prometheus.render(extra_gauges=extras),
+                    prometheus.CONTENT_TYPE)
             else:
                 self._reply(200, {"engine": srv.engine.stats(),
                                   "registry": _metrics.snapshot()})
-        elif path in _UNPORTED:
-            self._reply(501, _not_ported(f"{path} ({_UNPORTED[path]})"))
+        elif path == "/statusz":
+            from dist_keras_tpu_torch.observability import statusz
+
+            self._reply_text(
+                200, statusz.render(extra={"engine": srv.engine.stats()}),
+                "application/json")
+        elif path == "/tracez":
+            # default=str: ring records hold the pre-serialization
+            # field values (numpy scalars and friends included)
+            from dist_keras_tpu_torch.observability import flight
+
+            self._reply_text(200, json.dumps(flight.tracez_doc(),
+                                             default=str),
+                             "application/json")
         else:
             self._reply(404, {"error": "not_found", "path": self.path})
 
@@ -319,21 +346,29 @@ class _Handler(BaseHTTPRequestHandler):
             self.wfile.write(b"%x\r\n" % len(data) + data + b"\r\n")
             self.wfile.flush()
 
+        # the future resolves AFTER its last on_token fired (same
+        # scheduler thread), so its end marker queues behind the last
+        # token and ends the loop at once; the JAX package's copy polls
+        # gen.done() only after a 0.05 s get times out, which holds every
+        # stream's end up to 50 ms
+        gen.future.add_done_callback(lambda _f: q.put(_STREAM_END))
         deadline = time.monotonic() + srv.request_timeout_s
         i = 0
         try:
             while True:
                 try:
-                    chunk({"i": i, "token": q.get(timeout=0.05)})
-                    i += 1
+                    tok = q.get(timeout=_STREAM_POLL_S)
                 except queue.Empty:
-                    if gen.done():
-                        break
                     if time.monotonic() > deadline:
                         gen.cancel()  # resolves as finish=cancelled
                         deadline = float("inf")
-            # the future resolves AFTER its last on_token fired (same
-            # scheduler thread), so a drained queue here is complete
+                    continue
+                if tok is _STREAM_END:
+                    break
+                chunk({"i": i, "token": tok})
+                i += 1
+            # a cancel resolves the future from another thread, so a
+            # token may still land behind the marker
             while not q.empty():
                 chunk({"i": i, "token": q.get()})
                 i += 1
@@ -409,6 +444,13 @@ class ServingServer(ThreadingHTTPServer):
 
     def start(self):
         """Serve on a background thread; -> (host, port)."""
+        # live-telemetry plane: with DK_OBS_SAMPLE_S set, the sampler
+        # (time series + watchdog, incl. the serve.pending queue-growth
+        # rule) and the DK_METRICS_PORT exporter come up with the
+        # server; one env read when unset
+        from dist_keras_tpu_torch.observability import timeseries
+
+        timeseries.maybe_start_sampler()
         self._thread = threading.Thread(
             target=self.serve_forever, daemon=True, name="dk-serve-http")
         self._thread.start()
@@ -441,12 +483,31 @@ class ServingServer(ThreadingHTTPServer):
         counts."""
         out = self.engine.drain(timeout_s=timeout_s)
         self._stop_listener()  # in-flight handler threads still finish
+        from dist_keras_tpu_torch.observability import flight, timeseries
+
+        # flush in-flight retention buffers (no-op when off): a pod
+        # dying right after the drain must not take undecided traces
+        # with it
+        flight.retain_flush()
+        sampler = timeseries.get_sampler()
+        if sampler is not None:
+            # one final tick: the perf_sample / SLO evaluation /
+            # watchdog check of an incident just before the drain must
+            # not die with the pod
+            sampler.tick()
+            # deliberate completion: the serve.* counters stop
+            # advancing now, which is not a throughput stall
+            if sampler.watchdog is not None:
+                sampler.watchdog.quiesce()
         return out
 
     def run_forever(self):
         """Serve on the CALLING thread until stopped.  After a
         signal-initiated drain, re-raises :class:`Preempted` so the
         process exits ``128 + signum``."""
+        from dist_keras_tpu_torch.observability import timeseries
+
+        timeseries.maybe_start_sampler()  # same wiring as start()
         try:
             self.serve_forever()
         finally:

@@ -6,7 +6,8 @@ step fault past the retry, ``resize`` under load and churn — every doc
 token-equal to the JAX ``DecodeEngine``'s undisturbed greedy doc on the
 same bridged weights — the recover fault, the last-replica refusal, a
 full survivor, deadlines at the door and mid-decode, brownout shedding,
-the cancel races, ``self_check`` and the ``DK_SLO`` refusal."""
+the cancel races, ``self_check`` and ``DK_SLO`` shedding against the
+JAX engine under the same forced ``slo.breaching()``."""
 
 import time
 
@@ -439,11 +440,44 @@ def test_batch_admits_below_watermark(engine):
     assert g.result(timeout=300)["generated"] == doc["generated"]
 
 
-def test_slo_knob_is_refused_naming_item_18(ref, monkeypatch):
-    tm, _ = ref
+@pytest.mark.parametrize("firing", [["serve_latency"],
+                                    ["generate_ttft", "serve_latency"]])
+def test_slo_knob_is_refused_naming_item_18(ref, monkeypatch, firing):
+    """Once a refusal of ``DK_SLO`` naming ROADMAP item 18: the engine
+    now accepts it and sheds ``priority="batch"`` while
+    ``slo.breaching()`` fires, as the JAX engine does under the same
+    forced verdict; interactive work is served token-equal."""
+    from dist_keras_tpu.observability import slo as jax_slo
+    from dist_keras_tpu.serving import Overloaded as JaxOverloaded
+    from dist_keras_tpu_torch.observability import slo
+
+    tm, want = ref
     monkeypatch.setenv("DK_SLO", "1")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        _engine(tm)
+    verdict = {"firing": list(firing)}
+    for mod in (slo, jax_slo):
+        monkeypatch.setattr(mod, "breaching",
+                            lambda: list(verdict["firing"]))
+    jm = JaxTransformer(transformer_config(**CFG), seed=0)
+    engines = [_engine(tm, num_pages=64),
+               JaxDecodeEngine(jm, replicas=1, num_pages=64, **LADDERS)]
+    try:
+        for eng in engines:
+            with pytest.raises((Overloaded, JaxOverloaded)) as ei:
+                eng.submit_generate([3, 4], max_new_tokens=2,
+                                    priority="batch")
+            assert ei.value.reason == "shed_batch"
+            doc = eng.generate([3, 4], max_new_tokens=3, timeout_s=300)
+            assert doc["generated"] == want([3, 4], 3)
+            assert eng.stats()["shed"] == 1
+        verdict["firing"] = []       # the burn cleared: batch admits
+        for eng in engines:
+            doc = eng.submit_generate([3, 4], max_new_tokens=3,
+                                      priority="batch").result(timeout=300)
+            assert doc["generated"] == want([3, 4], 3)
+            assert eng.stats()["shed"] == 1
+    finally:
+        for eng in engines:
+            eng.close(drain=True)
 
 
 # -- KV-leak regression: races + the periodic self-check ---------------

@@ -122,3 +122,38 @@ def test_emit_never_raises_on_a_bad_directory(obs, monkeypatch, capsys):
     events.emit("fused_bwd_rejected", reason="mismatch")
     assert not events.enabled()
     assert capsys.readouterr().err.count("WARNING") == 1
+
+
+@pytest.mark.parametrize("fn", ["_resolve", "emit", "reset",
+                                "_set_retainer", "_set_context_provider"])
+def test_flight_seams_are_the_jax_module_code(fn):
+    """The recorder seam (``_sink``: attached at the first resolution,
+    fed each written record, detached by ``reset``) and the retention and
+    trace-context seams are the JAX module's code, package name apart
+    (docstrings and comments aside)."""
+    import ast
+    import inspect
+    import textwrap
+
+    def body(mod):
+        src = textwrap.dedent(inspect.getsource(getattr(mod, fn)))
+        src = src.replace("dist_keras_tpu_torch", "dist_keras_tpu")
+        tree = ast.parse(src).body[0]
+        if ast.get_docstring(tree):
+            tree.body = tree.body[1:]
+        return ast.dump(tree)
+
+    assert body(events) == body(jevents)
+
+
+def test_a_written_record_reaches_the_sink_and_reset_detaches(obs,
+                                                             monkeypatch):
+    monkeypatch.setenv("DK_OBS_DIR", str(obs))
+    events.reset()
+    seen = []
+    events.emit("train_start", trainer="t")     # attaches the recorder
+    events._sink = seen.append
+    events.emit("chunk", i=1)
+    assert [r["kind"] for r in seen] == ["chunk"]
+    events.reset()
+    assert events._sink is None

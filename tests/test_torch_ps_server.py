@@ -237,11 +237,14 @@ def test_healthz_metricsz(ps_server):
         doc = json.loads(r.read())
     assert doc["ps"]["clock"] == 1 and doc["ps"]["workers"] == 1
     assert doc["registry"]["counters"]["ps.commits"] >= 1
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        urllib.request.urlopen(base + "/metricsz?format=prometheus",
-                               timeout=10)
-    assert ei.value.code == 501
-    assert "item 18" in json.loads(ei.value.read())["detail"]
+    with urllib.request.urlopen(base + "/metricsz?format=prometheus",
+                                timeout=10) as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"].startswith("text/plain")
+        text = r.read().decode()
+    assert "# TYPE dk_ps_commits_total counter" in text
+    assert any(line.startswith("dk_ps_server_clock") and
+               line.endswith(" 1") for line in text.splitlines())
     ps_server.drain(timeout_s=DRAIN_S)
     with pytest.raises((urllib.error.URLError, OSError)):
         urllib.request.urlopen(base + "/healthz", timeout=10)

@@ -9,7 +9,8 @@ mismatch as 400, the signal drain through ``resilience.preemption``;
 ``x-dk-deadline-s`` / ``x-dk-priority`` headers reaching admission
 (deadline_infeasible and shed_batch as typed 503s, expiry finishing
 ``"deadline"``), a client disconnect mid-stream, the ``traceparent``
-echo, and 501 naming ROADMAP item 18 on the routes not ported."""
+echo, and ``/statusz``, ``/tracez`` and ``/metricsz?format=prometheus``
+answering with the JAX server's document shapes."""
 
 import json
 import signal
@@ -106,6 +107,24 @@ def test_generate_streamed_ndjson_matches_oracle(served):
     assert [x["token"] for x in lines[:-1]] == _oracle_generate(
         jm.params, jm.cfg, [2, 7, 1, 8], 5)
     assert lines[-1]["done"] is True and lines[-1]["finish"] == "length"
+
+
+def test_stream_ends_when_the_generation_resolves(served, monkeypatch):
+    """A stream's last record follows its last token at once: the
+    generation's resolution ends the handler's loop, not its poll (set
+    to 30 s here, which the request must not wait out)."""
+    from dist_keras_tpu_torch.serving import server as server_mod
+
+    jm, _, addr = served
+    monkeypatch.setattr(server_mod, "_STREAM_POLL_S", 30.0)
+    t0 = time.monotonic()
+    code, _, text = _call(addr, "/generate", {
+        "tokens": [5, 3], "max_new_tokens": 4, "stream": True})
+    assert time.monotonic() - t0 < 10.0
+    lines = [json.loads(x) for x in text.splitlines() if x.strip()]
+    assert code == 200 and lines[-1]["done"] is True
+    assert [x["token"] for x in lines[:-1]] == _oracle_generate(
+        jm.params, jm.cfg, [5, 3], 4)
 
 
 @pytest.mark.parametrize("raw", [
@@ -361,14 +380,48 @@ def test_default_port(monkeypatch):
     assert default_port(fallback=7) == 7
 
 
+def _doc_shape(path, text):
+    """What a route's body must share with the JAX server's: the
+    top-level keys of a JSON document, or the engine gauges' names of a
+    Prometheus scrape."""
+    if "prometheus" in path:
+        return sorted(line.split()[2] for line in text.splitlines()
+                      if line.startswith("# TYPE dk_serve_engine_"))
+    return sorted(json.loads(text))
+
+
 @pytest.mark.parametrize("path", ["/statusz", "/tracez",
                                   "/metricsz?format=prometheus"])
 def test_unported_routes_are_501_naming_item_18(predict_served, path):
-    _, _, _, addr = predict_served
-    code, _, text = _call(addr, path)
-    doc = json.loads(text)
-    assert code == 501 and doc["error"] == "not_implemented"
-    assert "item 18" in doc["detail"]
+    """Once 501s naming ROADMAP item 18; each route now answers 200 with
+    the JAX server's document shape."""
+    from dist_keras_tpu.serving import ServingEngine as JaxServingEngine
+    from dist_keras_tpu.serving import ServingServer as JaxServingServer
+
+    jm, _, _, addr = predict_served
+    jsrv = JaxServingServer(JaxServingEngine(jm, replicas=1,
+                                             batch_ladder=(1, 4, 16)),
+                            port=0)
+    jaddr = jsrv.start()
+    try:
+        for a in (addr, jaddr):
+            assert _call(a, "/predict", {"rows": _rows(2).tolist()})[0] \
+                == 200
+        code, headers, text = _call(addr, path)
+        jcode, jheaders, jtext = _call(jaddr, path)
+    finally:
+        jsrv.close()
+    assert code == jcode == 200
+    assert headers["Content-Type"] == jheaders["Content-Type"]
+    assert _doc_shape(path, text) == _doc_shape(path, jtext)
+    if path == "/statusz":
+        doc, jdoc = json.loads(text), json.loads(jtext)
+        assert set(doc["build"]) - set(jdoc["build"]) == \
+            {"torch", "cuda", "device"}
+        # the port's engine stats add the devices its replicas run on
+        assert set(doc["engine"]) - set(jdoc["engine"]) == {"devices"}
+    if "prometheus" in path:
+        assert "dk_serve_engine_completed" in text
 
 
 # -- traceparent -------------------------------------------------------

@@ -64,13 +64,18 @@ def test_import_leaves_jax_out_of_sys_modules():
         "bad = sorted(k for k in sys.modules if k in ('jax', 'optax',\n"
         "             'orbax', 'ml_dtypes') or k.startswith(('jax.',\n"
         "             'optax.', 'orbax.', 'ml_dtypes.', 'dist_keras_tpu.')))\n"
-        "assert len(mods) >= 45, mods\n"
+        "assert len(mods) >= 57, mods\n"
         "for m in ('parallel.transformer_tp', 'ops.optimizers',\n"
         "          'trainers.single', 'models.model', 'trainers.step',\n"
         "          'trainers.chunking', 'data.predictors', 'ops.losses',\n"
         "          'checkpoint', 'resilience.retry', 'resilience.store',\n"
         "          'resilience.coordination', 'resilience.elastic',\n"
-        "          'resilience.supervisor'):\n"
+        "          'resilience.supervisor', 'serving.router',\n"
+        "          'serving.reload', 'serving.autoscale', 'serving.bench',\n"
+        "          'observability.flight', 'observability.timeseries',\n"
+        "          'observability.watchdog', 'observability.slo',\n"
+        "          'observability.trace_export', 'observability.statusz',\n"
+        "          'observability.prometheus', 'observability.__main__'):\n"
         "    assert 'dist_keras_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "assert 'dist_keras_tpu' not in sys.modules\n"
@@ -84,7 +89,8 @@ def test_import_leaves_jax_out_of_sys_modules():
 def test_copied_modules_work_with_jax_blocked(tmp_path):
     """The knob registry, the event log and the fused backward import and
     run in an interpreter where importing jax or the JAX package fails,
-    and an enabled event log reaches for no flight recorder."""
+    and an enabled event log attaches the port's own flight recorder;
+    the serving fabric and the observability plane import there too."""
     code = (
         "import importlib.abc, os, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -101,7 +107,18 @@ def test_copied_modules_work_with_jax_blocked(tmp_path):
         "v = f.graduate(1, 8, 8, 8, 'float32', True, q_offset=8,\n"
         "               device='cpu')\n"
         "assert v.status == 'unverifiable' and events.enabled()\n"
-        "assert not [m for m in sys.modules if 'flight' in m]\n"
+        "from dist_keras_tpu_torch.observability import flight\n"
+        "assert [m for m in sys.modules if 'flight' in m] == \\\n"
+        "    ['dist_keras_tpu_torch.observability.flight']\n"
+        "assert [r['kind'] for r in flight.recorder().records()] == \\\n"
+        "    ['fused_bwd_rejected']\n"
+        "import dist_keras_tpu_torch.serving as s\n"
+        "import dist_keras_tpu_torch.serving.bench\n"
+        "import dist_keras_tpu_torch.observability.__main__\n"
+        "from dist_keras_tpu_torch.observability import (prometheus, slo,\n"
+        "    statusz, timeseries, trace_export, watchdog)\n"
+        "assert s.RouterServer and s.BlueGreenEngine and s.ReplicaAutoscaler\n"
+        "assert 'torch' in statusz.status_doc()['build']\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -210,6 +227,32 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
         assert len(doc["generated"]) == 2
     finally:
         eng.close()
+
+
+@pytest.mark.parametrize("name", ["run_serving_benchmark",
+                                  "run_decode_benchmark",
+                                  "run_survivability_benchmark"])
+def test_bench_functions_refuse_without_cuda(no_cuda, name):
+    from dist_keras_tpu_torch.serving import bench
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(bench, name)(duration_s=0.1)
+
+
+def test_bluegreen_of_cuda_engines_refuses_without_cuda(no_cuda):
+    from dist_keras_tpu_torch.serving import BlueGreenEngine, ServingEngine
+
+    model = mnist_mlp(hidden=(4,), input_dim=4, num_classes=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BlueGreenEngine(lambda: ServingEngine(model))
+    bg = BlueGreenEngine(lambda: ServingEngine(model, device="cpu"))
+    try:
+        rows = np.zeros((2, 4), np.float32)
+        assert bg.predict(rows, timeout_s=60).shape == (2, 2)
+        assert all(t.device.type == "cpu" for layer in bg.params
+                   for t in layer.values())
+    finally:
+        bg.close()
 
 
 def test_training_entry_points_refuse_without_cuda(no_cuda):
