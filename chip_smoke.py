@@ -171,8 +171,43 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    CLI's ``--dumps`` reads.  14d: ``serving/bench.py``'s decode,
    survivability and predict records on the card.
 
+15. the data path: 15a, ``examples/mnist.py``'s ``load_mnist`` sets
+   (8192 + 2048 synthetic MNIST rows) written with ``to_csv`` and read
+   back with ``Dataset.from_csv`` through the port's native reader
+   (built from its own source into ``_build/``, no fallback warning; the
+   matrix equal to ``np.loadtxt``'s; the parse MB/s), the reference's
+   transformer chain, ``ADAG(mnist_cnn(), 4 workers, window 12)``
+   streamed one window a chunk, ``ModelPredictor`` ->
+   ``LabelIndexTransformer`` -> ``AccuracyEvaluator`` (>= 0.90), the
+   streamed run bit-equal to the resident one under deterministic
+   algorithms.  15b, ``bench_adag_streamed``'s MLP (1,048,576 uint8 rows
+   x 8, hidden 6 x 4096, batch 512, window 8, one worker, sgd, bf16, 2
+   epochs): resident and ``stream_chunk_windows=32``, a warm-up and the
+   median of 3 each (in turns), the streamed / resident samples/s
+   against ``bench.py``'s 0.9 (recorded, not gated),
+   ``max_memory_allocated`` of each, at most two chunks on the card,
+   every dispatch and feed ``get`` under ``set_sync_debug_mode("error")``;
+   a ``max_resident_bytes`` budget under the epoch (streaming on, the
+   feed's chunks on the card under the budget); ``bench_adag_mnist_cnn``'s
+   shape resident against one window a chunk (peak device bytes,
+   samples/s, ``perf.phase.data`` against ``perf.phase.step`` per
+   chunk), and one ``torch.profiler`` capture over two of its chunk
+   boundaries: the share of the pinned HtoD copies under compute
+   kernels.  15c, ``StreamingPredictor`` over a ``SocketSource`` fed by a
+   producer thread with 15a's held-out rows: equal to ``ModelPredictor``
+   (1e-5 of the largest logit), in arrival order, every batch at the
+   fixed shape, one ``stream.fetch`` fault armed through ``DK_FAULTS``
+   retried, rows/s.  15d, under a temporary ``DK_OBS_DIR`` with
+   ``DK_OBS_SAMPLE_S``: a streamed ADAG run's ``chunk`` events
+   (``streamed``), ``perf.phase`` histograms, ``perf.h2d_bytes`` equal to
+   the feed's bytes, one ``train.run`` root span, ``report.txt``, the
+   sampler's samples, ``comm_overlap`` / ``comm_blocked``; a
+   ``step.loss`` NaN through ``DK_FAULTS`` halting a run.  The
+   hand-written kernels' counters, zeroed before it, stay 0.
+
 ``python3 chip_smoke.py --phase12`` runs only phases 1 and 12;
-``--phase13`` only phases 1 and 13; ``--phase14`` only phases 1 and 14.
+``--phase13`` only phases 1 and 13; ``--phase14`` only phases 1 and 14;
+``--phase15`` only phases 1 and 15.
 ``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
 K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
 two trees' K5 can be timed on the same inputs in one run.
@@ -1583,13 +1618,20 @@ def zero_kernel_counts(fa, fu, da):
     da.paged_decode_launches = 0
 
 
+def write_record(line):
+    """``line`` and its newline in a single write to the standard output,
+    so no other output of the process (another thread, a C++ warning on
+    the shared log) lands inside it, and a SIGKILL cannot cut it.
+    ``print`` is not enough: with an unbuffered standard output it writes
+    the text and the newline apart, and a thread's record can fall
+    between them."""
+    sys.stdout.flush()
+    os.write(1, f"{line}\n".encode())
+
+
 def write_kernel_counts(prefix, fa, fu, da):
-    """One ``<prefix> {json}`` line in a single write to the standard
-    output, so no other output of the process (another thread, a C++
-    warning on the shared log) lands inside it, and a SIGKILL cannot
-    cut it."""
-    os.write(1, f"{prefix} {json.dumps(kernel_counts(fa, fu, da))}\n"
-             .encode())
+    """One ``<prefix> {json}`` line, by :func:`write_record`."""
+    write_record(f"{prefix} {json.dumps(kernel_counts(fa, fu, da))}")
 
 
 def mnist_sets():
@@ -3329,7 +3371,7 @@ def ps_server_role(cfg):
         srv.run_forever()
     except Preempted:
         clock, center = srv.center.state()
-        print("PS_FINAL", clock, tree_sha(center), flush=True)
+        write_record(f"PS_FINAL {clock} {tree_sha(center)}")
         raise
     return 0
 
@@ -3410,7 +3452,7 @@ def ps_worker_role(cfg, counts):
         with prof or contextlib.nullcontext():
             model = t.train(ds, shuffle=cfg["shuffle"])
     except (FaultInjected, PSError, OSError) as e:
-        print(f"TYPED {type(e).__name__}: {e}", flush=True)
+        write_record(f"TYPED {type(e).__name__}: {e}")
         return 2
     hists = metrics.snapshot()["histograms"]
     out = {"rank": cfg["rank"], "wid": t.worker_id,
@@ -3437,7 +3479,7 @@ def ps_worker_role(cfg, counts):
         out["ops"] = sum(e.count for e in ops)
     if cfg.get("eval"):
         out["acc"] = accuracy(model, ds, cfg["x"], device=cfg["device"])
-    print("PS_WORKER_DONE " + json.dumps(out), flush=True)
+    write_record("PS_WORKER_DONE " + json.dumps(out))
     return 0
 
 
@@ -3997,11 +4039,11 @@ def serve_role(cfg):
         srv.run_forever()
     except Preempted:
         st = engine.stats()
-        print("SERVE_DONE " + json.dumps({
+        write_record("SERVE_DONE " + json.dumps({
             "kv_used": engine.kv_stats()["used_pages"],
             "leaked": engine.self_check(), "completed": st["completed"],
             "cancelled": st["cancelled"], "shed": st["shed"],
-            "errors": st["errors"]}), flush=True)
+            "errors": st["errors"]}))
         raise
     finally:
         stop.set()
@@ -4697,6 +4739,568 @@ def serving_fabric(fa, fu, da, gpu, device="cuda", model_cfg=MODEL,
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 15: the data path on the card ------------------------------------
+# examples/mnist.py's load_mnist sets, bench_adag_streamed's and
+# bench_adag_mnist_cnn's shapes; a rehearsal on the CPU passes smaller ones
+PHASE15 = dict(
+    csv_rows=(8192, 2048), csv_epochs=3, gate=GATE_ACC,
+    mlp_rows=1048576, mlp_feat=8, mlp_hidden=(4096,) * 6, mlp_batch=512,
+    mlp_window=8, mlp_chunk=32, mlp_epochs=2, mlp_runs=BENCH_RUNS,
+    cnn_batch=ADAG_BENCH_BATCH, cnn_steps=ADAG_BENCH_STEPS,
+    cnn_seconds=4.0, budget=4 << 20, stream_batch=256)
+STREAM_PARITY = 0.9   # bench.py's streamed / resident target: recorded
+STREAM_TOL = 1e-5     # StreamingPredictor against ModelPredictor (f32)
+
+
+def strict_dispatch():
+    """A context in which every chunk's dispatch and every ``ChunkFeed.
+    get`` run under ``set_sync_debug_mode("error")``: a host sync inside
+    either fails the run.  The retire's loss fetch and the prefetch's
+    staging copy stay outside."""
+    import contextlib
+
+    import torch
+
+    from dist_keras_tpu_torch.data import feed as feed_mod
+    from dist_keras_tpu_torch.trainers import chunking
+
+    def strict(fn):
+        def call(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    @contextlib.contextmanager
+    def patched():
+        run, get = chunking.ChunkRunner.run, feed_mod.ChunkFeed.get
+
+        def guarded_run(self, dispatch, *args, **kw):
+            return run(self, strict(dispatch), *args, **kw)
+
+        chunking.ChunkRunner.run = guarded_run
+        feed_mod.ChunkFeed.get = strict(get)
+        try:
+            yield
+        finally:
+            chunking.ChunkRunner.run, feed_mod.ChunkFeed.get = run, get
+    return patched()
+
+
+def params_bit_equal(a, b):
+    return all(np.array_equal(x, y) for x, y in
+               zip(a.get_weights(), b.get_weights()))
+
+
+def csv_flow(work, gpu, device, p):
+    """15a: ``load_mnist``'s sets written with ``to_csv`` and read back
+    with ``Dataset.from_csv`` (the native reader, against ``np.loadtxt``),
+    then the reference's transformer chain, ADAG on the MNIST CNN
+    streamed one window a chunk, and predictor -> label index ->
+    accuracy; the streamed run bit-equal to the resident one under
+    deterministic algorithms.  -> (the streamed model, the test set, the
+    training set), both sets through the transformers."""
+    import warnings
+
+    from dist_keras_tpu_torch.data import (
+        Dataset,
+        MinMaxTransformer,
+        OneHotTransformer,
+        ReshapeTransformer,
+    )
+    from dist_keras_tpu_torch.data import csv as csv_mod
+    from dist_keras_tpu_torch.data import native
+    from dist_keras_tpu_torch.data.synthetic import synthetic_mnist, to_csv
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.trainers import ADAG
+
+    paths, t0 = {}, time.perf_counter()
+    for split, n, seed in zip(("train", "test"), p["csv_rows"], (0, 1)):
+        paths[split] = os.path.join(work, f"mnist_{split}_{n}.csv")
+        to_csv(synthetic_mnist(n, seed=seed), paths[split])
+    print(f"  wrote {p['csv_rows'][0]} + {p['csv_rows'][1]} synthetic MNIST "
+          f"rows as CSV in {time.perf_counter() - t0:.1f} s (host)")
+    t0 = time.perf_counter()
+    lib = native.load_fastcsv()
+    built = time.perf_counter() - t0
+    require(lib is not None, "the port's fastcsv did not build or load")
+    so = Path(lib._name)
+    require(so.parent == ROOT / "dist_keras_tpu_torch" / "_build"
+            and so.name.startswith("libfastcsv-"),
+            f"the native reader was loaded from {so}, not the port's _build")
+    print(f"  native reader: {so.name} (g++ build and load {built:.2f} s)")
+    t0 = time.perf_counter()
+    train = Dataset.from_csv(paths["train"], label="label")
+    parse_s = time.perf_counter() - t0
+    test = Dataset.from_csv(paths["test"], label="label")
+    require(not csv_mod._native_warned,
+            "the CSV reader warned and fell back to numpy")
+    mb = os.path.getsize(paths["train"]) / 1e6
+    print(f"  Dataset.from_csv: {len(train)} rows, {mb:.1f} MB in "
+          f"{parse_s * 1e3:.1f} ms = {mb / parse_s:.1f} MB/s (native, host "
+          f"of the {gpu} machine)")
+    want = np.loadtxt(paths["train"], delimiter=",", skiprows=1,
+                      dtype=np.float32)
+    got = np.column_stack([train["features"], train["label"]])
+    require(got.shape == want.shape and np.array_equal(got, want),
+            "Dataset.from_csv's matrix differs from np.loadtxt's")
+    print("  the matrix equals np.loadtxt of the same file: True")
+
+    def prep(ds):   # examples/mnist.py's preprocess
+        ds = MinMaxTransformer(n_min=0.0, n_max=1.0, o_min=0.0, o_max=255.0,
+                               input_col="features",
+                               output_col="features_normalized").transform(ds)
+        ds = OneHotTransformer(10, input_col="label",
+                               output_col="label_encoded").transform(ds)
+        return ReshapeTransformer(input_col="features_normalized",
+                                  output_col="features_img",
+                                  shape=(28, 28, 1)).transform(ds)
+
+    train, test = prep(train), prep(test)
+    runs = {}
+    deterministic(True)
+    try:
+        for label, kw in (("resident", {}),
+                          ("streamed", {"stream_chunk_windows": 1})):
+            t = ADAG(mnist_cnn(), num_workers=ADAG_WORKERS,
+                     communication_window=ADAG_WINDOW,
+                     worker_optimizer="adam",
+                     optimizer_kwargs={"learning_rate": 3e-3},
+                     batch_size=64, num_epoch=p["csv_epochs"],
+                     features_col="features_img",
+                     label_col="label_encoded", device=device, **kw)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # the dropped steps
+                runs[label] = t, t.train(train, shuffle=True)
+    finally:
+        deterministic(False)
+    (tr, mr), (ts, ms) = runs["resident"], runs["streamed"]
+    feed = ts._last_feed
+    require(ts._streamed and not tr._streamed and len(feed) > 1
+            and feed.peak_resident_chunks <= 2,
+            f"15a's streamed run: streamed {ts._streamed}, {len(feed)} "
+            f"chunks, peak {feed.peak_resident_chunks}")
+    hist_equal = np.array_equal(np.asarray(tr.get_history()),
+                                np.asarray(ts.get_history()))
+    bits = params_bit_equal(mr, ms)
+    acc = accuracy(ms, test, "features_img", device=device)
+    print(f"  ADAG(mnist_cnn, {ADAG_WORKERS} workers, window {ADAG_WINDOW}) "
+          f"from the CSV, streamed one window a chunk ({len(feed)} chunks, "
+          f"peak {feed.peak_resident_chunks} on the card): accuracy "
+          f"{acc:.4f} (threshold {p['gate']}), training "
+          f"{ts.get_training_time():.3f} s (resident "
+          f"{tr.get_training_time():.3f} s); bit-equal to the resident run "
+          f"under deterministic algorithms: params {bits}, history "
+          f"{hist_equal} on {gpu}")
+    require(bits and hist_equal,
+            "the streamed run is not bit-equal to the resident one")
+    require(acc >= p["gate"], f"15a's accuracy {acc} < {p['gate']}")
+    return ms, test, train
+
+
+def overlap_share(prof):
+    """-> (share of the pinned HtoD copies' time that ran under a compute
+    kernel, the same without the first copy, copies seen), from one
+    ``torch.profiler`` capture's device events."""
+    from torch.autograd import DeviceType
+
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "Memcpy HtoD" in e.name and "Pinned" in e.name:
+            copies.append(span)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kernels.append(span)
+    kernels.sort()
+    merged = []
+    for s, t in kernels:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t)
+        else:
+            merged.append([s, t])
+
+    def share(spans):
+        total = sum(t - s for s, t in spans)
+        under = sum(max(0, min(t, mt) - max(s, ms)) for s, t in spans
+                    for ms, mt in merged)
+        return under / total if total else float("nan")
+
+    copies.sort()
+    return share(copies), share(copies[2:]), len(copies)   # 2 a chunk
+
+
+def stream_full_width(gpu, device, p):
+    """15b: ``bench_adag_streamed``'s MLP resident and streamed (a
+    warm-up each, then the median of 3, in turns), peak device memory,
+    the residency bound, no host sync in a dispatch or a get; a
+    ``max_resident_bytes`` budget under the epoch;
+    ``bench_adag_mnist_cnn``'s shape resident against one window a
+    chunk, and the profiled share of its copies under compute."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dist_keras_tpu_torch.data import Dataset
+    from dist_keras_tpu_torch.data import feed as feed_mod
+    from dist_keras_tpu_torch.models import mnist_cnn, mnist_mlp
+    from dist_keras_tpu_torch.observability import metrics
+    from dist_keras_tpu_torch.trainers import ADAG
+
+    cuda = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(0)
+    n, feat = p["mlp_rows"], p["mlp_feat"]
+    yv = rng.integers(0, 10, size=n)
+    ds = Dataset({"features": rng.integers(0, 256, size=(n, feat)).astype(
+        np.uint8), "label": yv,
+        "label_encoded": np.eye(10, dtype=np.uint8)[yv]})
+    common = dict(num_workers=1, worker_optimizer="sgd",
+                  optimizer_kwargs={"learning_rate": 0.01},
+                  batch_size=p["mlp_batch"], label_col="label_encoded",
+                  communication_window=p["mlp_window"],
+                  compute_dtype=torch.bfloat16, data_dtype=None,
+                  device=device)
+
+    def mlp():
+        return mnist_mlp(hidden=p["mlp_hidden"], input_dim=feat,
+                         num_classes=10)
+
+    def run(data, epochs, **kw):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t = ADAG(mlp(), num_epoch=epochs, **common, **kw)
+        t.train(data)
+        h = np.asarray(t.get_history())
+        require(np.isfinite(h).all(), "15b's losses are not finite")
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        return t, len(data) * epochs / t.get_training_time(), peak
+
+    print(f"  mnist_mlp hidden {p['mlp_hidden'][0]} x "
+          f"{len(p['mlp_hidden'])}: {mlp().count_params} parameters; "
+          f"{n} rows x {feat} uint8, batch {p['mlp_batch']}, window "
+          f"{p['mlp_window']}, 1 worker, sgd, bf16, {p['mlp_epochs']} epochs")
+    chunk = {"stream_chunk_windows": p["mlp_chunk"]}
+    # the warm-ups: one epoch of four chunks' rows each
+    sub = ds.take(4 * p["mlp_chunk"] * p["mlp_window"] * p["mlp_batch"])
+    run(sub, 1)
+    with strict_dispatch():
+        t, _, _ = run(sub, 1, **chunk)
+    print(f"  no host sync in the streamed warm-up's {len(t._last_feed)} "
+          f"dispatches and gets (sync debug mode 'error') on {gpu}")
+    # the timed runs in turns (resident, streamed, streamed, resident,
+    # ...): the host's speed drifts within a call
+    res, st = [], []
+    for k in range(p["mlp_runs"]):
+        for streamed in ((False, True) if k % 2 == 0 else (True, False)):
+            (st if streamed else res).append(
+                run(ds, p["mlp_epochs"], **(chunk if streamed else {})))
+    r_sps = float(np.median([s for _, s, _ in res]))
+    s_sps = float(np.median([s for _, s, _ in st]))
+    feed = st[-1][0]._last_feed
+    require(all(t._streamed and t._last_feed.peak_resident_chunks <= 2
+                for t, _, _ in st),
+            "a 15b streamed run held more than two chunks")
+    ratio = s_sps / r_sps
+    print(f"  bench_adag_streamed shape: resident {r_sps:.1f} samples/s "
+          f"(median of {p['mlp_runs']}: "
+          f"{', '.join(f'{s:.1f}' for _, s, _ in res)}), streamed "
+          f"{s_sps:.1f} ({', '.join(f'{s:.1f}' for _, s, _ in st)}; "
+          f"{len(feed)} chunks of {p['mlp_chunk']} windows, peak "
+          f"{feed.peak_resident_chunks} on the card, "
+          f"{feed.put_bytes / 1e6:.2f} MB shipped): streamed / resident "
+          f"{ratio:.4f} (bench.py's parity target {STREAM_PARITY}: "
+          f"{'met' if ratio >= STREAM_PARITY else 'missed'}; runs in turns "
+          f"R S S R R S) on {gpu}")
+    print(f"  torch.cuda.max_memory_allocated: resident "
+          f"{res[-1][2] / 2**20:.1f} MiB, streamed {st[-1][2] / 2**20:.1f} "
+          f"MiB on {gpu}")
+
+    # max_resident_bytes under the epoch: streaming turns on, C =
+    # budget // (2 x a window's bytes), and the feed's chunks on the card
+    # stay under the budget
+    live, prefetch = [0], feed_mod.ChunkFeed.prefetch
+
+    def counted(self, i):
+        prefetch(self, i)
+        live[0] = max(live[0], sum(x.nbytes for c in self._bufs.values()
+                                   for x in c))
+
+    feed_mod.ChunkFeed.prefetch = counted
+    try:
+        t, _, _ = run(sub, 1, max_resident_bytes=p["budget"])
+    finally:
+        feed_mod.ChunkFeed.prefetch = prefetch
+    epoch = sub["features"].nbytes + sub["label_encoded"].nbytes
+    per_window = epoch // (len(sub) // (p["mlp_batch"] * p["mlp_window"]))
+    C = max(k for _, k in t._last_feed._spans)
+    print(f"  max_resident_bytes {p['budget']} under the epoch's {epoch} B: "
+          f"streamed {t._streamed}, C {C} windows (budget // (2 x "
+          f"{per_window} B)), the feed's chunks on the card at most "
+          f"{live[0]} B, peak {t._last_feed.peak_resident_chunks} chunks on "
+          f"{gpu}")
+    require(t._streamed and C == p["budget"] // (2 * per_window)
+            and 0 < live[0] <= p["budget"],
+            "the max_resident_bytes budget did not hold")
+
+    # bench_adag_mnist_cnn's shape: resident against one window a chunk
+    rng = np.random.default_rng(0)
+    n = p["cnn_batch"] * p["cnn_steps"]
+    y = rng.integers(0, 10, n)
+    cds = Dataset({"features": rng.normal(size=(n, 28, 28, 1)).astype(
+        np.float32), "label": y,
+        "label_encoded": np.eye(10, dtype=np.float32)[y]})
+
+    def cnn(epochs, **kw):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        metrics.reset()
+        t = ADAG(mnist_cnn(), num_workers=ADAG_WORKERS,
+                 communication_window=ADAG_WINDOW, worker_optimizer="adam",
+                 batch_size=p["cnn_batch"], num_epoch=epochs,
+                 label_col="label_encoded", compute_dtype=torch.bfloat16,
+                 device=device, **kw)
+        t.train(cds)
+        h = np.asarray(t.get_history())
+        require(np.isfinite(h).all(), "the CNN run's losses are not finite")
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        return (t, h.size * p["cnn_batch"] / t.get_training_time(), peak,
+                metrics.snapshot()["histograms"])
+
+    _, warm, _, _ = cnn(2)
+    epochs = max(2, int(p["cnn_seconds"] * warm / n))
+    tr, r_sps, r_peak, _ = cnn(epochs)
+    ts, s_sps, s_peak, hists = cnn(epochs, stream_chunk_windows=1)
+    if cuda:
+        # the copy stream under compute: three chunks (two boundaries)
+        # of the device-bound CNN, profiled apart from the timed runs
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tp, _, _, _ = cnn(3, stream_chunk_windows=1)
+            torch.cuda.synchronize()
+        whole, later, n_copies = overlap_share(prof)
+        print(f"  torch.profiler over {len(tp._last_feed)} CNN chunks (2 "
+              f"chunk boundaries): {n_copies} pinned HtoD copies, "
+              f"{later:.1%} of chunks 1..'s copy time under compute "
+              f"kernels ({whole:.1%} with chunk 0's, copied before the "
+              f"clock with nothing to hide under) on {gpu}")
+        require(n_copies >= 6, f"the profiler saw {n_copies} pinned copies")
+    chunks = len(ts._last_feed)
+    data = hists["perf.phase.data"]["total"] / chunks * 1e3
+    step = hists["perf.phase.step"]["total"] / chunks * 1e3
+    print(f"  bench_adag_mnist_cnn shape ({ADAG_WORKERS} x "
+          f"{p['cnn_batch']}, window {ADAG_WINDOW}, bf16, adam, {epochs} "
+          f"epochs): resident {r_sps:.1f} samples/s, peak "
+          f"{r_peak / 2**20:.1f} MiB; one window a chunk {s_sps:.1f} "
+          f"samples/s ({s_sps / r_sps:.4f} of resident), peak "
+          f"{s_peak / 2**20:.1f} MiB; per chunk perf.phase.data (the host's "
+          f"staging copy) {data:.3f} ms against perf.phase.step {step:.3f} "
+          f"ms ({ts._last_feed.put_bytes / chunks / 1e6:.1f} MB a chunk) on "
+          f"{gpu}")
+    require(ts._last_feed.peak_resident_chunks <= 2,
+            "the CNN's streamed run held more than two chunks")
+
+
+def stream_predict(model, test, gpu, device, p):
+    """15c: a ``SocketSource`` fed by a producer thread over 15a's
+    held-out rows; predictions equal ``ModelPredictor``'s, in arrival
+    order, every batch at the fixed shape; one ``stream.fetch`` fault
+    armed through ``DK_FAULTS`` is retried and loses no row."""
+    from dist_keras_tpu_torch.data import (
+        ModelPredictor,
+        SocketSource,
+        StreamingPredictor,
+        send_rows,
+    )
+    from dist_keras_tpu_torch.resilience import faults
+
+    x = np.asarray(test["features_img"], dtype=np.float32)
+    want = np.asarray(ModelPredictor(model, features_col="features_img",
+                                     device=device).predict(test)
+                      ["prediction"])
+    faults.clear()
+    os.environ["DK_FAULTS"] = "stream.fetch@40:exc=OSError"
+    try:
+        faults.load_env(force=True)
+        (spec,) = faults._specs["stream.fetch"]
+        pred = StreamingPredictor(model, batch_size=p["stream_batch"],
+                                  max_latency_s=0.05, device=device)
+        shapes, forward = [], pred._predict
+
+        def seen(xb):
+            shapes.append(xb.shape)
+            return forward(xb)
+
+        pred._predict = seen
+        src = SocketSource()
+        producer = threading.Thread(target=send_rows,
+                                    args=(src.address, x), daemon=True)
+        t0 = time.perf_counter()
+        producer.start()
+        out = list(pred.predict_stream(src))
+        wall = time.perf_counter() - t0
+        producer.join(timeout=60)
+        src.close()
+    finally:
+        os.environ.pop("DK_FAULTS", None)
+        faults.clear()
+    rows = np.concatenate([r for r, _ in out])
+    preds = np.concatenate([q for _, q in out])
+    err = float(np.abs(preds - want).max() / np.abs(want).max())
+    print(f"  StreamingPredictor over a SocketSource: {len(rows)} rows in "
+          f"{len(out)} batches of {p['stream_batch']}, {len(rows) / wall:.1f} "
+          f"rows/s (the producer's JSON framing included); max err against "
+          f"ModelPredictor {err:.3e} of the largest logit (held to "
+          f"{STREAM_TOL}); stream.fetch faults fired {spec.fired}, retried "
+          f"on {gpu}")
+    require(len(rows) == len(x) and np.array_equal(rows, x),
+            "15c lost or reordered rows")
+    require(set(shapes) == {(p["stream_batch"],) + x.shape[1:]},
+            f"15c forwarded shapes {sorted(set(shapes))}")
+    require(err <= STREAM_TOL, f"15c's predictions err {err}")
+    require(spec.fired == 1, "15c's stream.fetch fault did not fire once")
+
+
+def runner_telemetry(work, train, gpu, device, p):
+    """15d: a streamed ADAG run under a temporary ``DK_OBS_DIR`` with
+    ``DK_OBS_SAMPLE_S`` leaves its chunk events, perf phases, the h2d
+    bytes the feed shipped, one ``train.run`` root span, ``report.txt``
+    and sampler samples, and the overlap merge's histograms; a
+    ``step.loss`` NaN through ``DK_FAULTS`` halts a run by its NaN
+    policy."""
+    import tempfile
+    import warnings
+
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.observability import (
+        events,
+        metrics,
+        report,
+        spans,
+        timeseries,
+    )
+    from dist_keras_tpu_torch.resilience import faults
+    from dist_keras_tpu_torch.trainers import ADAG
+
+    obs = tempfile.mkdtemp(dir=work)
+    saved = {k: os.environ.get(k) for k in ("DK_OBS_DIR", "DK_OBS_SAMPLE_S",
+                                            "DK_FAULTS")}
+    os.environ.update(DK_OBS_DIR=obs, DK_OBS_SAMPLE_S="0.2")
+
+    def adag(**kw):
+        t = ADAG(mnist_cnn(), num_workers=ADAG_WORKERS,
+                 communication_window=ADAG_WINDOW, worker_optimizer="adam",
+                 optimizer_kwargs={"learning_rate": 3e-3}, batch_size=64,
+                 num_epoch=2, features_col="features_img",
+                 label_col="label_encoded", stream_chunk_windows=1,
+                 device=device, **kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            t.train(train)
+        return t
+
+    def reset():
+        for m in (events, metrics, spans, timeseries):
+            m.reset()
+        faults.clear()
+
+    reset()
+    try:
+        t = adag(comm_overlap=True, handle_preemption=True)
+        sampler = timeseries.get_sampler()
+        deadline = time.time() + 2.0
+        while time.time() < deadline and not any(
+                e["kind"] == "perf_sample" for e in report.read_events(obs)):
+            time.sleep(0.05)
+        evs = report.read_events(obs)
+        snap = metrics.snapshot()
+        hists, counters = snap["histograms"], snap["counters"]
+        chunk_evs = [e for e in evs if e["kind"] == "chunk"]
+        roots = [e for e in evs if e["kind"] == "span_end"
+                 and e["span"] == "train.run"]
+        n_samples = sum(e["kind"] == "perf_sample" for e in evs)
+        phases = {k: hists.get(f"perf.phase.{k}", {}).get("count", 0)
+                  for k in ("data", "step", "comm", "ckpt", "comm_overlap",
+                            "comm_blocked")}
+        print(f"  telemetry of a streamed ADAG run (comm_overlap, "
+              f"handle_preemption): {len(chunk_evs)} chunk events, all "
+              f"streamed {all(e['streamed'] for e in chunk_evs)}; phase "
+              f"counts {phases}; perf.h2d_bytes {counters['perf.h2d_bytes']}"
+              f" = the feed's {t._last_feed.put_bytes}; train.run spans "
+              f"{len(roots)}; report.txt "
+              f"{os.path.exists(os.path.join(obs, 'report.txt'))}; sampler "
+              f"running {bool(sampler and sampler.running)}, "
+              f"{n_samples} perf_sample events on {gpu}")
+        require(chunk_evs and all(e["streamed"] for e in chunk_evs),
+                "15d: chunk events missing or not streamed")
+        require(all(phases[k] > 0 for k in phases),
+                f"15d: an empty perf phase: {phases}")
+        require(counters["perf.h2d_bytes"] == t._last_feed.put_bytes > 0,
+                "15d: perf.h2d_bytes is not the bytes the feed shipped")
+        require(len(roots) == 1 and roots[0]["parent_id"] is None
+                and all(e.get("trace_id") == roots[0]["trace_id"]
+                        for e in chunk_evs),
+                "15d: one train.run span does not root the run")
+        require(os.path.exists(os.path.join(obs, "report.txt")),
+                "15d: no report.txt")
+        require(sampler is not None and sampler.running and n_samples > 0,
+                "15d: the sampler did not run")
+
+        os.environ["DK_FAULTS"] = "step.loss@1:action=corrupt"
+        faults.clear()
+        faults.load_env(force=True)
+        t = adag(nan_policy="halt")
+        halts = [e for e in report.read_events(obs)
+                 if e["kind"] == "nan_halt"]
+        windows = np.asarray(t.get_history()).shape[1]
+        print(f"  step.loss NaN through DK_FAULTS under nan_policy='halt': "
+              f"halted at unit {halts[-1]['units_done'] if halts else None}, "
+              f"{t.nonfinite_steps} non-finite losses, {windows} windows "
+              f"trained on {gpu}")
+        require(halts and t.nonfinite_steps > 0,
+                "15d: the NaN did not halt the run")
+    finally:
+        timeseries.stop_sampler()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset()
+
+
+def data_path(fa, fu, da, gpu, device="cuda", sizes=None):
+    """Phase 15: the CSV flow, streaming at full width, streaming
+    inference and the runner's telemetry; no hand-written kernel."""
+    import tempfile
+
+    import torch
+
+    p = {**PHASE15, **(sizes or {})}
+    zero_kernel_counts(fa, fu, da)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        print("phase 15a: the paper's flow from CSV")
+        model, test, train = csv_flow(work, gpu, device, p)
+        print("phase 15b: streaming at full width")
+        stream_full_width(gpu, device, p)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        print("phase 15c: StreamingPredictor on the card")
+        stream_predict(model, test, gpu, device, p)
+        print("phase 15d: the runner's telemetry")
+        runner_telemetry(work, train, gpu, device, p)
+    counts = kernel_counts(fa, fu, da)
+    print(f"  hand-written kernels launched by phase 15: {counts} (none is "
+          f"on this path)")
+    require(not any(counts.values()),
+            f"phase 15 launched a hand-written kernel: {counts}")
+    print(f"  phase 15 wall {time.perf_counter() - t0:.1f} s on {gpu}")
+
+
 def main(argv=None):
     import argparse
 
@@ -4717,6 +5321,9 @@ def main(argv=None):
     ap.add_argument("--phase14", action="store_true",
                     help="run only phase 1 (the card) and phase 14 (the "
                          "serving fabric); builds K1 and K5 only")
+    ap.add_argument("--phase15", action="store_true",
+                    help="run only phase 1 (the card) and phase 15 (the "
+                         "data path); no kernel is built")
     ap.add_argument("--ps-role", metavar="JSON",
                     help="(phase 13's own processes) run one server or "
                          "worker of the phase, configured by JSON")
@@ -4765,6 +5372,10 @@ def main(argv=None):
     if a.phase13:
         print("phase 13: parameter-server mode on the card")
         ps_mode(fa, fu, da, gpu)
+        return 0
+    if a.phase15:
+        print("phase 15: the data path on the card")
+        data_path(fa, fu, da, gpu)
         return 0
     if a.phase14:
         print("phase 14: the serving fabric on the card")
@@ -4905,6 +5516,9 @@ def main(argv=None):
     print("phase 14: the serving fabric on the card")
     fabric_launches = serving_fabric(fa, fu, da, gpu)
     print(f"  launches on the fabric's backends: {fabric_launches}")
+    torch.cuda.empty_cache()
+    print("phase 15: the data path on the card")
+    data_path(fa, fu, da, gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""The data path: ``Dataset``, the feature transformers, the synthetic
-sets, ``ModelPredictor``, the evaluators and the fixed-shape row packing
-of ``data/streaming.py`` — counterpart of ``data/`` (the stream sources
-and ``StreamingPredictor`` are ROADMAP queue 1, item 14; ``csv.py`` and
-the native CSV reader item 23)."""
+"""The data path — counterpart of ``data/``: ``Dataset`` (with
+``from_csv`` through ``csv.py`` and the port's own native reader, and
+``from_spark``), the feature transformers, the synthetic sets,
+``ModelPredictor``, the evaluators, ``feed.ChunkFeed`` (the trainers'
+streaming input) and ``streaming.py``'s sources and
+``StreamingPredictor``."""
 
 from dist_keras_tpu_torch.data.dataset import Dataset
 from dist_keras_tpu_torch.data.evaluators import (
@@ -12,7 +13,16 @@ from dist_keras_tpu_torch.data.evaluators import (
     LossEvaluator,
 )
 from dist_keras_tpu_torch.data.predictors import ModelPredictor, Predictor
-from dist_keras_tpu_torch.data.streaming import pack_rows, pad_rows
+from dist_keras_tpu_torch.data.streaming import (
+    KafkaSource,
+    QueueSource,
+    SocketSource,
+    StreamingPredictor,
+    StreamSource,
+    pack_rows,
+    pad_rows,
+    send_rows,
+)
 from dist_keras_tpu_torch.data.transformers import (
     DenseTransformer,
     LabelIndexTransformer,
@@ -30,5 +40,6 @@ __all__ = [
     "StandardScaleTransformer",
     "Predictor", "ModelPredictor",
     "Evaluator", "AccuracyEvaluator", "LossEvaluator", "AUCEvaluator",
-    "pack_rows", "pad_rows",
+    "StreamSource", "QueueSource", "SocketSource", "KafkaSource",
+    "StreamingPredictor", "send_rows", "pack_rows", "pad_rows",
 ]

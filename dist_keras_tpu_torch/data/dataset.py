@@ -2,8 +2,7 @@
 
 The port keeps its own copy (it imports nothing of the JAX package), so
 ``shuffle`` and ``batches`` hand both packages the same rows in the same
-order for the same seed.  ``from_csv`` and ``from_spark`` are not ported
-yet and raise.  The reference's notes follow.
+order for the same seed.  The reference's notes follow.
 
 In the reference, training data is a Spark DataFrame and every component
 (transformers, trainers, predictors, evaluators) speaks DataFrame:
@@ -54,15 +53,59 @@ class Dataset:
 
     @staticmethod
     def from_spark(sdf):
-        raise NotImplementedError(
-            "Dataset.from_spark is not ported yet (ROADMAP queue 1, item "
-            "23: Dataset.from_csv / from_spark with data/csv.py)")
+        """Spark DataFrame -> Dataset through a pandas round trip, as the
+        JAX package's shim: ``sdf.toPandas()`` is duck-typed (no pyspark
+        is imported), and array-typed columns (the reference's assembled
+        feature vectors) become 2-D numpy columns, matching
+        ``from_csv``'s layout.  ``toPandas`` needs pandas, which a host
+        may lack (the card's has none): that ``ImportError`` says so."""
+        # look the method up apart from calling it: an AttributeError
+        # raised INSIDE a genuine toPandas() must surface as itself
+        to_pandas = getattr(sdf, "toPandas", None)
+        if to_pandas is None:
+            raise TypeError(
+                "from_spark expects a pyspark.sql.DataFrame (an object "
+                f"with .toPandas()); got {type(sdf).__name__}")
+        try:
+            pdf = to_pandas()
+        except ImportError as e:
+            raise ImportError(
+                "Dataset.from_spark goes through DataFrame.toPandas(), "
+                "which needs pandas, and pandas is not installed on this "
+                f"host ({e}); write the DataFrame to CSV and use "
+                "Dataset.from_csv instead") from e
+        if len(pdf) == 0:
+            raise ValueError(
+                "from_spark got an empty DataFrame (0 rows) — check the "
+                "upstream Spark query/filters")
+        cols = {}
+        for c in pdf.columns:
+            v = pdf[c].to_numpy()
+            if v.dtype == object:  # array<float> columns come back ragged
+                try:
+                    v = np.stack([np.asarray(e) for e in v])
+                except (ValueError, TypeError) as e:
+                    raise ValueError(
+                        f"from_spark: column {c!r} has rows that do not "
+                        "stack into one array — variable-length arrays "
+                        "or NULL entries; pad/filter them in Spark "
+                        "first") from e
+                if v.dtype == object:
+                    # all-NULL columns stack into an object array of
+                    # Nones: caught here, not as a device-copy error
+                    raise ValueError(
+                        f"from_spark: column {c!r} stacked to a non-"
+                        "numeric object array (NULL rows?); pad/filter "
+                        "them in Spark first")
+            cols[c] = v
+        return Dataset(cols)
 
     @staticmethod
     def from_csv(path, **kw):
-        raise NotImplementedError(
-            "Dataset.from_csv is not ported yet (ROADMAP queue 1, item 23: "
-            "Dataset.from_csv / from_spark with data/csv.py)")
+        """CSV -> Dataset through ``data/csv.py``'s ``read_csv`` (the
+        port's native reader, numpy as the fallback)."""
+        from dist_keras_tpu_torch.data.csv import read_csv
+        return read_csv(path, **kw)
 
     def to_pandas(self):
         import pandas as pd

@@ -24,7 +24,8 @@ can always measure, cheaply enough to stay on in production:
 - **Per-phase step-time breakdown** — :func:`phase` wraps host-side
   phases into always-on ``perf.phase.<name>`` registry histograms; while
   a device trace is open the region also goes through ``spans.span``.
-  Wiring phases into the trainers' runner is ROADMAP queue 1, item 22.
+  The trainers' ``ChunkRunner`` records ``data`` / ``step`` / ``comm`` /
+  ``ckpt``, ``AsyncMerge`` ``comm_overlap`` / ``comm_blocked``.
 
 Everything lands in the process metrics registry, so it rides the
 snapshots with no extra plumbing.  No device profiler is ever required.

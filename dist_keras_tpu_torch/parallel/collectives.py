@@ -29,6 +29,9 @@ from __future__ import annotations
 
 import torch
 
+from dist_keras_tpu_torch.observability import perf
+from dist_keras_tpu_torch.resilience.faults import fault_point
+
 from dist_keras_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 
@@ -91,11 +94,14 @@ class AsyncMerge:
     second :meth:`submit` first waits out the previous merge, which
     bounds device memory at two result buffers.  On the CPU the ops
     have finished when they return, so :meth:`wait` only hands the
-    result back.  ``submits`` and ``waits`` count the calls.  The
-    ``comm.merge`` fault point and the ``perf.phase.comm_overlap`` /
-    ``comm_blocked`` walls slot in at the marked lines once
-    ``resilience/faults.py`` and ``observability/perf.py`` are ported
-    (ROADMAP queue 1, items 18 and 22)."""
+    result back.  ``submits`` and ``waits`` count the calls.
+
+    The ``comm.merge`` fault point fires at each submit, so a chaos
+    schedule can kill or delay the Nth merge.  The submit's (enqueue)
+    wall lands in ``perf.phase.comm_overlap`` and the wait's (blocking)
+    wall in ``perf.phase.comm_blocked``: a blocked merge pays its whole
+    wall in ``comm_blocked``, an overlapped one only what did not hide
+    under the work enqueued after it."""
 
     def __init__(self, merge_fn):
         self._fn = merge_fn
@@ -115,16 +121,17 @@ class AsyncMerge:
         merge first."""
         if self._inflight is not None:
             self.wait()
-        # fault_point("comm.merge") slots in here (item 22), and
-        # perf.phase("comm_overlap") around the enqueue (item 22)
-        result = self._fn(*args)
-        cards = {x.device for x in tree_leaves(result)
-                 if isinstance(x, torch.Tensor) and x.device.type == "cuda"}
-        self._event = None
-        if cards:
-            (card,) = cards
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(card))
+        fault_point("comm.merge")
+        with perf.phase("comm_overlap"):
+            result = self._fn(*args)
+            cards = {x.device for x in tree_leaves(result)
+                     if isinstance(x, torch.Tensor)
+                     and x.device.type == "cuda"}
+            self._event = None
+            if cards:
+                (card,) = cards
+                self._event = torch.cuda.Event()
+                self._event.record(torch.cuda.current_stream(card))
         self._inflight = result
         self.submits += 1
         return self
@@ -134,8 +141,9 @@ class AsyncMerge:
         last result again when nothing is in flight)."""
         if self._inflight is None:
             return self._result
-        if self._event is not None:   # perf.phase("comm_blocked") (item 22)
-            self._event.synchronize()
+        with perf.phase("comm_blocked"):
+            if self._event is not None:
+                self._event.synchronize()
         self._result, self._inflight, self._event = self._inflight, None, None
         self.waits += 1
         return self._result

@@ -14,14 +14,15 @@
 
 Both run their steps as a Python loop over the global step index, the
 worker-stacked step (``trainers/step.py``) on data resident on the
-device, with one device ``torch.Generator`` seeded with ``seed`` for
+device or streamed to it, with one device ``torch.Generator`` seeded with ``seed`` for
 every replica's dropout (``windowed.py`` says why it cannot reproduce
 the JAX package's per-worker streams).  Checkpoints are step-granular,
 as the reference's: Averaging saves ``{"params", "local", "opt_state",
 "rng"}``, Ensemble ``{"params", "opt_state", "rng"}`` (``params`` being
-the stacked replicas), ``rng`` the generator's state.  Streaming
-(``stream_chunk_steps``, ``max_resident_bytes``) is not ported yet and
-raises (ROADMAP queue 1, item 20).
+the stacked replicas), ``rng`` the generator's state.  ``stream_chunk_steps=C`` streams the data C
+steps per chunk through the ``ChunkFeed`` (Ensemble's one shard per
+model rides each chunk); ``max_resident_bytes`` turns streaming on when
+the epoch exceeds it.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from dist_keras_tpu_torch.trainers.chunking import (
     init_streaming,
     reject_stale_checkpoint,
     run_chunked,
-    units_first,
 )
 from dist_keras_tpu_torch.utils.pytree import tree_map
 
@@ -56,7 +56,6 @@ class AveragingTrainer(DistributedTrainer):
             dataset = dataset.shuffle(seed=self.seed)
         xs, ys = self._shards(dataset)  # (workers, steps, batch, ...)
         n, spe = xs.shape[:2]
-        xs, ys = units_first(xs, 1), units_first(ys, 1)
         step, opt_init = self._make_worker_step(model, loss_fn, tx)
         params = self._device_params(model.params)
         local = self._stack_workers(params)
@@ -111,7 +110,8 @@ class AveragingTrainer(DistributedTrainer):
             state_fn=lambda: {"params": params, "local": local,
                               "opt_state": opt_state,
                               "rng": generator.get_state()},
-            carry_leaves=(params, local, opt_state), worker_axis=True)
+            carry_leaves=(params, local, opt_state),
+            stream_units=self.stream_chunk_steps, unit_dims=1)
         return self._finalize(params, history)
 
 
@@ -152,7 +152,6 @@ class EnsembleTrainer(DistributedTrainer):
             features_col=self.features_col, label_col=self.label_col,
             dtype=self.data_dtype)   # (num_models, steps, batch, ...)
         spe = xs.shape[1]
-        xs, ys = units_first(xs, 1), units_first(ys, 1)
         step, opt_init = self._make_worker_step(model, loss_fn, tx)
         params = self._device_params(model.params)
         stacked = self._stack_workers(params, self.num_models)
@@ -193,7 +192,8 @@ class EnsembleTrainer(DistributedTrainer):
             dispatch=dispatch, sync_ref=lambda: stacked,
             state_fn=lambda: {"params": stacked, "opt_state": opt_state,
                               "rng": generator.get_state()},
-            carry_leaves=(stacked, opt_state), worker_axis=True)
+            carry_leaves=(stacked, opt_state),
+            stream_units=self.stream_chunk_steps, unit_dims=1)
         # one device->host copy for the whole ensemble, then slice
         host = fetch_global(stacked)
         models = []

@@ -27,6 +27,13 @@ checkpoint's ``rng`` leaf, so a resumed run draws the dropout masks an
 uninterrupted one would.  A checkpoint whose ``rng`` leaf is a JAX
 PRNG key was written by the reference and is refused typed.
 
+The epoch's data is resident on the card or, with the trainers'
+streaming kwargs (``stream_chunk_steps`` / ``stream_chunk_windows``,
+``max_resident_bytes``), streamed through ``data.feed.ChunkFeed``
+(``trainers/chunking.py``).  ``record_training_start`` arms the metrics
+sampler (``DK_OBS_SAMPLE_S``); ``record_training_end`` quiesces its
+watchdog and writes ``report.txt`` on rank 0.
+
 Not ported yet, and raising when asked for instead of being ignored:
 workers spread over several cards or hosts (a ``mesh``, the multi-host
 environment, ``DK_COORD_WORLD`` > 1: ROADMAP queue 1, item 12b).  The
@@ -50,6 +57,7 @@ from dist_keras_tpu_torch.checkpoint import (
 from dist_keras_tpu_torch.comm import backend as comm
 from dist_keras_tpu_torch.observability import events
 from dist_keras_tpu_torch.observability import metrics as obs_metrics
+from dist_keras_tpu_torch.observability import timeseries
 from dist_keras_tpu_torch.ops.losses import get_loss
 from dist_keras_tpu_torch.ops.optimizers import get_optimizer
 from dist_keras_tpu_torch.parallel.mesh import worker_mesh
@@ -145,6 +153,10 @@ class Trainer:
         self._t_start = time.time()
         events.emit("train_start", trainer=type(self).__name__,
                     num_epoch=self.num_epoch, batch_size=self.batch_size)
+        # with DK_OBS_SAMPLE_S set this arms the process's MetricsSampler
+        # (time-series rings, the watchdog) and the DK_METRICS_PORT
+        # exporter; left running at train end, like the registry
+        timeseries.maybe_start_sampler()
 
     def record_training_end(self):
         # drain any in-flight async checkpoint save first (bounded by
@@ -160,6 +172,22 @@ class Trainer:
         self._t_stop = time.time()
         events.emit("train_end", trainer=type(self).__name__,
                     seconds=self.get_training_time())
+        # the quiet after a completed run is not a stall: the watchdog's
+        # rules start over
+        sampler = timeseries.get_sampler()
+        if sampler is not None and sampler.watchdog is not None:
+            sampler.watchdog.quiesce()
+        # rank 0 leaves the merged report.txt beside the event logs, for
+        # abnormal exits too (this also runs before `raise Preempted`);
+        # best-effort, as every emit
+        if events.enabled() and events.rank() == 0:
+            try:
+                from dist_keras_tpu_torch.observability import report
+
+                report.write_report(events.obs_dir())
+            # dklint: ignore[broad-except] best-effort report on the way out
+            except Exception:  # pragma: no cover - fs failure
+                pass
 
     def get_training_time(self):
         if self._t_start is None or self._t_stop is None:
@@ -292,6 +320,17 @@ class Trainer:
         return make_model_step(
             model, loss_fn, tx, self.compute_dtype,
             skip_nonfinite=(self.nan_policy == "skip"))
+
+    def _chunk_put(self, layout, max_units):
+        """The streaming feed's transfer primitive (the JAX package's
+        ``_put_worker_chunk``): a ``data.feed.DevicePut`` onto this
+        trainer's device — host chunk views laid out by ``layout``
+        through a pinned staging ring of ``max_units`` units and a copy
+        stream.  Workers across hosts raise (item 12b)."""
+        from dist_keras_tpu_torch.data.feed import DevicePut
+
+        _refuse_multi_host()
+        return DevicePut(self.device, layout, max_units)
 
     def _device_params(self, params):
         """A copy of a params tree on the trainer's device."""

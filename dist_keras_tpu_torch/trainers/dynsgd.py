@@ -27,6 +27,10 @@ epochs): the payload is the reference's ``{"center", "pulled",
 counters are the schedule's at the saved step (int32, ``(workers,)``
 and ``()``); a resume checks them against the schedule, so a checkpoint
 of another worker count or window is refused.
+
+``stream_chunk_windows=C`` streams the data C windows (C x
+``communication_window`` steps) per chunk through the ``ChunkFeed``;
+``max_resident_bytes`` turns streaming on when the epoch exceeds it.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dist_keras_tpu_torch.trainers.chunking import run_chunked, units_first
+from dist_keras_tpu_torch.trainers.chunking import run_chunked
 from dist_keras_tpu_torch.trainers.windowed import (
     AsynchronousDistributedTrainer,
 )
@@ -98,7 +102,6 @@ class DynSGD(AsynchronousDistributedTrainer):
         xs, ys = self._shards(dataset)  # (workers, steps, batch, ...)
         n, spe = xs.shape[:2]  # workers, steps per epoch
         total_t = self.num_epoch * spe
-        xs, ys = units_first(xs, 1), units_first(ys, 1)
         step, opt_init = self._make_worker_step(model, loss_fn, tx)
 
         commits, _, scale = commit_schedule(
@@ -197,5 +200,7 @@ class DynSGD(AsynchronousDistributedTrainer):
             sync_ref=lambda: center, state_fn=state_fn,
             carry_leaves=(center, pulled, local, opt_state, scale_d,
                           commits_d),
-            worker_axis=True)
+            stream_units=(self.stream_chunk_windows * W
+                          if self.stream_chunk_windows else None),
+            unit_dims=1)
         return self._finalize(center, history)

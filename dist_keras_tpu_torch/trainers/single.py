@@ -7,8 +7,9 @@ JAX package scans all global steps in one jitted dispatch; here the
 steps run as a plain Python loop over the same global step index, on
 the trainer's device:
 
-- the epoch's batches are copied to the device once, and step ``t``
-  reads batch ``t % steps_per_epoch``, as the reference's scan does;
+- the epoch's batches are copied to the device once (or streamed), and
+  step ``t`` reads batch ``t % steps_per_epoch``, as the reference's
+  scan does;
 - each step's loss is written into a device tensor of the chunk, which
   the runner fetches once per chunk (``trainers/chunking.py``);
 - one ``torch.Generator`` on the device, seeded with ``seed``, is the
@@ -21,9 +22,12 @@ casts on the device inside the step.
 Checkpoints are step-granular, as the reference's: the payload is
 ``{"params", "opt_state", "rng", "t_units"}`` saved every
 ``checkpoint_every`` epochs (in steps), ``rng`` being the generator's
-state, so a resumed run continues the very random stream.  Streaming
-(``stream_chunk_steps``, ``max_resident_bytes``) is not ported yet and
-raises.
+state, so a resumed run continues the very random stream.
+
+``stream_chunk_steps=C`` (or a ``max_resident_bytes`` budget the epoch
+exceeds) streams the epoch C steps per chunk through the double-buffered
+``ChunkFeed`` instead of copying it to the card whole
+(``trainers/chunking.py``); the steps read the same rows either way.
 """
 
 from __future__ import annotations
@@ -92,9 +96,11 @@ class SingleTrainer(Trainer):
             params, opt_state, _ = carry
             return losses
 
+        # a dummy leading worker axis: the feed slices axis 1
         history = run_chunked(
-            self, xb, yb, start=start_t, total=self.num_epoch * spb,
-            per_epoch=spb,
+            self, xb[None], yb[None], start=start_t,
+            total=self.num_epoch * spb, per_epoch=spb,
+            stream_units=self.stream_chunk_steps,
             cadence=(self.checkpoint_every * spb
                      if self.checkpoint_every else None),
             samples_per_unit=self.batch_size, dispatch=dispatch,

@@ -25,10 +25,12 @@ zero staleness (DynSGD, whose point is staleness, staggers its commits:
 
 A run is a Python loop over windows, each W worker-stacked steps
 (``trainers/step.py``'s ``make_worker_step``) and then one merge, on data
-resident on the device; window ``g`` reads the epoch's window
-``g % windows_per_epoch``, as the JAX scan does.  Nothing in the loop
-reads a value back to the host: the losses are fetched once per chunk
-(``trainers/chunking.py``).
+resident on the device or streamed to it ``stream_chunk_windows``
+windows per chunk (``trainers/chunking.py``; ``max_resident_bytes``
+turns streaming on when the epoch exceeds it); window ``g`` reads the
+epoch's window ``g % windows_per_epoch``, as the JAX scan does.
+Nothing in the loop reads a value back to the host: the losses are
+fetched once per chunk (``trainers/chunking.py``).
 
 Randomness: one ``torch.Generator`` on the device, seeded with ``seed``,
 feeds every worker's dropout (each worker draws its own mask through
@@ -42,9 +44,6 @@ is the reference's ``{"center", "local", "opt_state", "rng"}`` with the
 generator's state as ``rng``, plus the ``pending`` commit under
 ``comm_overlap`` — and a ``pending`` checkpoint refuses to resume with
 the overlap off, as in the reference.
-
-Not ported yet, each raising: ``stream_chunk_windows`` /
-``max_resident_bytes`` (ROADMAP queue 1, item 20).
 """
 
 from __future__ import annotations
@@ -60,11 +59,7 @@ from dist_keras_tpu_torch.parallel.collectives import (
     tree_psum,
 )
 from dist_keras_tpu_torch.trainers.base import DistributedTrainer
-from dist_keras_tpu_torch.trainers.chunking import (
-    init_streaming,
-    run_chunked,
-    units_first,
-)
+from dist_keras_tpu_torch.trainers.chunking import init_streaming, run_chunked
 from dist_keras_tpu_torch.utils import knobs
 from dist_keras_tpu_torch.utils.pytree import (
     tree_add,
@@ -179,8 +174,7 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         n = xs.shape[0]
         xs = xs[:, :wpe * W].reshape(n, wpe, W, *xs.shape[2:])
         ys = ys[:, :wpe * W].reshape(n, wpe, W, *ys.shape[2:])
-        # resident as (wpe, W, workers, batch, ...)
-        xs, ys = units_first(xs, 2), units_first(ys, 2)
+        # on the card as (wpe, W, workers, batch, ...): run_chunked
         total_w = self.num_epoch * wpe
 
         step, opt_init = self._make_worker_step(model, loss_fn, tx)
@@ -267,7 +261,7 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             samples_per_unit=n * W * self.batch_size, dispatch=dispatch,
             sync_ref=lambda: center, state_fn=state_fn,
             carry_leaves=(center, pending, local, opt_state),
-            worker_axis=True)
+            stream_units=self.stream_chunk_windows, unit_dims=2)
         if overlap:
             # flush the last window's in-flight commit, so the returned
             # center holds every worker's final delta

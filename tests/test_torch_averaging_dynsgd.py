@@ -153,14 +153,3 @@ def test_dynsgd_schedule_is_the_references(steps, window, n):
     assert scale.dtype == np.float32
     np.testing.assert_array_equal(scale, want.astype(np.float32))
     assert staleness.max() > 0   # the schedule exercises the scaling
-
-
-@pytest.mark.parametrize("kw", [
-    {"stream_chunk_steps": 2}, {"max_resident_bytes": 1 << 20}],
-    ids=lambda kw: next(iter(kw)))
-def test_unported_kwargs_raise(kw):
-    _, tm = _models()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        tavg.AveragingTrainer(tm, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        tavg.EnsembleTrainer(tm, device="cpu", **kw)

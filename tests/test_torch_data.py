@@ -93,13 +93,6 @@ def test_misc_helpers_are_identical():
         jmisc.history_average_loss([[1.0, 2.0], [3.0, 4.0]])
 
 
-def test_unported_dataset_constructors_raise():
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tds.Dataset.from_csv("x.csv")
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tds.Dataset.from_spark(object())
-
-
 def test_model_predictor_matches_jax():
     jm = jzoo.higgs_mlp(seed=1)
     tm = tser.deserialize_model(tser.serialize_model(jm))

@@ -160,15 +160,6 @@ def test_nan_policy_halt_matches_jax():
         m["nonfinite_steps"] for m in jt.metrics] == [4]
 
 
-@pytest.mark.parametrize("kw", [
-    {"stream_chunk_steps": 2}, {"max_resident_bytes": 1 << 20}],
-    ids=lambda kw: next(iter(kw)))
-def test_unported_kwargs_raise(kw):
-    _, tm = _models()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-        TSingle(tm, device="cpu", **kw)
-
-
 def test_the_card_is_the_default_device(monkeypatch):
     _, tm = _models()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -320,8 +320,6 @@ def test_eamsgd_chain_follows_optax():
 # -- what is not ported ----------------------------------------------------
 
 @pytest.mark.parametrize("kw,item", [
-    ({"stream_chunk_windows": 2}, "item 20"),
-    ({"max_resident_bytes": 1 << 20}, "item 20"),
     ({"mesh": object()}, "item 12b")], ids=lambda v: str(v)[:24])
 def test_unported_kwargs_raise(kw, item):
     _, tm = _dense()
