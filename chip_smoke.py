@@ -205,9 +205,43 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``step.loss`` NaN through ``DK_FAULTS`` halting a run.  The
    hand-written kernels' counters, zeroed before it, stay 0.
 
+16. the workers across processes: two rank processes (``--mp-role``,
+   started fresh, never forked) join a ``torch.distributed`` group
+   through a ``file://`` rendezvous and share the card under gloo (the
+   backend rule: NCCL only when every rank has a card of its own), each
+   printing its backend and device.  16a: ADAG on the MNIST CNN (dropout
+   0, 4 workers, window 12, 2 windows) split 2 ranks x 2 workers
+   against the 4-worker run in this process on the same rows and
+   weights, and against a witness: the same ADAG merged by hand in this
+   process, its workers stacked 2 + 2 as the ranks stack them.  Sgd in
+   f64 and f32 and adam in f32: every split center within 1e-5 of the
+   largest weight of the witness's, the two ranks' centers bit-equal,
+   and with f64 compute within 1e-5 of the 4-worker run too; the f32
+   runs' distance to the 4-worker run, and the witness's own 2 + 2
+   against 4, printed (the stacked step rounds by batch shape, and
+   adam's +-lr first steps turn that into lr-sized gaps).  16b:
+   ``bench_adag_mnist_cnn``'s shape (batch 2048, window 12,
+   adam, bf16), runs of about 6 s: samples/s of 2 ranks x 2 workers and
+   of one process x 4 workers in turns, medians of 3 (recorded, not
+   gated), the merge's all-reduce per window (collectives, bytes,
+   blocked ms), an overlapped run's ``comm_overlap`` / ``comm_blocked``,
+   and each rank's device idle share under ``torch.profiler``.  16c:
+   phase 10's ADAG gate split over the two ranks (accuracy >= 0.90).
+   16d: under ``DK_COORD_DIR``, deterministic algorithms and a temporary
+   ``DK_OBS_DIR``: two ``SingleTrainer`` ranks, then ADAG 2 x 2, each run
+   uninterrupted, then with a SIGTERM to rank 0 at the end of epoch 2
+   (both ranks ``Preempted`` with code 143 at the agreed step, one
+   committed step, a ``preempt`` flight dump per rank; the second
+   process exit is 143), then resumed: each rank's weights bit-equal to
+   its uninterrupted run.  The hand-written kernels' counters, zeroed in
+   every process, stay 0.
+
+Each phase's seconds are printed as the next one starts, and all of them
+after phase 16.
+
 ``python3 chip_smoke.py --phase12`` runs only phases 1 and 12;
 ``--phase13`` only phases 1 and 13; ``--phase14`` only phases 1 and 14;
-``--phase15`` only phases 1 and 15.
+``--phase15`` only phases 1 and 15; ``--phase16`` only phases 1 and 16.
 ``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
 K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
 two trees' K5 can be timed on the same inputs in one run.
@@ -262,6 +296,33 @@ PEAK_FLOPS_S = {"float32": 67e12,     # f32 outside the tensor cores
                 # on the tensor cores: 495 / 3, the rate the f32 K1 can reach
                 "float32_split_tf32": 495e12 / 3,
                 "bfloat16": 989e12}   # bf16 tensor cores, dense
+
+
+class PhaseClock:
+    """Prints each phase's title as it starts and its seconds as the next
+    one starts; :meth:`summary` prints them all and the total."""
+
+    def __init__(self):
+        self.t0 = self.mark = time.perf_counter()
+        self.name, self.rows = None, []
+
+    def _stop(self):
+        if self.name is not None:
+            dt = time.perf_counter() - self.mark
+            self.rows.append((self.name, dt))
+            print(f"  phase {self.name} took {dt:.1f} s")
+        self.name = None
+
+    def start(self, title):
+        self._stop()
+        print(f"phase {title}")
+        self.name, self.mark = title.split(":")[0], time.perf_counter()
+
+    def summary(self):
+        self._stop()
+        print("phase seconds: " + ", ".join(
+            f"{n} {dt:.1f}" for n, dt in self.rows)
+            + f"; phases 2-16 {time.perf_counter() - self.t0:.1f} s")
 
 
 class SmokeFailure(RuntimeError):
@@ -1634,9 +1695,10 @@ def write_kernel_counts(prefix, fa, fu, da):
     write_record(f"{prefix} {json.dumps(kernel_counts(fa, fu, da))}")
 
 
-def mnist_sets():
+def mnist_sets(rows=None, test_rows=None):
     """The gate's data, as ``tests/test_examples.py``'s ``_prep_mnist``
-    builds it (MinMax to ``fn``, one-hot to ``le``, images to ``fi``)."""
+    builds it (MinMax to ``fn``, one-hot to ``le``, images to ``fi``):
+    ``rows`` / ``test_rows`` (default the full tier's) synthetic rows."""
     from dist_keras_tpu_torch.data import (
         MinMaxTransformer,
         OneHotTransformer,
@@ -1652,8 +1714,8 @@ def mnist_sets():
         return ReshapeTransformer(input_col="fn", output_col="fi",
                                   shape=(28, 28, 1)).transform(ds)
 
-    return (prep(synthetic_mnist(GATE_ROWS, seed=0)),
-            prep(synthetic_mnist(GATE_TEST_ROWS, seed=1)))
+    return (prep(synthetic_mnist(rows or GATE_ROWS, seed=0)),
+            prep(synthetic_mnist(test_rows or GATE_TEST_ROWS, seed=1)))
 
 
 def train_loop(fa, fu, da, gpu):
@@ -5301,6 +5363,722 @@ def data_path(fa, fu, da, gpu, device="cuda", sizes=None):
     print(f"  phase 15 wall {time.perf_counter() - t0:.1f} s on {gpu}")
 
 
+# -- phase 16: the workers across processes ---------------------------------
+MP_RANKS = 2
+MP_TIMEOUT_S = 300      # the longest any one rank process may run
+PARITY_TOL = 1e-5       # 16a: of the largest center weight
+# 16a's runs (optimizer, compute dtype, whether the split is held to the
+# 4-worker run too): each split run is held to PARITY_TOL against the
+# witness, the same ADAG merged by hand in this process with the workers
+# stacked 2 + 2 as the ranks stack them (parity_by_hand); against the
+# 4-worker run only f64 compute is held, as in f32 the stacked step of 2
+# workers may round otherwise than that of 4, and adam's +-lr first steps
+# (wherever a gradient is within rounding of 0) turn that into lr-sized
+# gaps: the witness's own 2 + 2 against 4 reading shows how far
+PARITY_RUNS = (("sgd", "float64", True), ("sgd", None, False),
+               ("adam", None, False))
+PHASE16 = dict(
+    parity_batch=32, parity_steps=24,          # 2 windows of 12, f32
+    bench_batch=ADAG_BENCH_BATCH, bench_steps=ADAG_BENCH_STEPS,
+    bench_seconds=6.0, bench_runs=BENCH_RUNS,
+    gate_rows=GATE_ROWS, gate_test_rows=GATE_TEST_ROWS,
+    gate_epochs=GATE_EPOCHS, gate_acc=GATE_ACC,
+    det_rows=4096, det_epochs=4, det_kill_epoch=2, det_batch=64,
+    det_window=4)
+
+
+def mp_data(n, seed, shape=(28, 28, 1), classes=10):
+    """Random images and one-hot labels, made from ``seed``: the same
+    rows in every process that asks."""
+    from dist_keras_tpu_torch.data import Dataset
+
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, n)
+    return Dataset({"features": rng.standard_normal(
+        (n, *shape), dtype=np.float32), "label": y,
+        "label_encoded": np.eye(classes, dtype=np.float32)[y]})
+
+
+def mp_parity_trainer(p, device, optimizer, compute, **kw):
+    """16a's ADAG: the MNIST CNN with dropout 0 (one generator per
+    process draws other masks than one for all four workers), 4 workers,
+    window 12, f32 params, ``optimizer`` at its default rate, ``compute``
+    (a dtype name, or None for f32) for the step."""
+    import torch
+
+    from dist_keras_tpu_torch.trainers import ADAG
+
+    return ADAG(no_dropout_cnn(0), num_workers=ADAG_WORKERS,
+                communication_window=ADAG_WINDOW, worker_optimizer=optimizer,
+                batch_size=p["parity_batch"], num_epoch=1,
+                label_col="label_encoded", device=device,
+                compute_dtype=compute and getattr(torch, compute), **kw)
+
+
+def parity_label(opt, compute):
+    return f"{opt}_{compute or 'float32'}"
+
+
+def parity_by_hand(p, device, ds, opt, compute, splits):
+    """16a's witness: the parity run's ADAG in this process, its workers
+    stacked as ``splits`` (``[lo, hi)`` ranges, each stepped on its own
+    stack) and each window's deltas summed range by range, as the ranks'
+    all-reduce sums them; -> the center's leaves.  ``[(0, 4)]`` is the
+    4-worker run's stacking, ``[(0, 2), (2, 4)]`` the ranks'."""
+    import torch
+
+    from dist_keras_tpu_torch.parallel.collectives import tree_psum
+    from dist_keras_tpu_torch.utils.bridge import params_to_numpy
+    from dist_keras_tpu_torch.utils.pytree import (
+        tree_add,
+        tree_merge_floats,
+        tree_stack,
+    )
+
+    t = mp_parity_trainer(p, device, opt, compute)
+    model, loss_fn, tx = t._resolve()
+    step, opt_init = t._make_worker_step(model, loss_fn, tx)
+    xs, ys = t._shards(ds)            # (workers, steps, batch, ...)
+    center = t._device_params(model.params)
+    parts = [[tree_stack(center, hi - lo),
+              t._stack_workers(opt_init(center), hi - lo)]
+             for lo, hi in splits]
+    generator = torch.Generator(device=t.device).manual_seed(t.seed)
+    W = t.communication_window
+    for w in range(xs.shape[1] // W):
+        total = None
+        for (lo, hi), part in zip(splits, parts):
+            carry = (part[0], part[1], generator)
+            for j in range(w * W, (w + 1) * W):
+                carry, _ = step(carry, (
+                    torch.as_tensor(xs[lo:hi, j], device=t.device),
+                    torch.as_tensor(ys[lo:hi, j], device=t.device)))
+            part[0], part[1] = carry[0], carry[1]
+            d = tree_psum(t.commit(center, part[0]))
+            total = d if total is None else tree_add(total, d)
+        center = tree_merge_floats(tree_add(center, total), center)
+        for (lo, hi), part in zip(splits, parts):
+            part[0] = tree_merge_floats(tree_stack(center, hi - lo), part[0])
+    return [v for layer in params_to_numpy(center) for v in layer.values()]
+
+
+def leaves_err(got, want):
+    """Max abs difference of two leaf lists, over ``want``'s largest
+    weight."""
+    top = max(float(np.abs(w).max()) for w in want)
+    return max(float(np.abs(g - w).max()) for g, w in zip(got, want)) / top
+
+
+def mp_bench_run(ds, epochs, p, device, workers=ADAG_WORKERS, **kw):
+    """One run at ``bench_adag_mnist_cnn``'s shape -> (samples/s over
+    ``get_training_time()``, the trainer); the samples are every rank's
+    (the history is gathered).  ``workers`` over ``ds``'s rows: each
+    worker steps ``bench_steps // ADAG_WORKERS`` times an epoch when
+    ``ds`` holds ``workers / ADAG_WORKERS`` of the bench's rows."""
+    import torch
+
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.trainers import ADAG
+
+    t = ADAG(mnist_cnn(), num_workers=workers,
+             communication_window=ADAG_WINDOW, worker_optimizer="adam",
+             batch_size=p["bench_batch"], num_epoch=epochs,
+             label_col="label_encoded", compute_dtype=torch.bfloat16,
+             device=device, **kw)
+    t.train(ds)
+    h = np.asarray(t.get_history())
+    windows = p["bench_steps"] // ADAG_WORKERS // ADAG_WINDOW
+    require(h.shape == (workers, epochs, windows, ADAG_WINDOW)
+            and np.isfinite(h).all(),
+            f"the bench run's history {h.shape} is not finite")
+    return h.size * p["bench_batch"] / t.get_training_time(), t
+
+
+def mp_det_trainer(name, p, device, **kw):
+    """16d's trainers: SingleTrainer on the MNIST MLP, ADAG on the MNIST
+    CNN with dropout (4 workers, 2 a rank), adam."""
+    from dist_keras_tpu_torch.models import mnist_cnn, mnist_mlp
+    from dist_keras_tpu_torch.trainers import ADAG, SingleTrainer
+
+    common = dict(worker_optimizer="adam", batch_size=p["det_batch"],
+                  num_epoch=p["det_epochs"], label_col="label_encoded",
+                  seed=3, device=device, **kw)
+    if name == "single":
+        return SingleTrainer(mnist_mlp(seed=0), features_col="flat",
+                             **common)
+    return ADAG(mnist_cnn(seed=0), num_workers=ADAG_WORKERS,
+                communication_window=p["det_window"], **common)
+
+
+def mp_det_data(p):
+    ds = mp_data(p["det_rows"], 4)
+    return ds.with_column("flat", ds["features"].reshape(p["det_rows"], -1))
+
+
+def save_leaves(path, leaves):
+    np.savez(path, **{f"{i:04d}": v for i, v in enumerate(leaves)})
+
+
+def load_leaves(path):
+    z = np.load(path)
+    return [z[k] for k in sorted(z.files)]
+
+
+class Gates:
+    """Files in ``work`` that order the parent and the ranks: the parent
+    opens ``<name>.go`` (with a JSON body), each rank answers
+    ``<name>.<rank>.json``."""
+
+    def __init__(self, work, procs=()):
+        self.work, self.procs = Path(work), list(procs)
+
+    def _wait(self, path, what):
+        t0 = time.perf_counter()
+        while not path.exists():
+            dead = [p for p in self.procs if p.poll() is not None]
+            require(not dead, f"{what}: a rank exited first: " + "; ".join(
+                f"{p.label} rc={p.returncode}" for p in dead))
+            require(time.perf_counter() - t0 < MP_TIMEOUT_S,
+                    f"{what}: no answer in {MP_TIMEOUT_S} s")
+            time.sleep(0.01)
+
+    def open(self, name, body=None):
+        tmp = self.work / f"{name}.go.tmp"
+        tmp.write_text(json.dumps(body or {}))
+        os.replace(tmp, self.work / f"{name}.go")
+
+    def wait_open(self, name):
+        path = self.work / f"{name}.go"
+        self._wait(path, f"gate {name}")
+        return json.loads(path.read_text())
+
+    def answer(self, name, rank, body):
+        tmp = self.work / f"{name}.{rank}.json.tmp"
+        tmp.write_text(json.dumps(body))
+        os.replace(tmp, self.work / f"{name}.{rank}.json")
+
+    def answers(self, name, world=MP_RANKS):
+        out = []
+        for r in range(world):
+            path = self.work / f"{name}.{r}.json"
+            self._wait(path, f"{name} from rank {r}")
+            out.append(json.loads(path.read_text()))
+        return out
+
+
+def mp_role(cfg):
+    """A rank of phase 16, started fresh by :func:`workers_across_processes`
+    (``--mp-role JSON``): joins the group through the ``file://``
+    rendezvous ``cfg["rdv"]`` (``JAX_*`` variables, as ``launch.Job``
+    exports them), prints ``MP_INIT`` (its backend and device), runs
+    ``cfg["tasks"]`` and prints its K1-K5 counters, zeroed at its start,
+    as ``MP_KERNELS {json}`` however it ends."""
+    for k, v in cfg.get("env", {}).items():
+        os.environ[k] = v
+    if "DK_COORD_DIR" in os.environ:
+        os.environ["DK_COORD_RANK"] = str(cfg["rank"])
+    os.environ["JAX_COORDINATOR_ADDRESS"] = "file://" + cfg["rdv"]
+    os.environ["JAX_NUM_PROCESSES"] = str(cfg["world"])
+    os.environ["JAX_PROCESS_ID"] = str(cfg["rank"])
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from dist_keras_tpu_torch import comm
+    from dist_keras_tpu_torch.ops import decode_attention as da
+    from dist_keras_tpu_torch.ops import flash_attention as fa
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
+
+    zero_kernel_counts(fa, fu, da)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        comm.initialize(device=cfg["device"])
+        g = comm.group_info()
+        write_record("MP_INIT " + json.dumps({
+            "rank": g.rank, "world": g.world, "backend": g.backend,
+            "device": str(g.device), "local_world": g.local_world,
+            "init_s": time.perf_counter() - t0}))
+        gates = Gates(cfg["work"])
+        for task in cfg["tasks"]:
+            MP_TASKS[task](cfg, gates, g.rank)
+        return 0
+    finally:
+        write_kernel_counts("MP_KERNELS", fa, fu, da)
+        comm.shutdown()
+
+
+def mp_task_parity(cfg, gates, rank):
+    """16a's split runs (:data:`PARITY_RUNS`): rank r stacks workers
+    [2r, 2r+2)."""
+    import torch
+
+    from dist_keras_tpu_torch.utils.bridge import params_to_numpy
+
+    p = cfg["sizes"]
+    ds = mp_data(ADAG_WORKERS * p["parity_steps"] * p["parity_batch"], 1)
+    torch.backends.cudnn.deterministic = True
+    for opt, compute, _ in PARITY_RUNS:
+        t = mp_parity_trainer(p, cfg["device"], opt, compute)
+        m = t.train(ds)
+        label = parity_label(opt, compute)
+        save_leaves(Path(cfg["work"]) / f"parity_{label}_{rank}.npz",
+                    [v for layer in params_to_numpy(m.params)
+                     for v in layer.values()])
+    torch.backends.cudnn.deterministic = False
+    gates.answer("parity", rank, {"lo": t.mesh.lo, "hi": t.mesh.hi,
+                                  "history": list(np.shape(
+                                      t.get_history()))})
+
+
+def mp_task_bench(cfg, gates, rank):
+    """16b's split runs, each opened by the parent (which times its own
+    one-process run between them): a warm-up, the timed runs, one
+    overlapped run and one under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dist_keras_tpu_torch.observability import metrics
+    from dist_keras_tpu_torch.parallel import collectives
+
+    p = cfg["sizes"]
+    ds = mp_data(p["bench_batch"] * p["bench_steps"], 0)
+    for k in ["warm"] + list(range(p["bench_runs"])):
+        epochs = gates.wait_open(f"bench_{k}")["epochs"]
+        collectives.reduce_stats(reset=True)
+        metrics.reset()
+        sps, t = mp_bench_run(ds, epochs, p, cfg["device"])
+        red = collectives.reduce_stats()
+        hists = metrics.snapshot()["histograms"]
+        gates.answer(f"bench_{k}", rank, {
+            "sps": sps, "seconds": t.get_training_time(),
+            "windows": epochs, "reduce": red,
+            "blocked_ms": hists.get("perf.phase.comm_blocked", {}).get(
+                "total", 0.0) * 1e3})
+    body = gates.wait_open("bench_extra")
+    epochs = body["epochs"]
+    red = collectives.reduce_stats()
+    metrics.reset()
+    collectives.reduce_stats(reset=True)
+    sps, t = mp_bench_run(ds, body["overlap_epochs"], p, cfg["device"],
+                          comm_overlap=True)
+    hists = metrics.snapshot()["histograms"]
+    overlap = {"sps": sps, "reduce": collectives.reduce_stats(),
+               "windows": body["overlap_epochs"],
+               "seconds": t.get_training_time(),
+               "phases": {ph: {"count": hists[f"perf.phase.{ph}"]["count"],
+                               "total_ms": hists[f"perf.phase.{ph}"]["total"]
+                               * 1e3}
+                          for ph in ("comm_overlap", "comm_blocked")}}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        _, t = mp_bench_run(ds, epochs, p, cfg["device"])
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    gates.answer("bench_extra", rank, {
+        "overlap": overlap, "busy_ms": busy_ms,
+        "train_ms": t.get_training_time() * 1e3,
+        "ops": sum(e.count for e in ops),
+        "allreduce_ms": allreduce_alone(red["bytes"] // red["calls"],
+                                        cfg["device"])})
+
+
+def allreduce_alone(nbytes, device, reps=20):
+    """The merge's all-reduce without the window before it: one f32
+    bucket of ``nbytes`` on ``device``, after a barrier with the card
+    idle; -> ms a call (median of ``reps``)."""
+    import torch
+    import torch.distributed as dist
+
+    from dist_keras_tpu_torch import comm
+
+    x = torch.ones(nbytes // 4, device=device)
+    on_card = x.device.type == "cuda"
+    times = []
+    for i in range(reps + 3):
+        if on_card:
+            torch.cuda.synchronize()
+        comm.barrier(f"allreduce_{i}")
+        t0 = time.perf_counter()
+        dist.all_reduce(x)
+        if on_card:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[3:])) * 1e3
+
+
+def mp_task_gate(cfg, gates, rank):
+    """16c: phase 10's ADAG gate config split over the ranks."""
+    import torch
+
+    from dist_keras_tpu_torch.data import Dataset
+    from dist_keras_tpu_torch.models import mnist_cnn
+    from dist_keras_tpu_torch.trainers import ADAG
+
+    p = cfg["sizes"]
+    gates.wait_open("gate")
+    z = np.load(Path(cfg["work"]) / "gate.npz")
+    train = Dataset({"fi": z["train_fi"], "le": z["train_le"]})
+    test = Dataset({"fi": z["test_fi"], "label": z["test_label"]})
+    torch.backends.cudnn.deterministic = True
+    t = ADAG(mnist_cnn(), num_workers=ADAG_WORKERS,
+             communication_window=ADAG_WINDOW, worker_optimizer="adam",
+             optimizer_kwargs={"learning_rate": 3e-3}, batch_size=64,
+             num_epoch=p["gate_epochs"], features_col="fi", label_col="le",
+             device=cfg["device"])
+    model = t.train(train, shuffle=True)
+    torch.backends.cudnn.deterministic = False
+    hist = np.asarray(t.get_history())
+    gates.answer("gate", rank, {
+        "acc": accuracy(model, test, "fi", device=cfg["device"]),
+        "history": list(hist.shape), "finite": bool(np.isfinite(hist).all()),
+        "seconds": t.get_training_time(), "lo": t.mesh.lo,
+        "hi": t.mesh.hi})
+
+
+def mp_task_det(cfg, gates, rank):
+    """16d: SingleTrainer then ADAG, each uninterrupted (``mode`` full),
+    preempted by a SIGTERM to rank 0 at the end of epoch
+    ``det_kill_epoch`` (preempt) or resumed (resume), under deterministic
+    algorithms; the weights go to ``<name>_<mode>_<rank>.npz``.  A
+    preempted SingleTrainer's ``Preempted`` is caught and recorded so
+    that the ADAG run follows in the same process; the ADAG run's is not:
+    the process exits with its code."""
+    import signal
+
+    from dist_keras_tpu_torch.resilience import preemption
+    from dist_keras_tpu_torch.resilience.preemption import Preempted
+
+    p, mode = cfg["sizes"], cfg["mode"]
+    ds = mp_det_data(p)
+    if mode != "full":
+        gates.wait_open(mode)
+    deterministic(True)
+
+    def sigterm(trainer, epoch, logs):
+        if mode == "preempt" and rank == 0 and epoch == p["det_kill_epoch"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    for name in ("single", "adag"):
+        kw = {} if mode == "full" else dict(
+            checkpoint_dir=os.path.join(cfg["work"], f"ck_{name}"),
+            checkpoint_every=p["det_kill_epoch"], max_checkpoints=10,
+            handle_preemption=True, resume=mode == "resume",
+            callbacks=[sigterm])
+        t = mp_det_trainer(name, p, cfg["device"], **kw)
+        try:
+            m = t.train(ds, shuffle=True)
+        except Preempted as e:
+            gates.answer(f"{name}_preempt", rank, {
+                "code": e.code, "saved": e.saved_step})
+            if name == "adag":
+                raise
+            preemption.clear()
+            continue
+        save_leaves(Path(cfg["work"]) / f"{name}_{mode}_{rank}.npz",
+                    m.get_weights())
+    gates.answer(f"det_{mode}", rank, {})
+
+
+def mp_task_solo(cfg, gates, rank):
+    """16b's control, after every task that needs the group: the rank
+    leaves the group and, at the parent's gate, trains its 2 workers on
+    its half of the bench's rows alone (world 1, no collective) while
+    the other rank does the same, the two processes sharing the card."""
+    from dist_keras_tpu_torch import comm
+    from dist_keras_tpu_torch.resilience import coordination
+
+    for k in ("DK_COORD_DIR", "DK_COORD_WORLD", "DK_COORD_RANK",
+              "DK_COORD_SESSION", "JAX_COORDINATOR_ADDRESS",
+              "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        os.environ.pop(k, None)
+    coordination.reset()
+    comm.shutdown()
+    deterministic(False)
+    p = cfg["sizes"]
+    workers = ADAG_WORKERS // MP_RANKS
+    ds = mp_data(p["bench_batch"] * p["bench_steps"] * workers
+                 // ADAG_WORKERS, 0)
+    for k in ("solo_warm", "solo"):
+        epochs = gates.wait_open(k)["epochs"]
+        sps, t = mp_bench_run(ds, epochs, p, cfg["device"], workers=workers)
+        gates.answer(k, rank, {"sps": sps, "seconds": t.get_training_time(),
+                               "world": t.mesh.world})
+
+
+MP_TASKS = {"parity": mp_task_parity, "bench": mp_task_bench,
+            "gate": mp_task_gate, "det": mp_task_det, "solo": mp_task_solo}
+
+
+class MPProcs(RoleProcs):
+    """Phase 16's rank processes (``--mp-role``)."""
+
+    def __init__(self, work):
+        super().__init__(work, "--mp-role", "MP_KERNELS", MP_TIMEOUT_S)
+
+    def launch(self, label, tasks, device, sizes, **extra):
+        """``MP_RANKS`` ranks of one group (a ``file://`` rendezvous of
+        their own) running ``tasks``."""
+        rdv = self.work / f"{label}.rdv"
+        return [self.spawn(f"{label}_{r}", {
+            "rank": r, "world": MP_RANKS, "rdv": str(rdv), "tasks": tasks,
+            "work": str(self.work), "device": device, "sizes": sizes,
+            **extra}) for r in range(MP_RANKS)]
+
+    def init(self, p):
+        out = self.output(p)
+        m = re.search(r"^MP_INIT (.*)$", out, re.M)
+        require(m, f"{p.label}: no MP_INIT line: {out[-400:]}")
+        return json.loads(m.group(1))
+
+
+def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
+    """Phase 16: the windowed trainers split over two rank processes on
+    the card (gloo: the ranks share it): 16a parity with the one-process
+    run, 16b samples/s beside it in turns, 16c the ADAG gate, 16d
+    coordinated preemption and a bit-equal resume; no hand-written
+    kernel launched in any process."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dist_keras_tpu_torch import comm
+    from dist_keras_tpu_torch.utils.bridge import params_to_numpy
+
+    p = {**PHASE16, **(sizes or {})}
+    t0 = time.perf_counter()
+    zero_kernel_counts(fa, fu, da)
+    work = Path(tempfile.mkdtemp(prefix="dk_mp_phase16_"))
+    procs = MPProcs(work)
+    gates = Gates(work)
+    obs = {m: str(work / f"obs_{m}") for m in ("full", "preempt", "resume")}
+
+    def det_env(mode):
+        # DK_COORD_RANK is each rank's own (mp_role sets it)
+        return {"DK_COORD_DIR": str(work / "coord"),
+                "DK_COORD_WORLD": str(MP_RANKS),
+                "DK_COORD_SESSION": mode, "DK_OBS_DIR": obs[mode],
+                "DK_COORD_TIMEOUT_S": "120"}
+
+    try:
+        main = procs.launch("main", ["parity", "bench", "gate", "det",
+                                     "solo"],
+                            device, p, mode="full", env=det_env("full"))
+        gates.procs = main
+        # 16c's rows, made while the ranks start (the ranks load them)
+        train, test = mnist_sets(p["gate_rows"], p["gate_test_rows"])
+        np.savez(work / "gate.npz", train_fi=train["fi"],
+                 train_le=train["le"], test_fi=test["fi"],
+                 test_label=test["label"])
+        del train, test
+        print("phase 16a: ADAG split over 2 ranks x 2 workers against the "
+              "one-process run")
+        ds = mp_data(ADAG_WORKERS * p["parity_steps"] * p["parity_batch"], 1)
+        if torch.device(device).type == "cuda":
+            torch.backends.cudnn.deterministic = True
+        want = {parity_label(opt, compute): [
+            v for layer in params_to_numpy(mp_parity_trainer(
+                p, device, opt, compute).train(ds).params)
+            for v in layer.values()] for opt, compute, _ in PARITY_RUNS}
+        # the witness: the same runs merged by hand, stacked 4 and 2 + 2
+        by_hand = {parity_label(opt, compute): {
+            k: parity_by_hand(p, device, ds, opt, compute, splits)
+            for k, splits in (("4", [(0, 4)]), ("2+2", [(0, 2), (2, 4)]))}
+            for opt, compute, _ in PARITY_RUNS}
+        torch.backends.cudnn.deterministic = False
+        ans = gates.answers("parity")
+        for r, q in enumerate(main):
+            init = procs.init(q)
+            print(f"  rank {r}: backend {init['backend']} on "
+                  f"{init['device']} (world {init['world']}, "
+                  f"{init['local_world']} on this host), group up in "
+                  f"{init['init_s']:.2f} s")
+            want_backend = comm.select_backend(
+                MP_RANKS, torch.cuda.device_count(),
+                torch.device(device).type == "cpu")
+            require(init["backend"] == want_backend,
+                    f"rank {r}: backend {init['backend']}, the rule says "
+                    f"{want_backend}")
+        print(f"  ADAG mnist_cnn (dropout 0), 4 workers, window 12, f32 "
+              f"params, batch {p['parity_batch']}, 2 windows: ranks' slots "
+              f"{[(a['lo'], a['hi']) for a in ans]}, history "
+              f"{ans[0]['history']}")
+        for opt, compute, held in PARITY_RUNS:
+            label = parity_label(opt, compute)
+            leaves = want[label]
+            hand = by_hand[label]
+            centers = [load_leaves(work / f"parity_{label}_{r}.npz")
+                       for r in range(MP_RANKS)]
+            err = leaves_err(centers[0], leaves)
+            err_hand = leaves_err(centers[0], hand["2+2"])
+            shape = leaves_err(hand["2+2"], hand["4"])
+            control = leaves_err(hand["4"], leaves)
+            same = all(np.array_equal(a, b) for a, b in zip(*centers))
+            print(f"  {opt}, {compute or 'float32'} compute (max abs err of "
+                  f"the largest weight): the split center against the "
+                  f"witness merged by hand 2 + 2 {err_hand:.3e} (held to "
+                  f"{PARITY_TOL:g}), against the one-process run {err:.3e} ("
+                  + (f"held to {PARITY_TOL:g}" if held else "printed")
+                  + f"); the witness 2 + 2 against 4 {shape:.3e}, the "
+                  f"witness 4 against the one-process run (control) "
+                  f"{control:.3e}; the two ranks' centers bit-equal: {same} "
+                  f"on {gpu}")
+            require(same and err_hand <= PARITY_TOL
+                    and (err <= PARITY_TOL or not held),
+                    f"16a {label}: split center err {err} (against the "
+                    f"witness {err_hand}), ranks equal {same}")
+
+        print("phase 16b: samples/s at bench_adag_mnist_cnn's shape, 2 "
+              "ranks x 2 workers beside one process x 4 workers, in turns")
+        bench = mp_data(p["bench_batch"] * p["bench_steps"], 0)
+        warm, _ = mp_bench_run(bench, 2, p, device)
+        n = p["bench_batch"] * p["bench_steps"]
+        epochs = max(2, int(p["bench_seconds"] * warm / n))
+        gates.open("bench_warm", {"epochs": 2})
+        split_warm = gates.answers("bench_warm")
+        one, split = [], []
+        for k in range(p["bench_runs"]):
+            one.append(mp_bench_run(bench, epochs, p, device)[0])
+            gates.open(f"bench_{k}", {"epochs": epochs})
+            split.append(gates.answers(f"bench_{k}"))
+        gates.open("bench_extra", {"epochs": 2, "overlap_epochs": epochs})
+        extra = gates.answers("bench_extra")
+        s_one = float(np.median(one))
+        s_split = float(np.median([a[0]["sps"] for a in split]))
+        print(f"  one process x 4 workers: {s_one:.1f} samples/s (median of "
+              f"{len(one)} runs of {epochs} epochs: "
+              f"{', '.join(f'{v:.1f}' for v in one)}; warm-up {warm:.1f})")
+        print(f"  2 ranks x 2 workers: {s_split:.1f} samples/s (median of "
+              f"{len(split)}; rank 0 / rank 1 per run: " + "; ".join(
+                  f"{a[0]['sps']:.1f} / {a[1]['sps']:.1f}" for a in split)
+              + f"; warm-up {split_warm[0]['sps']:.1f}) = "
+              f"{s_split / s_one:.3f} of the one-process rate on {gpu}")
+        red = split[-1][0]["reduce"]
+        w = split[-1][0]["windows"]
+        print(f"  the merge's all-reduce ({init['backend']}, tensors on "
+              f"{init['device']}), rank 0: "
+              f"{red['calls'] / w:.0f} collective(s) and "
+              f"{red['bytes'] / w / 1e6:.3f} MB a window, "
+              f"{red['seconds'] / w * 1e3:.3f} ms a window blocked "
+              f"(perf.phase.comm_blocked "
+              f"{split[-1][0]['blocked_ms'] / w:.3f} ms) of "
+              f"{split[-1][0]['seconds'] / w * 1e3:.3f} ms a window")
+        print(f"  the same all-reduce alone (one {red['bytes'] / w / 1e6:.3f} "
+              f"MB bucket, the card idle, after a barrier): "
+              + " / ".join(f"{a['allreduce_ms']:.3f}" for a in extra)
+              + f" ms on rank 0 / rank 1 (median of 20) on {gpu}")
+        for r, a in enumerate(extra):
+            ov = a["overlap"]
+            ph = ov["phases"]
+            print(f"  rank {r}, overlapped (comm_overlap=True, "
+                  f"{ov['windows']} epochs): {ov['sps']:.1f} samples/s = "
+                  f"{ov['sps'] / s_split:.3f} of the blocked split median, "
+                  f"{ov['seconds'] / ov['windows'] * 1e3:.3f} ms a window, "
+                  f"comm_overlap {ph['comm_overlap']['total_ms']:.3f} ms "
+                  f"over {ph['comm_overlap']['count']} submits, comm_blocked "
+                  f"{ph['comm_blocked']['total_ms']:.3f} ms over "
+                  f"{ph['comm_blocked']['count']} waits; under "
+                  f"torch.profiler (2 epochs): device busy "
+                  f"{a['busy_ms']:.3f} ms in {a['ops']} operations of "
+                  f"{a['train_ms']:.3f} ms training: idle "
+                  f"{max(0.0, 1 - a['busy_ms'] / a['train_ms']):.1%} on {gpu}")
+
+        print("phase 16c: phase 10's ADAG gate split over 2 ranks")
+        # 16d's later incarnations start now, and wait at their gates
+        pre = procs.launch("preempt", ["det"], device, p, mode="preempt",
+                           env=det_env("preempt"))
+        res = procs.launch("resume", ["det"], device, p, mode="resume",
+                           env=det_env("resume"))
+        gates.open("gate")
+        ans = gates.answers("gate")
+        for r, a in enumerate(ans):
+            print(f"  rank {r} (workers [{a['lo']}, {a['hi']})): accuracy "
+                  f"{a['acc']:.4f} (threshold {p['gate_acc']:.2f}), history "
+                  f"{a['history']}, training {a['seconds']:.3f} s on {gpu}")
+            require(a["finite"] and a["acc"] >= p["gate_acc"],
+                    f"16c rank {r}: accuracy {a['acc']}")
+
+        print("phase 16d: coordinated preemption and a bit-equal resume "
+              "(SingleTrainer, then ADAG 2 x 2; DK_COORD_DIR)")
+        gates.answers("det_full")
+        # 16b's control: the ranks out of the group, training alone at once
+        gates.open("solo_warm", {"epochs": 2})
+        gates.answers("solo_warm")
+        gates.open("solo", {"epochs": epochs})
+        solo = gates.answers("solo")
+        s_solo = sum(a["sps"] for a in solo)
+        print(f"  16b's control: the two ranks out of the group (world "
+              f"{[a['world'] for a in solo]}), each training its 2 workers "
+              f"on half the rows alone, at once: "
+              + " + ".join(f"{a['sps']:.1f}" for a in solo)
+              + f" = {s_solo:.1f} samples/s = {s_solo / s_one:.3f} of the "
+              f"one-process rate, {s_solo / s_split:.3f} of the split's "
+              f"({epochs} epochs) on {gpu}")
+        require(all(a["world"] == 1 for a in solo),
+                f"16b's control ran in a group: {solo}")
+        for q in main:
+            procs.finish(q)
+            require(q.returncode == 0, f"{q.label} exited {q.returncode}")
+        gates.procs = pre
+        gates.open("preempt")
+        for q in pre:
+            procs.finish(q)
+            require(q.returncode == 143, f"{q.label} exited {q.returncode}, "
+                    f"wanted 143: {procs.output(q)[-600:]}")
+        from dist_keras_tpu_torch.checkpoint import Checkpointer
+
+        spe = {"single": p["det_rows"] // p["det_batch"],
+               "adag": p["det_rows"] // ADAG_WORKERS // p["det_batch"]
+               // p["det_window"]}
+        for name in ("single", "adag"):
+            got = gates.answers(f"{name}_preempt")
+            steps = Checkpointer(str(work / f"ck_{name}"), rank=0,
+                                 world=MP_RANKS).all_steps()
+            agreed = p["det_kill_epoch"] * spe[name]
+            print(f"  {name}: Preempted codes {[a['code'] for a in got]}, "
+                  f"saved steps {[a['saved'] for a in got]}, committed "
+                  f"steps {steps} (agreed {agreed})")
+            require(all(a["code"] == 143 and a["saved"] == agreed
+                        for a in got) and steps == [agreed],
+                    f"16d {name}: {got}, steps {steps}")
+        dumps = sorted(Path(obs["preempt"]).glob("flightrec-*-preempt.json"))
+        by_rank = sorted({d.name.split("-")[1] for d in dumps})
+        print(f"  preempt flight dumps: {len(dumps)} ({by_rank})")
+        require(by_rank == [f"rank_{r}" for r in range(MP_RANKS)],
+                f"16d: preempt dumps {[d.name for d in dumps]}")
+        gates.procs = res
+        gates.open("resume")
+        for q in res:
+            procs.finish(q)
+            require(q.returncode == 0, f"{q.label} exited {q.returncode}: "
+                    f"{procs.output(q)[-600:]}")
+        for name in ("single", "adag"):
+            equal = all(
+                all(np.array_equal(a, b) for a, b in zip(
+                    load_leaves(work / f"{name}_full_{r}.npz"),
+                    load_leaves(work / f"{name}_resume_{r}.npz")))
+                for r in range(MP_RANKS))
+            print(f"  {name}: each rank's resumed weights bit-equal to its "
+                  f"uninterrupted run: {equal} on {gpu}")
+            require(equal, f"16d {name}: the resume differs")
+    finally:
+        procs.close()
+        shutil.rmtree(work, ignore_errors=True)
+    counts = kernel_counts(fa, fu, da)
+    procs.add_kernels("phase 16's own process", counts)
+    print(f"  hand-written kernels launched by phase 16, summed over its "
+          f"{len(procs.counted)} processes: {procs.kernels} (none is on "
+          f"this path)")
+    require(len(procs.counted) == len(procs.procs) + 1,
+            f"{len(procs.procs) + 1 - len(procs.counted)} of phase 16's "
+            f"processes reported no launch counters")
+    require(not any(procs.kernels.values()),
+            f"phase 16 launched a hand-written kernel: {procs.kernels}")
+    print(f"  phase 16 wall {time.perf_counter() - t0:.1f} s on {gpu}")
+
+
 def main(argv=None):
     import argparse
 
@@ -5324,17 +6102,25 @@ def main(argv=None):
     ap.add_argument("--phase15", action="store_true",
                     help="run only phase 1 (the card) and phase 15 (the "
                          "data path); no kernel is built")
+    ap.add_argument("--phase16", action="store_true",
+                    help="run only phase 1 (the card) and phase 16 (the "
+                         "workers across processes); no kernel is built")
     ap.add_argument("--ps-role", metavar="JSON",
                     help="(phase 13's own processes) run one server or "
                          "worker of the phase, configured by JSON")
     ap.add_argument("--serve-role", metavar="JSON",
                     help="(phase 14's own processes) run one decode "
                          "backend of the phase, configured by JSON")
+    ap.add_argument("--mp-role", metavar="JSON",
+                    help="(phase 16's own processes) run one rank of the "
+                         "phase, configured by JSON")
     a = ap.parse_args(argv)
     if a.ps_role:
         return ps_role(json.loads(a.ps_role))
     if a.serve_role:
         return serve_role(json.loads(a.serve_role))
+    if a.mp_role:
+        return mp_role(json.loads(a.mp_role))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -5377,6 +6163,10 @@ def main(argv=None):
         print("phase 15: the data path on the card")
         data_path(fa, fu, da, gpu)
         return 0
+    if a.phase16:
+        print("phase 16: the workers across processes on the card")
+        workers_across_processes(fa, fu, da, gpu)
+        return 0
     if a.phase14:
         print("phase 14: the serving fabric on the card")
         built = _build.build(["flash_fwd", "paged_decode"])
@@ -5388,7 +6178,8 @@ def main(argv=None):
     # phases 1-7 run the knob-off backward (K2 + K3); phase 7b turns it on
     os.environ.pop("DK_FUSED_BWD", None)
 
-    print("phase 2: build the kernels")
+    clock = PhaseClock()
+    clock.start("2: build the kernels")
     t0 = time.perf_counter()
     libs = ["flash_fwd", "flash_bwd", "fused_bwd", "paged_decode"]
     built = _build.build(libs)
@@ -5445,45 +6236,45 @@ def main(argv=None):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    print("phase 3: flash_fwd against its plain version")
+    clock.start("3: flash_fwd against its plain version")
     check_flash(fa, rng, dev)
-    print("phase 3b: flash_bwd_dq / flash_bwd_dkv against their plain "
+    clock.start("3b: flash_bwd_dq / flash_bwd_dkv against their plain "
           "version, and autograd through them")
     check_flash_bwd(fa, rng, dev)
     check_flash_grad(fa, rng, dev)
     torch.cuda.empty_cache()
-    print("phase 3c: fused_bwd against its plain version, against itself, "
+    clock.start("3c: fused_bwd against its plain version, against itself, "
           "and bit for bit against flash_bwd_dq + flash_bwd_dkv")
     check_fused_bwd(fa, fu, rng, dev)
     torch.cuda.empty_cache()
-    print("phase 4: paged_decode against its plain version")
+    clock.start("4: paged_decode against its plain version")
     check_paged(da, rng, dev)
-    print("phase 5: serve the full-width model over /generate")
+    clock.start("5: serve the full-width model over /generate")
     engine, launches, run = serve(rng, fa, da, dev)
     print(f"  engine: {run['tokens']} tokens in {run['wall_s']:.3f} s = "
           f"{run['tokens'] / run['wall_s']:.1f} tokens/s, TTFT p50 "
           f"{run['ttft_p50_s'] * 1e3:.2f} ms on {gpu}")
-    print("phase 6: kernel timing at the engine's shapes")
+    clock.start("6: kernel timing at the engine's shapes")
     rows = time_kernels(fa, da, rng, dev, gpu)
     time_step(engine, dev, gpu)
     del engine
     torch.cuda.empty_cache()
     for r in rows:
         r["launches"] = launches[r["name"]]
-    print("phase 7: train the full-width model (bench_transformer_tp, "
+    clock.start("7: train the full-width model (bench_transformer_tp, "
           "one card)")
     train_launches, x, y = train(fa, fu, rng, dev, gpu)
     torch.cuda.empty_cache()
     check_remat(rng, dev)
     torch.cuda.empty_cache()
-    print("phase 7b: train through the DK_FUSED_BWD route (K4 in bf16 and "
+    clock.start("7b: train through the DK_FUSED_BWD route (K4 in bf16 and "
           "f32)")
     fused_launches, f32_launches = train_fused(fa, fu, rng, dev, gpu, x, y)
     train_launches["flash_bwd_fused"] = fused_launches["flash_bwd_fused"]
     train_launches.update(f32_launches)
     del x, y
     torch.cuda.empty_cache()
-    print("phase 8: kernel timing at the training shape")
+    clock.start("8: kernel timing at the training shape")
     train_rows = time_train_kernels(fa, fu, rng, dev, gpu)
     for r in train_rows:
         r["launches"] = train_launches[r["name"].replace("_bf16", "")]
@@ -5491,34 +6282,38 @@ def main(argv=None):
     for r in rows:
         r.pop("shape")
     torch.cuda.empty_cache()
-    print("phase 9: the paper's training loop (SingleTrainer, the MNIST "
+    clock.start("9: the paper's training loop (SingleTrainer, the MNIST "
           "MLP gate, one card)")
     train_loop(fa, fu, da, gpu)
     torch.cuda.empty_cache()
-    print("phase 10: the windowed trainers (DistributedTrainer, W workers "
+    clock.start("10: the windowed trainers (DistributedTrainer, W workers "
           "stacked on one card)")
     adag, test = train_windowed(fa, fu, da, gpu)
     torch.cuda.empty_cache()
-    print("phase 11: the rest of serving on the card")
+    clock.start("11: the rest of serving on the card")
     t11 = time.perf_counter()
-    print("phase 11a: /predict on the trained MNIST CNN")
+    clock.start("11a: /predict on the trained MNIST CNN")
     serve_predict(adag, test, fa, fu, da, gpu)
     del adag, test
-    print("phase 11b: decode survivability at phase 5's widths")
+    clock.start("11b: decode survivability at phase 5's widths")
     decode_survivability(np.random.default_rng(5), fa, fu, da, gpu, dev)
     print(f"  phase 11 wall {time.perf_counter() - t11:.1f} s on {gpu}")
-    print("phase 12: checkpoints and resume on the card")
+    clock.start("12: checkpoints and resume on the card")
     checkpoints_and_resume(fa, fu, da, gpu)
     torch.cuda.empty_cache()
-    print("phase 13: parameter-server mode on the card")
+    clock.start("13: parameter-server mode on the card")
     ps_mode(fa, fu, da, gpu)
     torch.cuda.empty_cache()
-    print("phase 14: the serving fabric on the card")
+    clock.start("14: the serving fabric on the card")
     fabric_launches = serving_fabric(fa, fu, da, gpu)
     print(f"  launches on the fabric's backends: {fabric_launches}")
     torch.cuda.empty_cache()
-    print("phase 15: the data path on the card")
+    clock.start("15: the data path on the card")
     data_path(fa, fu, da, gpu)
+    torch.cuda.empty_cache()
+    clock.start("16: the workers across processes on the card")
+    workers_across_processes(fa, fu, da, gpu)
+    clock.summary()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

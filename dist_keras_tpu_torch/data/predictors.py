@@ -6,7 +6,7 @@ over DataFrame partitions row by row (predictors.py:~35-60).  Here the
 model's params go to the device once and the rows run through it in
 batches of ``batch_size``, under ``torch.no_grad``.  The JAX package's
 sharding of the batch over several devices waits for the mesh (ROADMAP
-queue 1, item 12): where it would shard (``sharded`` with more than one
+queue 1, item 12b): where it would shard (``sharded`` with more than one
 card visible) the predictor raises; ``sharded=False`` runs on one card.
 """
 
@@ -53,7 +53,7 @@ class ModelPredictor(Predictor):
                 and torch.cuda.device_count() > 1):
             raise NotImplementedError(
                 "sharding the batch over several cards is not ported yet "
-                "(ROADMAP queue 1, item 12); pass sharded=False to run on "
+                "(ROADMAP queue 1, item 12b); pass sharded=False to run on "
                 "one card")
 
     @torch.no_grad()

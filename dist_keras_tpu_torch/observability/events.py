@@ -135,8 +135,10 @@ KNOWN_EVENTS = (
 
 def _default_rank():
     """This host's rank from the environment alone: the coordination
-    identity wins, then the launcher's ``RANK``, then 0."""
-    for v in (knobs.raw("DK_COORD_RANK"), os.environ.get("RANK")):
+    identity wins, then the launcher's ``JAX_PROCESS_ID`` (the JAX
+    package's order), then torchrun's ``RANK``, then 0."""
+    for v in (knobs.raw("DK_COORD_RANK"), os.environ.get("JAX_PROCESS_ID"),
+              os.environ.get("RANK")):
         if v is not None:
             try:
                 return int(v)

@@ -31,14 +31,13 @@ Two backends, selected by :func:`get_coordinator`:
   a restart loop rotates it by exporting ``DK_COORD_SESSION=<attempt>``
   (used as a subdirectory).
 
-The reference's third backend, ``JaxCoordinator`` (consensus through the
-collectives of a multi-process ``jax.distributed`` group), has no
-counterpart yet: its torch counterpart would ride a multi-process
-``torch.distributed`` group, which is ROADMAP queue 1, item 12b.  Where
-the reference would pick it — a real multi-process group with no
-``DK_COORD_DIR`` — :func:`get_coordinator` raises
-``NotImplementedError`` instead of falling back to the local
-coordinator, which would let every process vote alone.
+The reference's third backend, ``JaxCoordinator`` (consensus through
+the collectives of a multi-process ``jax.distributed`` group), is
+:class:`GroupCoordinator` here: an all-gather of a float64 scalar over
+the ``torch.distributed`` group's CPU side group (``comm/backend.py``),
+each call under :func:`with_deadline`.  :func:`get_coordinator` picks
+it for a group of more than one process when ``DK_COORD_DIR`` is
+unset, and :func:`rank` / :func:`world` then read the group.
 
 Liveness: a ``FileCoordinator`` heartbeats ``<dir>/hb/rank_{i}`` from a
 background thread, so when a collective times out the survivors can
@@ -139,6 +138,25 @@ def with_deadline(fn, timeout_s, what, stale_probe=None):
     if "error" in box:
         raise box["error"]
     return box.get("value")
+
+
+def collective_with_deadline(fn, timeout_s, what, stale_probe=None):
+    """:func:`with_deadline` around a ``torch.distributed`` collective:
+    the group's own failure (its timeout, which equals the deadline and
+    may fire first, or a peer's closed connection: a ``RuntimeError``)
+    is the same verdict as the deadline — :class:`PeerLost` when
+    ``stale_probe()`` names dark ranks, else :class:`BarrierTimeout`."""
+    try:
+        return with_deadline(fn, timeout_s, what, stale_probe)
+    except (PeerLost, BarrierTimeout):
+        raise
+    except RuntimeError as e:
+        dead = tuple(stale_probe()) if stale_probe else ()
+        if dead:
+            raise PeerLost(f"{what} failed ({e}): rank(s) {list(dead)} "
+                           "stopped heartbeating", ranks=dead) from e
+        raise BarrierTimeout(f"{what} failed in the process group: "
+                             f"{e}") from e
 
 
 def wait_for_peers(missing_fn, timeout_s, what, poll_s=0.02,
@@ -379,6 +397,58 @@ class Coordinator:
 LocalCoordinator = Coordinator
 
 
+class GroupCoordinator(Coordinator):
+    """A multi-process ``torch.distributed`` group (the reference's
+    ``JaxCoordinator``): each consensus op all-gathers one float64
+    scalar over the group's CPU side group under a deadline.
+
+    Attribution: the collectives do not say WHO is absent, so a timeout
+    is a :class:`BarrierTimeout` unless ``DK_COORD_DIR`` heartbeat files
+    name the dark rank (only for an explicitly constructed one:
+    :func:`get_coordinator` prefers the ``FileCoordinator`` there)."""
+
+    def __init__(self):
+        from dist_keras_tpu_torch.comm import backend as comm
+
+        g = comm.group_info()
+        if g is None:
+            raise ValueError(
+                "GroupCoordinator needs a process group: call "
+                "dist_keras_tpu_torch.comm.initialize() first")
+        self.rank, self.world = g.rank, g.world
+        self._cpu_group = g.cpu_group
+
+    def _allgather(self, value, timeout_s, what):
+        import torch
+        import torch.distributed as dist
+
+        # None (barrier) rides as 0; bools and ints as a float64 scalar
+        payload = torch.tensor(
+            [0.0 if value is None else float(value)], dtype=torch.float64)
+        out = [torch.empty_like(payload) for _ in range(self.world)]
+
+        def gather():
+            dist.all_gather(out, payload, group=self._cpu_group)
+
+        collective_with_deadline(gather, timeout_s or default_timeout_s(),
+                                 what, self.stale_peers)
+        vals = [float(v) for v in torch.cat(out)]
+        if value is None:
+            return [None] * len(vals)
+        if isinstance(value, bool):
+            return [bool(v) for v in vals]
+        if isinstance(value, int):
+            return [int(v) for v in vals]
+        return vals
+
+    def stale_peers(self):
+        d = knobs.raw("DK_COORD_DIR")
+        if not d:
+            return []
+        return self._note_dead(dead_peers(_session_root(d), self.world,
+                                          require_file=True))
+
+
 def _coord_env(var):
     """Required companion env of ``DK_COORD_DIR`` — a missing value is
     an actionable error, never a silent default: rank defaulting to 0
@@ -520,26 +590,28 @@ _lock = threading.Lock()
 _coordinator = None
 
 
-def _process_group_world():
-    """World size of an initialised ``torch.distributed`` group (1 when
-    none is up) — read without importing the distributed package when
-    nothing imported it yet."""
+def _process_group():
+    """The ``comm`` bring-up's group facts (rank, world, ...), or None
+    when no group is up — read without importing the distributed
+    package when nothing imported it yet."""
     import sys
 
-    dist = sys.modules.get("torch.distributed")
-    if dist is None or not dist.is_available() or not dist.is_initialized():
-        return 1
-    return int(dist.get_world_size())
+    backend = sys.modules.get("dist_keras_tpu_torch.comm.backend")
+    return None if backend is None else backend.group_info()
+
+
+def _process_group_world():
+    """World size of the process group (1 when none is up)."""
+    g = _process_group()
+    return 1 if g is None else int(g.world)
 
 
 def get_coordinator():
     """The process-wide coordinator: ``FileCoordinator`` when
-    ``DK_COORD_DIR`` is exported, else the trivial local one.  A real
-    multi-process ``torch.distributed`` group without ``DK_COORD_DIR``
-    is where the reference picks its ``JaxCoordinator``: that raises
-    ``NotImplementedError`` (ROADMAP queue 1, item 12b) — a local
-    coordinator there would let every process vote alone.  Cached — the
-    FileCoordinator's op counter must persist across calls."""
+    ``DK_COORD_DIR`` is exported, :class:`GroupCoordinator` on a
+    process group of more than one process, else the trivial local one.
+    Cached — the FileCoordinator's op counter must persist across
+    calls."""
     global _coordinator
     with _lock:
         if _coordinator is None:
@@ -547,12 +619,7 @@ def get_coordinator():
             if d:
                 _coordinator = FileCoordinator(d)
             elif _process_group_world() > 1:
-                raise NotImplementedError(
-                    "consensus over a multi-process torch.distributed "
-                    "group is not ported yet (ROADMAP queue 1, item 12b: "
-                    "the reference's JaxCoordinator); export DK_COORD_DIR "
-                    "(+ DK_COORD_RANK / DK_COORD_WORLD) to coordinate "
-                    "through a shared directory")
+                _coordinator = GroupCoordinator()
             else:
                 _coordinator = LocalCoordinator()
         return _coordinator
@@ -571,18 +638,20 @@ def reset():
 def rank():
     """This process's coordination rank: ``DK_COORD_RANK`` when
     ``DK_COORD_DIR`` is set (the companion vars are then REQUIRED, same
-    rule as ``FileCoordinator`` — no silent identity defaults), else 0."""
+    rule as ``FileCoordinator`` — no silent identity defaults), else the
+    process group's rank (0 without one)."""
     if knobs.raw("DK_COORD_DIR"):
         return int(_coord_env("DK_COORD_RANK"))
-    return 0
+    g = _process_group()
+    return 0 if g is None else int(g.rank)
 
 
 def world():
     """The coordination world size: ``DK_COORD_WORLD`` when
-    ``DK_COORD_DIR`` is set, else 1."""
+    ``DK_COORD_DIR`` is set, else the process group's (1 without one)."""
     if knobs.raw("DK_COORD_DIR"):
         return int(_coord_env("DK_COORD_WORLD"))
-    return 1
+    return _process_group_world()
 
 
 def dead_peers_at(coord_dir, world, stale_after_s=None,

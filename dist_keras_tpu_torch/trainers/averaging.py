@@ -12,6 +12,12 @@
   replicas, stacked on one dimension and stepped together, with no
   merge; returns the list of models.
 
+Across processes each rank stacks its own range of the workers (of the
+models, for the ensemble: slot ``s`` holds models ``[s*mps, (s+1)*mps)``
+as in the JAX package) and feeds their rows; the averaging merge is a
+cross-rank ``tree_pmean_sync`` and the ensemble's models are gathered
+from every rank at the end.
+
 Both run their steps as a Python loop over the global step index, the
 worker-stacked step (``trainers/step.py``) on data resident on the
 device or streamed to it, with one device ``torch.Generator`` seeded with ``seed`` for
@@ -29,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from dist_keras_tpu_torch.comm.backend import fetch_global
+from dist_keras_tpu_torch.comm import backend as comm
 from dist_keras_tpu_torch.parallel.collectives import tree_pmean_sync
 from dist_keras_tpu_torch.trainers.base import DistributedTrainer
 from dist_keras_tpu_torch.trainers.chunking import (
@@ -55,7 +61,7 @@ class AveragingTrainer(DistributedTrainer):
         if shuffle:
             dataset = dataset.shuffle(seed=self.seed)
         xs, ys = self._shards(dataset)  # (workers, steps, batch, ...)
-        n, spe = xs.shape[:2]
+        spe = xs.shape[1]
         step, opt_init = self._make_worker_step(model, loss_fn, tx)
         params = self._device_params(model.params)
         local = self._stack_workers(params)
@@ -97,7 +103,7 @@ class AveragingTrainer(DistributedTrainer):
                 if si == spe - 1:
                     # epoch end: mean of the float weights, max of the
                     # lockstep integer leaves
-                    params = tree_pmean_sync(local)
+                    params = tree_pmean_sync(local, total=self.num_workers)
             return torch.stack(losses, 1)   # (workers, T)
 
         history = run_chunked(
@@ -105,13 +111,14 @@ class AveragingTrainer(DistributedTrainer):
             per_epoch=spe,
             cadence=(self.checkpoint_every * spe
                      if self.checkpoint_every else None),
-            samples_per_unit=n * self.batch_size, dispatch=dispatch,
-            sync_ref=lambda: params,
+            samples_per_unit=self.num_workers * self.batch_size,
+            dispatch=dispatch, sync_ref=lambda: params,
             state_fn=lambda: {"params": params, "local": local,
                               "opt_state": opt_state,
                               "rng": generator.get_state()},
             carry_leaves=(params, local, opt_state),
-            stream_units=self.stream_chunk_steps, unit_dims=1)
+            stream_units=self.stream_chunk_steps, unit_dims=1,
+            fetch_global=comm.fetch_global)
         return self._finalize(params, history)
 
 
@@ -120,19 +127,21 @@ class EnsembleTrainer(DistributedTrainer):
     models (majority voting at predict time is up to the user, as
     upstream).
 
-    All ``num_models`` replicas are stacked on one dimension of the one
-    device and stepped together.  ``num_workers`` keeps the JAX package's
-    meaning, mesh slots: 1 on one card unless passed, and ``num_models``
-    must divide evenly over them (``models_per_slot``).  One data shard
-    per model, as upstream (one partition per model).  History is
-    ``(num_models, epochs, steps)``."""
+    The replicas are stacked on one dimension of the rank's device and
+    stepped together.  ``num_workers`` keeps the JAX package's meaning,
+    mesh slots: one per process unless passed (``min(num_models,
+    processes)``), and ``num_models`` must divide evenly over them
+    (``models_per_slot``).  One data shard per model, as upstream (one
+    partition per model).  History is ``(num_models, epochs, steps)``."""
 
     def __init__(self, keras_model, num_models=2, stream_chunk_steps=None,
                  max_resident_bytes=None, **kw):
         self.num_models = int(num_models)
         slots = kw.pop("num_workers", None)
         if slots is None:
-            slots = 1
+            # the process count must come after the group's bring-up
+            comm.initialize(device=kw.get("device"))
+            slots = min(self.num_models, comm.num_processes())
         if self.num_models % slots:
             raise ValueError(
                 f"num_models={num_models} must divide evenly over "
@@ -147,15 +156,20 @@ class EnsembleTrainer(DistributedTrainer):
         model, loss_fn, tx = self._resolve()
         if shuffle:
             dataset = dataset.shuffle(seed=self.seed)
+        # slots [lo, hi) on this rank hold models [lo*mps, hi*mps)
+        lo, hi = self._local_worker_range()
+        mps = self.models_per_slot
         xs, ys = dataset.worker_shards(
             self.num_models, self.batch_size,
             features_col=self.features_col, label_col=self.label_col,
-            dtype=self.data_dtype)   # (num_models, steps, batch, ...)
+            worker_range=(lo * mps, hi * mps) if self._split else None,
+            dtype=self.data_dtype)   # (local models, steps, batch, ...)
         spe = xs.shape[1]
+        n = xs.shape[0]
         step, opt_init = self._make_worker_step(model, loss_fn, tx)
         params = self._device_params(model.params)
-        stacked = self._stack_workers(params, self.num_models)
-        opt_state = self._stack_workers(opt_init(params), self.num_models)
+        stacked = self._stack_workers(params, n)
+        opt_state = self._stack_workers(opt_init(params), n)
         generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
         hint = ("if this checkpoint predates step-granular "
@@ -193,9 +207,11 @@ class EnsembleTrainer(DistributedTrainer):
             state_fn=lambda: {"params": stacked, "opt_state": opt_state,
                               "rng": generator.get_state()},
             carry_leaves=(stacked, opt_state),
-            stream_units=self.stream_chunk_steps, unit_dims=1)
-        # one device->host copy for the whole ensemble, then slice
-        host = fetch_global(stacked)
+            stream_units=self.stream_chunk_steps, unit_dims=1,
+            fetch_global=comm.fetch_global)
+        # one device->host copy (every rank's models) for the whole
+        # ensemble, then slice
+        host = comm.fetch_global(stacked)
         models = []
         for i in range(self.num_models):
             m = self._fresh_model()

@@ -9,9 +9,13 @@ unless the caller asks for the CPU.
 
 ``DistributedTrainer`` (trainers.py:~290) adds ``num_workers``: the W
 workers are stacked on dimension 0 of every per-worker tensor on the
-trainer's one device (``parallel/mesh.py``), where the JAX package puts
-one worker on each device of a mesh.  ``master_host`` / ``master_port``
-are accepted and ignored, as there.
+trainer's device (``parallel/mesh.py``), where the JAX package puts
+one worker on each device of a mesh.  Under a ``torch.distributed``
+group (``comm.initialize``, which the trainer calls) each rank stacks
+its own contiguous range of the W workers, feeds only their rows and
+the merges all-reduce across the ranks; the history is gathered, so it
+is ``(W, ...)`` on every rank.  ``master_host`` / ``master_port`` are
+accepted and ignored, as there.
 
 Checkpoints, resume and preemption take the JAX package's kwargs and
 semantics: ``checkpoint_dir`` (with ``checkpoint_every`` epochs,
@@ -34,12 +38,16 @@ streaming kwargs (``stream_chunk_steps`` / ``stream_chunk_windows``,
 sampler (``DK_OBS_SAMPLE_S``); ``record_training_end`` quiesces its
 watchdog and writes ``report.txt`` on rank 0.
 
-Not ported yet, and raising when asked for instead of being ignored:
-workers spread over several cards or hosts (a ``mesh``, the multi-host
-environment, ``DK_COORD_WORLD`` > 1: ROADMAP queue 1, item 12b).  The
-one trainer that takes ``DK_COORD_WORLD`` > 1 is ``ps.PSWorkerTrainer``,
-one process on one card talking HTTP to a parameter server.  The
-JAX package's jit cache has no counterpart: the port compiles nothing.
+``DK_COORD_WORLD`` > 1 is taken by every trainer: with a process group
+of that world the windowed trainers split the workers over the ranks;
+with only ``DK_COORD_DIR`` each rank trains on its own and the ranks
+vote through the ``FileCoordinator``.  A ``DK_COORD_WORLD`` that
+disagrees with the group's world (or names a world with neither a
+group nor ``DK_COORD_DIR``) raises ``ValueError``: a rank never trains
+alone silently.  Resuming a worker-split run under another world
+raises :class:`WorldMismatch` (elastic resharding of the stacked
+worker state is not ported).  The JAX package's jit cache has no
+counterpart: the port compiles nothing.
 """
 
 from __future__ import annotations
@@ -72,20 +80,38 @@ from dist_keras_tpu_torch.utils.serialization import (
 )
 
 
-def _refuse_multi_host():
-    """``DK_COORD_WORLD`` > 1 asks for workers across hosts."""
-    world = knobs.raw("DK_COORD_WORLD")
-    if world is not None and int(world) > 1:
-        raise NotImplementedError(
-            f"DK_COORD_WORLD={world}: workers across hosts are not ported "
-            "yet (ROADMAP queue 1, item 12b: workers across cards through "
-            "torch.distributed); a trainer runs on one card")
+class WorldMismatch(ValueError):
+    """A checkpoint of a worker-split run (each rank's payload holds
+    only its own workers) resumed under another process world: the
+    stacked worker state cannot be re-dealt, so the resume is refused
+    instead of restoring another rank's workers."""
+
+
+def _check_coord_world():
+    """``DK_COORD_WORLD`` must agree with the process group, and name a
+    world something coordinates (the group, or ``DK_COORD_DIR``)."""
+    raw = knobs.raw("DK_COORD_WORLD")
+    if raw is None:
+        return
+    want, group = int(raw), comm.num_processes()
+    if group > 1 and want != group:
+        raise ValueError(
+            f"DK_COORD_WORLD={want} disagrees with the process group's "
+            f"world of {group}: export the same world to both (the "
+            "launcher's JAX_NUM_PROCESSES / WORLD_SIZE and DK_COORD_WORLD)")
+    if want > 1 and group == 1 and not knobs.raw("DK_COORD_DIR"):
+        raise ValueError(
+            f"DK_COORD_WORLD={want} with neither a process group nor "
+            "DK_COORD_DIR: this process would train alone.  Bring up the "
+            "group (comm.initialize, or the JAX_* / torchrun variables) "
+            "or export DK_COORD_DIR (+ DK_COORD_RANK) to coordinate "
+            "through a shared directory")
 
 
 class Trainer:
-    # a PS worker (ps/worker.py) is one process on one card talking HTTP
-    # and takes the multi-host launch environment; every other trainer
-    # refuses it (item 12b)
+    # a PS worker (ps/worker.py) reads DK_COORD_WORLD / DK_COORD_RANK as
+    # its identity towards the server, not as a world to train in; every
+    # other trainer checks the world against the process group
     accepts_coord_world = False
 
     def __init__(self, keras_model, loss="categorical_crossentropy",
@@ -97,7 +123,7 @@ class Trainer:
                  max_checkpoints=3, resume=False, callbacks=None,
                  nan_policy="raise", handle_preemption=False, device=None):
         if not self.accepts_coord_world:
-            _refuse_multi_host()
+            _check_coord_world()
         self.device = resolve_device(device)
         self.serialized_model = serialize_model(keras_model)
         self.loss = loss
@@ -326,10 +352,10 @@ class Trainer:
         ``_put_worker_chunk``): a ``data.feed.DevicePut`` onto this
         trainer's device — host chunk views laid out by ``layout``
         through a pinned staging ring of ``max_units`` units and a copy
-        stream.  Workers across hosts raise (item 12b)."""
+        stream.  Across processes the host views hold this rank's
+        workers only (:meth:`DistributedTrainer._shards`)."""
         from dist_keras_tpu_torch.data.feed import DevicePut
 
-        _refuse_multi_host()
         return DevicePut(self.device, layout, max_units)
 
     def _device_params(self, params):
@@ -353,51 +379,98 @@ class Trainer:
 class DistributedTrainer(Trainer):
     """Base for every multi-worker trainer (trainers.py:~290).
 
-    The ``num_workers`` workers live on the trainer's one device,
-    stacked on dimension 0 (:meth:`_stack_workers`), so their count is
-    not bounded by the number of cards.  ``mesh`` (an explicit device
-    layout) and the multi-host environment raise ``NotImplementedError``
-    (ROADMAP queue 1, item 12b)."""
+    The ``num_workers`` workers live on the trainer's device, stacked on
+    dimension 0 (:meth:`_stack_workers`), so their count is not bounded
+    by the number of cards.  Under a process group this rank stacks the
+    range :meth:`_local_worker_range` of them.  ``mesh`` takes a
+    :class:`~dist_keras_tpu_torch.parallel.mesh.WorkerMesh` (its
+    ``num_workers`` must be the trainer's); anything else raises
+    ``TypeError``."""
 
     def __init__(self, keras_model, num_workers=2, master_host=None,
                  master_port=5000, mesh=None, **kw):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: workers spread over an explicit device mesh are not "
-                "ported yet (ROADMAP queue 1, item 12b: workers across "
-                "cards through torch.distributed); the port stacks the "
-                "workers on the trainer's one device")
-        # single-process bring-up: raises on a multi-host environment
-        comm.initialize()
-        _refuse_multi_host()
+        from dist_keras_tpu_torch.parallel.mesh import WorkerMesh
+
+        if mesh is not None and not isinstance(mesh, WorkerMesh):
+            raise TypeError(
+                f"mesh={mesh!r}: pass a parallel.mesh.WorkerMesh "
+                "(worker_mesh(num_workers, device) builds one from the "
+                "process group), or None")
+        if mesh is not None and kw.get("device") is None:
+            kw["device"] = mesh.device
+        # process-group bring-up: a no-op single-process; under a
+        # launcher it reads the JAX_* / torchrun environment
+        comm.initialize(device=kw.get("device"))
         super().__init__(keras_model, **kw)
         self.num_workers = int(num_workers)
         # master_host/master_port: reference PS kwargs, accepted for parity
         del master_host, master_port
-        self._mesh = None
+        if mesh is not None and mesh.num_workers != self.num_workers:
+            raise ValueError(
+                f"mesh has {mesh.num_workers} worker slots, the trainer "
+                f"num_workers={self.num_workers}")
+        self._mesh = mesh
+        _ = self.mesh   # a rank left with no worker raises here
 
     @property
     def mesh(self):
         """The :class:`~dist_keras_tpu_torch.parallel.mesh.WorkerMesh` of
-        ``num_workers`` stacked slots on the trainer's device."""
+        ``num_workers`` slots on the trainer's device, dealt over the
+        process group."""
         if self._mesh is None:
             self._mesh = worker_mesh(self.num_workers, self.device)
         return self._mesh
 
+    def _local_worker_range(self):
+        """[lo, hi) of the global worker slots this process stacks: the
+        contiguous deal of ``comm.local_data_slice`` (everything with
+        one process)."""
+        return self.mesh.lo, self.mesh.hi
+
+    @property
+    def _split(self):
+        """True when the workers are split over several processes."""
+        return self.mesh.world > 1
+
+    def _maybe_resume(self, incompatible_hint=None):
+        """:meth:`Trainer._maybe_resume`, refusing (typed
+        :class:`WorldMismatch`) a step whose writing world differs from
+        this run's when either side split its workers over processes."""
+        ckptr = self._checkpointer_or_none()
+        if self.resume is not False and ckptr is not None:
+            step = (ckptr.latest_step() if self.resume is True
+                    else int(self.resume))
+            if step is not None and step in ckptr.all_steps():
+                wrote = ckptr.saved_world(step)
+                world = coordination.world()
+                if wrote != world and (self._split or wrote > 1):
+                    raise WorldMismatch(
+                        f"checkpoint step {step} in {self.checkpoint_dir} "
+                        f"was written by {wrote} process(es), this run "
+                        f"has {world} (workers split over "
+                        f"{self.mesh.world}): the stacked worker state "
+                        "cannot be re-dealt to another world — resume "
+                        "with the world that wrote it, or start afresh")
+        return super()._maybe_resume(incompatible_hint)
+
     def _shards(self, dataset):
-        """-> (xs, ys) host arrays ``(num_workers, steps, batch, ...)``:
-        rows dealt to workers contiguously (``Dataset.worker_shards``)."""
+        """-> (xs, ys) host arrays ``(local workers, steps, batch,
+        ...)``: rows dealt to the global workers contiguously
+        (``Dataset.worker_shards``), this rank's range only."""
         return dataset.worker_shards(
             self.num_workers, self.batch_size,
             features_col=self.features_col, label_col=self.label_col,
+            worker_range=(self._local_worker_range() if self._split
+                          else None),
             dtype=self.data_dtype)
 
     def _stack_workers(self, tree, n=None):
-        """``n`` (default ``num_workers``) real copies of ``tree`` stacked
-        on dim 0, on the trainer's device: the layout of per-worker
-        state (local replicas, optimizer state, pulled snapshots)."""
+        """``n`` (default: this rank's worker count) real copies of
+        ``tree`` stacked on dim 0, on the trainer's device: the layout
+        of per-worker state (local replicas, optimizer state, pulled
+        snapshots)."""
         return tree_stack(self._device_params(tree),
-                          self.num_workers if n is None else n)
+                          self.mesh.num_local if n is None else n)
 
     def _make_worker_step(self, model, loss_fn, tx):
         """``make_worker_step`` with this trainer's NaN policy — the

@@ -31,9 +31,15 @@ epoch (:class:`_Shifted`).
 
 Preemption (``handle_preemption``): the SIGTERM/SIGINT handler only sets
 a flag; each chunk boundary reads it, puts it to a cluster vote
-(``coordination.any_flag``; free on one process) and, when set, saves
-the boundary checkpoint, verifies it and raises ``Preempted``
-(128+signum) carrying the verified ``saved_step``.
+(``coordination.any_flag``; free on one process) and, when set, dumps
+the flight recorder (``preempt``, when the event log is on), saves the
+boundary checkpoint, verifies it and raises ``Preempted`` (128+signum)
+carrying the verified ``saved_step``.
+
+Losses come to the host through ``fetch_global``: the identity copy for
+``SingleTrainer`` (each rank's loss is its own), the cross-rank gather
+(``comm.fetch_global``) for the distributed trainers, whose history is
+then every rank's workers on every rank.
 
 Telemetry, as the JAX runner's: ``perf.phase`` histograms for ``data``
 (the feed's get and prefetch, the host's staging copy included),
@@ -52,8 +58,8 @@ import time
 import numpy as np
 import torch
 
-from dist_keras_tpu_torch.comm.backend import fetch_global
 from dist_keras_tpu_torch.observability import events as obs_events
+from dist_keras_tpu_torch.observability import flight
 from dist_keras_tpu_torch.observability import perf
 from dist_keras_tpu_torch.observability import spans as obs_spans
 from dist_keras_tpu_torch.resilience import coordination, preemption
@@ -61,6 +67,14 @@ from dist_keras_tpu_torch.resilience.faults import fault_point
 from dist_keras_tpu_torch.resilience.guards import check_losses
 from dist_keras_tpu_torch.resilience.preemption import Preempted
 from dist_keras_tpu_torch.utils.sync import drain
+
+
+def to_host(losses):
+    """The identity fetch: this process's losses copied to the host as
+    numpy."""
+    if isinstance(losses, torch.Tensor):
+        return losses.detach().cpu().numpy()
+    return np.asarray(losses)
 
 
 def init_streaming(trainer, chunk, budget, name="stream_chunk_windows"):
@@ -181,7 +195,8 @@ class _Shifted:
 
 def run_chunked(trainer, xs, ys, *, total, per_epoch, samples_per_unit,
                 dispatch, sync_ref, carry_leaves, start=0, cadence=None,
-                state_fn=None, stream_units=None, unit_dims=None):
+                state_fn=None, stream_units=None, unit_dims=None,
+                fetch_global=None):
     """Streaming decision -> chunk plan -> resident data or a feed ->
     :class:`ChunkRunner` -> the history.
 
@@ -197,6 +212,8 @@ def run_chunked(trainer, xs, ys, *, total, per_epoch, samples_per_unit,
     before the clock starts.  ``start`` is the resume point in units,
     ``cadence`` the checkpoint grid and ``state_fn() -> dict`` the
     checkpoint payload (evaluated only when a save is due).
+    ``fetch_global`` brings a chunk's device losses to the host
+    (default :func:`to_host`, this process's own).
 
     One worker: each chunk's losses are ``(K,)`` and the history is the
     run's losses, flat.  Otherwise each chunk's losses are ``(workers,
@@ -241,7 +258,7 @@ def run_chunked(trainer, xs, ys, *, total, per_epoch, samples_per_unit,
     runner = ChunkRunner(trainer, plan=plan, start=start, total=total,
                          per_epoch=per_epoch,
                          samples_per_unit=samples_per_unit, cadence=cadence,
-                         feed=feed)
+                         feed=feed, fetch_global=fetch_global)
     all_losses = runner.run(run_one, sync_ref=sync_ref, state_fn=state_fn,
                             resident_data=resident)
     if not all_losses:
@@ -272,7 +289,8 @@ class ChunkRunner:
     callbacks run off it."""
 
     def __init__(self, trainer, *, plan, start, total, per_epoch,
-                 samples_per_unit, cadence=None, feed=None):
+                 samples_per_unit, cadence=None, feed=None,
+                 fetch_global=None):
         self.tr = trainer
         self.plan = plan
         self.start = start
@@ -281,6 +299,7 @@ class ChunkRunner:
         self.samples_per_unit = samples_per_unit
         self.cadence = cadence
         self.feed = feed
+        self._fetch = fetch_global or to_host
 
     # checkpoint cadence in units; trainer._last_ckpt_epoch is the unit
     # count of the last save (set by _maybe_resume on restore)
@@ -353,7 +372,7 @@ class ChunkRunner:
             j, lj, units_after = pending.pop(0)
             with perf.phase("step"):
                 t_fetch = time.perf_counter()
-                arr = fetch_global(lj)
+                arr = self._fetch(lj)
                 perf.d2h(arr.nbytes, time.perf_counter() - t_fetch)
                 # a NaN injection rides the fetched host array (the
                 # device math untouched) — the nan_policy hook
@@ -407,6 +426,11 @@ class ChunkRunner:
                     obs_events.emit("preempt", signum=int(sig),
                                     units_done=units_done,
                                     adopted=not signalled)
+                    # the post-mortem: the ring holds the run's last
+                    # events up to the agreed boundary
+                    if obs_events.enabled():
+                        flight.dump("preempt", signum=int(sig),
+                                    units_done=units_done)
                     while pending:
                         _retire_one()
                     if coord.world > 1:

@@ -20,6 +20,13 @@ no merge at all, and a step where someone does reads its scale and mask
 rows from the schedule, uploaded once with the data, so nothing in the
 loop reads a value back from the card.
 
+Across processes the schedule stays global (every rank works it out for
+all W workers, so the staleness counters are the cluster's, as the
+JAX package's masked ``psum``): each rank slices its own workers'
+columns, runs the merge at every step where ANY worker commits (the
+all-reduce needs every rank) and sums the commits through the
+cross-rank ``tree_psum``.
+
 Checkpoints are step-granular (``checkpoint_every_windows`` counts
 windows of ``communication_window`` steps, ``checkpoint_every``
 epochs): the payload is the reference's ``{"center", "pulled",
@@ -38,6 +45,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dist_keras_tpu_torch.comm import backend as comm
+from dist_keras_tpu_torch.parallel.collectives import tree_psum
 from dist_keras_tpu_torch.trainers.chunking import run_chunked
 from dist_keras_tpu_torch.trainers.windowed import (
     AsynchronousDistributedTrainer,
@@ -100,15 +109,18 @@ class DynSGD(AsynchronousDistributedTrainer):
         if shuffle:
             dataset = dataset.shuffle(seed=self.seed)
         xs, ys = self._shards(dataset)  # (workers, steps, batch, ...)
-        n, spe = xs.shape[:2]  # workers, steps per epoch
+        spe = xs.shape[1]  # steps per epoch
         total_t = self.num_epoch * spe
         step, opt_init = self._make_worker_step(model, loss_fn, tx)
 
         commits, _, scale = commit_schedule(
-            total_t, self.communication_window, n)
+            total_t, self.communication_window, self.num_workers)
         any_commit = commits.any(1)
-        scale_d = torch.from_numpy(scale).to(self.device)
-        commits_d = torch.from_numpy(commits).to(self.device)
+        lo, hi = self._local_worker_range()
+        scale_d = torch.from_numpy(
+            np.ascontiguousarray(scale[:, lo:hi])).to(self.device)
+        commits_d = torch.from_numpy(
+            np.ascontiguousarray(commits[:, lo:hi])).to(self.device)
 
         center = self._device_params(model.params)
         pulled = self._stack_workers(center)
@@ -164,8 +176,8 @@ class DynSGD(AsynchronousDistributedTrainer):
             contribution = tree_merge_floats(
                 tree_map(lambda l, p: _lead(s, l) * (l.float() - p.float()),
                          local, pulled), tree_map(torch.zeros_like, local))
-            center = tree_map(lambda c, d: (c + d.sum(0)).to(c.dtype),
-                              center, contribution)
+            center = tree_map(lambda c, d: (c + d).to(c.dtype),
+                              center, tree_psum(contribution))
             # committing workers pull the fresh center
             local = tree_merge_floats(tree_map(
                 lambda l, c: torch.where(_lead(m, l), c, l), local, center),
@@ -196,11 +208,11 @@ class DynSGD(AsynchronousDistributedTrainer):
                      if self.checkpoint_every_windows
                      else self.checkpoint_every * spe
                      if self.checkpoint_every else None),
-            samples_per_unit=n * self.batch_size, dispatch=dispatch,
-            sync_ref=lambda: center, state_fn=state_fn,
+            samples_per_unit=self.num_workers * self.batch_size,
+            dispatch=dispatch, sync_ref=lambda: center, state_fn=state_fn,
             carry_leaves=(center, pulled, local, opt_state, scale_d,
                           commits_d),
             stream_units=(self.stream_chunk_windows * W
                           if self.stream_chunk_windows else None),
-            unit_dims=1)
+            unit_dims=1, fetch_global=comm.fetch_global)
         return self._finalize(center, history)

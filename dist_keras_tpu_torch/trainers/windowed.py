@@ -18,6 +18,11 @@ reduction over the worker dimension (``parallel/collectives.py``):
 - EAMSGD    (workers.py:~450): AEASGD + Nesterov momentum on the local
   update (the worker optimizer chained with a Nesterov ``trace``).
 
+Across processes each rank stacks its own range of the workers
+(``DistributedTrainer``) and the psum all-reduces across the ranks, so
+every rank holds the same center; the host-side schedule (the data's
+windows) is the rank's own workers' rows.
+
 As in the JAX package all workers commit at the same window boundary:
 the communication pattern and the update algebra of the reference, with
 zero staleness (DynSGD, whose point is staleness, staggers its commits:
@@ -52,6 +57,7 @@ import warnings
 
 import torch
 
+from dist_keras_tpu_torch.comm import backend as comm
 from dist_keras_tpu_torch.ops.optimizers import chain, trace
 from dist_keras_tpu_torch.parallel.collectives import (
     AsyncMerge,
@@ -182,8 +188,12 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         local = self._stack_workers(center)
         opt_state = self._stack_workers(opt_init(center))
         # the overlap carry: the previous window's summed commit, not yet
-        # applied (zeros before the first boundary)
+        # applied (zeros before the first boundary); across processes its
+        # async all-reduce is in flight in ``merger`` until the next
+        # window's boundary waits for it
         pending = tree_zeros_like(center) if overlap else None
+        merger = (AsyncMerge(lambda d: tree_psum(d, async_op=True))
+                  if overlap and self._split else None)
         generator = torch.Generator(device=self.device).manual_seed(
             self.seed)
         hint = ("if this checkpoint predates window-granular training "
@@ -219,11 +229,19 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             # with nothing in flight: a zero commit at the first boundary
             pending = state.get("pending", pending)
 
+        def landed():
+            """The in-flight summed commit, waited for (the carry
+            ``pending``)."""
+            nonlocal pending
+            if merger is not None and merger.pending:
+                pending = tree_merge_floats(merger.wait(), pending)
+            return pending
+
         def state_fn():
             state = {"center": center, "local": local,
                      "opt_state": opt_state, "rng": generator.get_state()}
             if overlap:
-                state["pending"] = pending
+                state["pending"] = landed()
             return state
 
         def window(xw, yw):
@@ -237,10 +255,14 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             # merge algebra (tree_merge_floats), as in the JAX package
             if overlap:
                 delta = self.commit(center, local)
-                center = tree_merge_floats(tree_add(center, pending), center)
+                center = tree_merge_floats(tree_add(center, landed()),
+                                           center)
                 local = tree_merge_floats(
                     self.absorb(center, local, delta), local)
-                pending = tree_merge_floats(tree_psum(delta), pending)
+                if merger is not None:
+                    merger.submit(delta)
+                else:
+                    pending = tree_merge_floats(tree_psum(delta), pending)
             else:
                 new_center, new_local = self.merge(center, local)
                 center = tree_merge_floats(new_center, center)
@@ -258,16 +280,17 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         history = run_chunked(
             self, xs, ys, start=start_w, total=total_w, per_epoch=wpe,
             cadence=self._ckpt_cadence_windows(wpe),
-            samples_per_unit=n * W * self.batch_size, dispatch=dispatch,
-            sync_ref=lambda: center, state_fn=state_fn,
+            samples_per_unit=self.num_workers * W * self.batch_size,
+            dispatch=dispatch, sync_ref=lambda: center, state_fn=state_fn,
             carry_leaves=(center, pending, local, opt_state),
-            stream_units=self.stream_chunk_windows, unit_dims=2)
+            stream_units=self.stream_chunk_windows, unit_dims=2,
+            fetch_global=comm.fetch_global)
         if overlap:
             # flush the last window's in-flight commit, so the returned
             # center holds every worker's final delta
             flush = AsyncMerge(
                 lambda c, p: tree_merge_floats(tree_add(c, p), c))
-            center = flush.submit(center, pending).wait()
+            center = flush.submit(center, landed()).wait()
         return self._finalize(center, history)
 
 

@@ -2,7 +2,9 @@
 JAX package's inside ``shard_map`` on ``conftest.py``'s virtual devices
 (one worker per device): exact for integers, 1e-6 for floats.  Then
 ``AsyncMerge``'s one-in-flight bound and counters, the worker layout and
-the single-process communication backend."""
+the communication backend's single-process path and its reading of the
+launch environment (the cross-process half runs in
+``test_torch_multiprocess.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -140,6 +142,36 @@ def test_async_merge_keeps_one_merge_in_flight():
     assert am.submits == 2 and am.waits == 2
 
 
+def test_async_merge_waits_a_pending_reduce_through_its_work_alone(
+        monkeypatch):
+    """A merge returning a PendingReduce (the cross-rank async
+    all-reduce) is waited through the collective's Work alone: no CUDA
+    event is recorded or synchronized behind the work queued after it."""
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    class Work:
+        waited = 0
+
+        def wait(self):
+            Work.waited += 1
+
+    def no_event(tree):
+        raise AssertionError("an event behind a PendingReduce")
+
+    monkeypatch.setattr(tc, "_card_event", no_event)
+    tree = {"a": torch.zeros(2), "b": torch.zeros(3)}
+    leaves = tree_leaves(tree)
+    flat = torch.arange(5.0)
+    am = tc.AsyncMerge(lambda t: tc.PendingReduce(
+        t, list(leaves), [(Work(), flat, [0, 1])]))
+    am.submit(tree)
+    assert am.pending and Work.waited == 0
+    out = am.wait()
+    assert Work.waited == 1 and not am.pending and am.waits == 1
+    assert out["a"].tolist() == [0.0, 1.0]
+    assert out["b"].tolist() == [2.0, 3.0, 4.0]
+
+
 def test_async_merge_mixed_dtype_and_zero_size_leaves():
     am = tc.AsyncMerge(lambda c, p: tree_merge_floats(tree_add(c, p), c))
     c = {"f32": torch.ones(4), "bf16": torch.ones(4, dtype=torch.bfloat16),
@@ -170,29 +202,104 @@ def test_worker_mesh_describes_stacked_slots():
 
 def test_backend_is_single_process(monkeypatch):
     for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
-                 "JAX_PROCESS_ID", "WORLD_SIZE"):
+                 "JAX_PROCESS_ID", "WORLD_SIZE", "MASTER_ADDR", "RANK"):
         monkeypatch.delenv(name, raising=False)
     comm.initialize()
+    assert comm.group_info() is None
     assert comm.num_processes() == 1 and comm.process_index() == 0
     assert not comm.is_multi_host()
     assert comm.local_data_slice(10) == (0, 10)
     assert comm.local_data_slice(10, process=1, count=3) == (3, 6)
     assert comm.barrier() == 1
+    assert comm.global_devices() == comm.local_devices()
     out = comm.fetch_global({"a": torch.arange(3), "b": [torch.ones(2)]})
     assert isinstance(out["a"], np.ndarray) and out["a"].tolist() == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    # a group needs a rendezvous and this process's id: asking without
+    # them is an actionable error, not a lone process
+    with pytest.raises(ValueError, match="process_id"):
         comm.initialize(coordinator_address="h:1")
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(ValueError, match="coordinator"):
         comm.initialize(num_processes=2)
     comm.initialize(num_processes=1)
+    assert comm.group_info() is None
 
 
-@pytest.mark.parametrize("env", [
-    {"JAX_COORDINATOR_ADDRESS": "h:1234"}, {"JAX_NUM_PROCESSES": "2"},
-    {"JAX_PROCESS_ID": "1"}, {"WORLD_SIZE": "4"}],
-    ids=lambda e: next(iter(e)))
-def test_backend_refuses_the_multi_host_environment(monkeypatch, env):
+@pytest.mark.parametrize("env,want", [
+    ({"JAX_COORDINATOR_ADDRESS": "h:1234", "JAX_NUM_PROCESSES": "4",
+      "JAX_PROCESS_ID": "2"}, ("tcp://h:1234", 4, 2)),
+    ({"JAX_COORDINATOR_ADDRESS": "file:///tmp/rdv", "JAX_NUM_PROCESSES": "2",
+      "JAX_PROCESS_ID": "1"}, ("file:///tmp/rdv", 2, 1)),
+    ({"JAX_NUM_PROCESSES": "1"}, None),
+    ({"MASTER_ADDR": "10.0.0.1", "MASTER_PORT": "29500", "WORLD_SIZE": "4",
+      "RANK": "3"}, ("env://", 4, 3))],
+    ids=["jax_tcp", "jax_file", "jax_one_process", "torchrun"])
+def test_backend_reads_the_multi_host_environment(monkeypatch, env, want):
+    """``launch.Job``'s JAX_* variables (host:port -> a tcp://
+    rendezvous, a URL as it is) and torchrun's are the group's
+    rendezvous; one process is the single-process no-op."""
+    for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                 "JAX_PROCESS_ID", "WORLD_SIZE", "MASTER_ADDR", "RANK"):
+        monkeypatch.delenv(name, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    assert comm._rendezvous_from(None, None, None) == want
+
+
+@pytest.mark.parametrize("env,missing", [
+    ({"WORLD_SIZE": "2"}, "MASTER_ADDR, MASTER_PORT, RANK"),
+    ({"MASTER_ADDR": "10.0.0.1", "MASTER_PORT": "29500", "WORLD_SIZE": "2"},
+     "RANK"),
+    ({"MASTER_ADDR": "10.0.0.1", "WORLD_SIZE": "4", "RANK": "3"},
+     "MASTER_PORT"),
+    ({"RANK": "1"}, "MASTER_ADDR, MASTER_PORT, WORLD_SIZE")],
+    ids=["world_alone", "no_rank", "no_port", "rank_alone"])
+def test_backend_refuses_a_partial_torchrun_environment(monkeypatch, env,
+                                                        missing):
+    """A torchrun world of several processes (or a rank past 0) without
+    the rest of its rendezvous is an actionable ValueError naming what
+    is missing, never a lone process training on its own."""
+    for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                 "JAX_PROCESS_ID", "WORLD_SIZE", "MASTER_ADDR",
+                 "MASTER_PORT", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match=f"without {missing}:"):
+        comm._rendezvous_from(None, None, None)
+    with pytest.raises(ValueError, match="torchrun"):
         comm.initialize()
+    assert comm.group_info() is None
+
+
+@pytest.mark.parametrize("local_world,cards,on_cpu,want", [
+    (1, 0, False, "gloo"), (2, 0, False, "gloo"), (1, 1, False, "nccl"),
+    (2, 1, False, "gloo"), (2, 2, False, "nccl"), (4, 8, False, "nccl"),
+    (8, 4, False, "gloo"), (1, 1, True, "gloo"), (2, 2, True, "gloo")])
+def test_backend_selection_rule(local_world, cards, on_cpu, want):
+    """NCCL only when each rank on the host has a card of its own; gloo
+    on the CPU and when ranks share a card (NCCL refuses two ranks on
+    one device)."""
+    assert comm.select_backend(local_world, cards, on_cpu) == want
+
+
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
+@pytest.mark.parametrize("workers", range(1, 10))
+def test_local_worker_range_deals_every_worker_once(workers, world):
+    """The trainers' worker range is ``local_data_slice`` over the
+    workers: contiguous, in rank order, the last rank taking the
+    remainder; a rank left with none raises naming the counts."""
+    got, empty = [], 0
+    for rank in range(world):
+        lo, hi = comm.local_data_slice(workers, process=rank, count=world)
+        if hi <= lo:
+            empty += 1
+            with pytest.raises(ValueError, match=f"num_workers={workers}"):
+                tmesh.worker_mesh(workers, "cpu", rank=rank, world=world)
+            continue
+        m = tmesh.worker_mesh(workers, "cpu", rank=rank, world=world)
+        assert (m.lo, m.hi, m.num_local) == (lo, hi, hi - lo)
+        assert hi - lo == (workers // world if rank < world - 1
+                           else workers - (world - 1) * (workers // world))
+        got.extend(range(lo, hi))
+    assert got == list(range(workers))
+    assert empty == (world - 1 if workers < world else 0)

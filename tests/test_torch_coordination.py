@@ -685,14 +685,30 @@ def test_rank_and_world_without_coordination_env(monkeypatch):
     assert isinstance(coordination.get_coordinator(), LocalCoordinator)
 
 
-def test_a_process_group_without_coord_dir_is_refused(monkeypatch):
+def test_a_process_group_without_coord_dir_picks_the_group_coordinator(
+        monkeypatch):
     """Where the reference picks its JaxCoordinator — a multi-process
-    group and no DK_COORD_DIR — the port refuses, naming item 12b,
-    instead of letting each process vote alone."""
-    monkeypatch.delenv("DK_COORD_DIR", raising=False)
-    monkeypatch.setattr(coordination, "_process_group_world", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        coordination.get_coordinator()
+    group and no DK_COORD_DIR — the port picks its GroupCoordinator,
+    and rank() / world() read the group; DK_COORD_DIR still wins."""
+    from dist_keras_tpu_torch.comm import backend as comm
+
+    for var in ("DK_COORD_DIR", "DK_COORD_RANK", "DK_COORD_WORLD"):
+        monkeypatch.delenv(var, raising=False)
+    group = comm._Group(rank=1, world=3, local_rank=1, local_world=3,
+                        backend="gloo", device=None, cpu_group=None,
+                        devices=[])
+    monkeypatch.setattr(comm, "_group", group)
+    coordination.reset()
+    try:
+        c = coordination.get_coordinator()
+        assert isinstance(c, coordination.GroupCoordinator)
+        assert (c.rank, c.world) == (1, 3)
+        assert (coordination.rank(), coordination.world()) == (1, 3)
+    finally:
+        coordination.reset()
+    monkeypatch.setattr(comm, "_group", None)
+    with pytest.raises(ValueError, match="process group"):
+        coordination.GroupCoordinator()
 
 
 _HOST = r"""

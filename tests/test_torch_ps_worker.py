@@ -272,18 +272,28 @@ def test_int8_compression_ratio_and_the_center_still_learns(
         PSWorkerTrainer(mnist_mlp(**ARCH), compress="int3", device="cpu")
 
 
-def test_ps_worker_takes_coord_world_and_the_rest_refuse(monkeypatch):
+def test_ps_worker_takes_coord_world_and_the_rest_coordinate(monkeypatch,
+                                                            tmp_path):
+    """The PS worker reads DK_COORD_WORLD / DK_COORD_RANK as its identity
+    alone; the other trainers take the world through DK_COORD_DIR (or a
+    process group) and refuse to train alone without either."""
+    from dist_keras_tpu_torch.resilience import coordination
     from dist_keras_tpu_torch.trainers import ADAG, SingleTrainer
 
     monkeypatch.setenv("DK_COORD_WORLD", "2")
     monkeypatch.setenv("DK_COORD_RANK", "1")
+    monkeypatch.delenv("DK_COORD_DIR", raising=False)
     t = PSWorkerTrainer(mnist_mlp(**ARCH), server_addr="127.0.0.1:1",
                         device="cpu")
     assert t._coord_rank() == 1
-    with pytest.raises(NotImplementedError, match="12b"):
+    with pytest.raises(ValueError, match="DK_COORD_WORLD=2"):
         SingleTrainer(mnist_mlp(**ARCH), device="cpu")
-    with pytest.raises(NotImplementedError, match="12b"):
+    with pytest.raises(ValueError, match="DK_COORD_WORLD=2"):
         ADAG(mnist_mlp(**ARCH), num_workers=2, device="cpu")
+    monkeypatch.setenv("DK_COORD_DIR", str(tmp_path))
+    SingleTrainer(mnist_mlp(**ARCH), device="cpu")
+    ADAG(mnist_mlp(**ARCH), num_workers=2, device="cpu")
+    assert coordination.world() == 2
 
 
 def test_ps_worker_runs_on_the_card_unless_asked(monkeypatch):

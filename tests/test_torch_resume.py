@@ -342,7 +342,40 @@ def test_a_reference_training_checkpoint_is_refused_typed(tmp_path):
 
 @pytest.mark.parametrize("cls", [tt.SingleTrainer, tt.ADAG],
                          ids=lambda c: c.__name__)
-def test_coordination_world_above_one_is_refused(monkeypatch, cls):
+def test_coordination_world_above_one_needs_something_to_coordinate(
+        monkeypatch, tmp_path, cls):
+    """DK_COORD_WORLD > 1 is taken with DK_COORD_DIR (the ranks vote
+    through the FileCoordinator; the two-process runs are in
+    test_torch_multiprocess.py); with neither that nor a process group
+    the trainer would train alone, which raises."""
+    from dist_keras_tpu_torch.resilience import coordination
+
     monkeypatch.setenv("DK_COORD_WORLD", "2")
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    monkeypatch.setenv("DK_COORD_RANK", "1")
+    monkeypatch.delenv("DK_COORD_DIR", raising=False)
+    with pytest.raises(ValueError, match="train alone"):
         cls(_model(), **KW)
+    monkeypatch.setenv("DK_COORD_DIR", str(tmp_path / "coord"))
+    t = cls(_model(), **KW)
+    assert (coordination.rank(), coordination.world()) == (1, 2)
+    if cls is tt.ADAG:
+        # no process group: every rank stacks all of its workers
+        assert (t.mesh.world, t.mesh.num_local) == (1, t.num_workers)
+
+
+def test_a_worker_split_checkpoint_refuses_another_world(monkeypatch,
+                                                         tmp_path):
+    """A step written by a world of two (each rank's payload holds only
+    its own workers) resumed by one process raises typed WorldMismatch
+    instead of restoring another rank's workers."""
+    from dist_keras_tpu_torch.checkpoint import Checkpointer
+
+    ckdir = str(tmp_path / "ck")
+    for rank in (1, 0):   # non-leader first: the leader promotes
+        Checkpointer(ckdir, rank=rank, world=2).save(
+            4, {"center": np.zeros(2, np.float32)}).wait()
+    assert Checkpointer(ckdir, rank=0, world=2).all_steps() == [4]
+    t = tt.ADAG(_model(), num_workers=2, checkpoint_dir=ckdir, resume=True,
+                **KW)
+    with pytest.raises(tt.WorldMismatch, match="written by 2"):
+        t.train(_data())

@@ -218,6 +218,41 @@ def test_report_written_on_rank_0_also_for_a_preempted_run(tmp_path,
     assert (tmp_path / "pre" / "report.txt").exists()
 
 
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_preempted_single_trainer_leaves_a_preempt_flight_dump(
+        tmp_path, monkeypatch, pkg):
+    """A SingleTrainer preempted under DK_OBS_DIR dumps its flight
+    recorder at the agreed boundary (reason ``preempt``, with the signal
+    and the units done), beside its events, in both packages alike."""
+    import json
+
+    from dist_keras_tpu.resilience import preemption as jpreemption
+
+    pre = preemption if pkg == "port" else jpreemption
+
+    def preempt(trainer, epoch, logs):
+        pre.request(signal.SIGTERM)
+
+    obs = tmp_path / pkg
+    try:
+        with pytest.raises(SystemExit) as err:
+            _train(pkg, obs, monkeypatch, "SingleTrainer",
+                   handle_preemption=True, callbacks=[preempt],
+                   checkpoint_dir=str(tmp_path / f"ck_{pkg}"))
+    finally:
+        pre.clear()
+    assert err.value.code == 128 + signal.SIGTERM
+    dumps = sorted(obs.glob("flightrec-rank_0-*-preempt.json"))
+    assert len(dumps) == 1, sorted(p.name for p in obs.iterdir())
+    doc = json.loads(dumps[0].read_text())
+    spb = ROWS // COMMON["batch_size"]
+    assert doc["reason"] == "preempt"
+    assert doc["fields"] == {"signum": int(signal.SIGTERM),
+                             "units_done": spb}
+    assert any(r.get("kind") == "preempt" for r in doc["records"])
+    assert (obs / "events-rank_0.jsonl").exists()
+
+
 def test_no_obs_dir_writes_nothing(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     t = ADAG(tmlp(hidden=(16,), input_dim=8, num_classes=2), device="cpu",

@@ -384,18 +384,48 @@ def test_adag_trains_on_the_cpu_when_asked(no_cuda):
 
 
 @pytest.mark.parametrize("cls", _MULTI_WORKER, ids=lambda c: c.__name__)
-def test_multi_worker_trainers_refuse_a_mesh(cls):
+def test_multi_worker_trainers_take_a_worker_mesh(cls):
+    """``mesh=`` takes a WorkerMesh (its slots are the trainer's
+    workers, its device the trainer's); anything else is a TypeError."""
+    from dist_keras_tpu_torch.parallel.mesh import worker_mesh
+
     model = mnist_mlp(hidden=(4,), input_dim=6)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    mesh = worker_mesh(2, "cpu")
+    t = cls(model, num_workers=2, mesh=mesh)
+    assert t.mesh is mesh and t.device == torch.device("cpu")
+    assert t._local_worker_range() == (0, 2)
+    with pytest.raises(TypeError, match="WorkerMesh"):
         cls(model, mesh="workers", device="cpu")
 
 
-@pytest.mark.parametrize("env", [
-    ("JAX_COORDINATOR_ADDRESS", "10.0.0.1:1234"), ("JAX_NUM_PROCESSES", "2"),
-    ("WORLD_SIZE", "2")], ids=lambda e: e[0])
-def test_multi_worker_trainers_refuse_the_multi_host_env(monkeypatch, env):
-    monkeypatch.setenv(*env)
+@pytest.mark.parametrize("env,alone", [
+    ({"JAX_NUM_PROCESSES": "1"}, True),
+    ({"JAX_COORDINATOR_ADDRESS": "file:///nonexistent", "JAX_NUM_PROCESSES":
+      "1", "JAX_PROCESS_ID": "0"}, True),
+    ({"WORLD_SIZE": "2"}, False)],
+    ids=["jax_one_process", "jax_world_one", "world_size_alone"])
+def test_multi_worker_trainers_read_the_multi_host_env(monkeypatch, env,
+                                                       alone):
+    """The launcher's environment of ONE process is the single-process
+    path; torchrun's world without its rendezvous, or an address with no
+    process id, is an actionable ValueError, never a lone rank."""
+    for k in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+              "JAX_PROCESS_ID", "WORLD_SIZE", "RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     model = mnist_mlp(hidden=(4,), input_dim=6)
     for cls in _MULTI_WORKER:
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            cls(model, device="cpu")
+        if alone:
+            t = cls(model, device="cpu")
+            assert (t.mesh.world, t.mesh.rank) == (1, 0)
+        else:
+            with pytest.raises(ValueError, match="MASTER_ADDR"):
+                cls(model, device="cpu")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.0.0.1:1234")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.delenv("JAX_PROCESS_ID", raising=False)
+    with pytest.raises(ValueError, match="JAX_PROCESS_ID"):
+        ADAG(model, device="cpu")

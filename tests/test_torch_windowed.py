@@ -23,6 +23,7 @@ from dist_keras_tpu_torch.data.dataset import Dataset as TDataset
 from dist_keras_tpu_torch.models import layers as tl
 from dist_keras_tpu_torch.models import model as tmodel
 from dist_keras_tpu_torch.ops import optimizers as toptim
+from dist_keras_tpu_torch.parallel import mesh as tmesh
 from dist_keras_tpu_torch.ops.losses import categorical_crossentropy as tcce
 from dist_keras_tpu_torch.trainers import step as tstep
 from dist_keras_tpu_torch.trainers import windowed as tw
@@ -317,13 +318,17 @@ def test_eamsgd_chain_follows_optax():
                                    rtol=1e-6, atol=1e-7)
 
 
-# -- what is not ported ----------------------------------------------------
+# -- the worker layout -------------------------------------------------------
 
-@pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "item 12b")], ids=lambda v: str(v)[:24])
-def test_unported_kwargs_raise(kw, item):
+@pytest.mark.parametrize("kw,err", [
+    ({"mesh": object()}, TypeError), ({"mesh": "workers"}, TypeError),
+    ({"mesh": "stacked", "num_workers": 3}, ValueError)],
+    ids=["object", "axis_name", "slot_count"])
+def test_a_mesh_must_be_the_trainers_worker_mesh(kw, err):
     _, tm = _dense()
-    with pytest.raises(NotImplementedError, match=item):
+    if kw["mesh"] == "stacked":
+        kw = dict(kw, mesh=tmesh.worker_mesh(4, "cpu"))
+    with pytest.raises(err):
         tw.ADAG(tm, device="cpu", **kw)
 
 
