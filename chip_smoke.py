@@ -236,12 +236,44 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    its uninterrupted run.  The hand-written kernels' counters, zeroed in
    every process, stay 0.
 
+17. the MoE transformer, expert and sequence parallelism: 17a,
+   ``bench_transformer_tp``'s widths with 8 experts a block (capacity
+   factor 1.25), B=16, causal, bf16 compute, f32 masters, adam(1e-3):
+   one step's loss and grads through the kernels against the same step
+   with plain attention, in f32 (each run routing its own tokens) and in
+   bf16 with the kernels' routing replayed in the plain run (the free
+   bf16 pair printed beside it, with the tokens it routed otherwise);
+   ``switch_moe_dense``'s index dispatch bit-equal to the one-hot plain
+   version at N=2048 in f32; 10 steps of ``make_moe_train_step``, K1, K2
+   and K3 once per layer per step; tokens/s, the step's wall beside its
+   device time and the dense step's in the same call, its profile, and
+   one MoE layer's device time by kernel.  17b, two rank processes
+   (``--mp-role``) sharing the card under gloo:
+   ``make_moe_ep_train_step`` with 4 experts a rank, 2 sequences a rank,
+   f32, sgd, 3 steps, every rank's params within 1e-5 of the largest
+   weight of a witness (the same steps in the rank's process with every
+   rank's block through the dense mixture, grads summed), the ranks'
+   replicated leaves bit-equal; the exchange's calls, bytes and blocked
+   ms a step; samples/s beside one process alone.  17c, the same ranks:
+   ``ring_attention`` at B=16, T=2048 (1024 a rank), H=6, D=128, causal,
+   bf16 and f32, forward and grads against ``flash_attention_with_lse``
+   on the whole sequence; ``make_tp_train_step(mesh=make_tp_mesh(sp=2))``
+   at ``TRAIN_MODEL``'s widths, B=16, f32, sgd: loss and grads against
+   the one-card step (``STEP_F32_TOL``), the params after 3 steps too,
+   the ranks' params bit-equal; tokens/s at sp=2 beside sp=1 and the
+   ring's blocked ms a step.  K1-K3 launch on 17a's and 17b/c's main
+   paths, and the kernels' ``launches`` include them.
+
 Each phase's seconds are printed as the next one starts, and all of them
-after phase 16.
+after phase 17.  The full run cuts 15b's repeats and run lengths
+(``PROOF15``: one resident and one streamed MLP run of one epoch, a
+shorter CNN pair) so that it stays well inside the time limit; every
+check still runs.
 
 ``python3 chip_smoke.py --phase12`` runs only phases 1 and 12;
 ``--phase13`` only phases 1 and 13; ``--phase14`` only phases 1 and 14;
-``--phase15`` only phases 1 and 15; ``--phase16`` only phases 1 and 16.
+``--phase15`` only phases 1 and 15 (at its full sizes); ``--phase16``
+only phases 1 and 16; ``--phase17`` only phases 1 and 17.
 ``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
 K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
 two trees' K5 can be timed on the same inputs in one run.
@@ -253,6 +285,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -322,7 +355,7 @@ class PhaseClock:
         self._stop()
         print("phase seconds: " + ", ".join(
             f"{n} {dt:.1f}" for n, dt in self.rows)
-            + f"; phases 2-16 {time.perf_counter() - self.t0:.1f} s")
+            + f"; phases 2-17 {time.perf_counter() - self.t0:.1f} s")
 
 
 class SmokeFailure(RuntimeError):
@@ -4810,6 +4843,10 @@ PHASE15 = dict(
     mlp_window=8, mlp_chunk=32, mlp_epochs=2, mlp_runs=BENCH_RUNS,
     cnn_batch=ADAG_BENCH_BATCH, cnn_steps=ADAG_BENCH_STEPS,
     cnn_seconds=4.0, budget=4 << 20, stream_batch=256)
+# the full run's cut of 15b (one streamed and one resident run of one
+# epoch, a shorter CNN pair): every check stays, only repeats and run
+# lengths shrink; ``--phase15`` runs PHASE15's full sizes
+PROOF15 = dict(mlp_runs=1, mlp_epochs=1, cnn_seconds=2.0)
 STREAM_PARITY = 0.9   # bench.py's streamed / resident target: recorded
 STREAM_TOL = 1e-5     # StreamingPredictor against ModelPredictor (f32)
 
@@ -5066,6 +5103,8 @@ def stream_full_width(gpu, device, p):
                 for t, _, _ in st),
             "a 15b streamed run held more than two chunks")
     ratio = s_sps / r_sps
+    order = " ".join("R S" if k % 2 == 0 else "S R"
+                     for k in range(p["mlp_runs"]))
     print(f"  bench_adag_streamed shape: resident {r_sps:.1f} samples/s "
           f"(median of {p['mlp_runs']}: "
           f"{', '.join(f'{s:.1f}' for _, s, _ in res)}), streamed "
@@ -5075,7 +5114,7 @@ def stream_full_width(gpu, device, p):
           f"{feed.put_bytes / 1e6:.2f} MB shipped): streamed / resident "
           f"{ratio:.4f} (bench.py's parity target {STREAM_PARITY}: "
           f"{'met' if ratio >= STREAM_PARITY else 'missed'}; runs in turns "
-          f"R S S R R S) on {gpu}")
+          f"{order}) on {gpu}")
     print(f"  torch.cuda.max_memory_allocated: resident "
           f"{res[-1][2] / 2**20:.1f} MiB, streamed {st[-1][2] / 2**20:.1f} "
           f"MiB on {gpu}")
@@ -6079,6 +6118,652 @@ def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
     print(f"  phase 16 wall {time.perf_counter() - t0:.1f} s on {gpu}")
 
 
+# -- phase 17: the MoE transformer, experts and sequence over ranks ---------
+MOE = dict(moe_experts=8, moe_capacity_factor=1.25)   # the JAX default factor
+MOE_AUX = 1e-2          # make_moe_train_step's aux_weight
+EP_TOL = 1e-5           # 17b: of the largest weight, against the witness
+# bench_transformer_tp's widths; a rehearsal on the CPU passes smaller ones
+PHASE17 = dict(model=TRAIN_MODEL, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+               plain_tokens=2048, ep_batch=2, ep_steps=3, ep_timed=3,
+               ring_batch=16, sp_batch=16, sp_steps=3, sp_timed=3, lr=0.01)
+
+
+def moe_cfg(p):
+    from dist_keras_tpu_torch.models.transformer import transformer_config
+
+    return transformer_config(**p["model"], **MOE)
+
+
+def moe_loss_and_grads(params, x, y, cfg, attn_fn=None, compute_dtype=None):
+    """(loss, grads) of one step of ``make_moe_train_step``'s objective
+    (nll + MOE_AUX * aux, causal), its attention swappable."""
+    import torch
+
+    from dist_keras_tpu_torch.models.transformer import (
+        transformer_apply_with_aux,
+    )
+    from dist_keras_tpu_torch.utils.pytree import (
+        tree_cast,
+        tree_leaves,
+        tree_unflatten,
+    )
+
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    p = tree_unflatten(params, leaves)
+    if compute_dtype is not None:
+        p, x = tree_cast(p, compute_dtype), x.to(compute_dtype)
+    logits, aux = transformer_apply_with_aux(p, x, cfg, causal=True,
+                                             attn_fn=attn_fn)
+    nll = -torch.log_softmax(logits.float(), -1).gather(
+        1, y.long()[:, None]).mean()
+    loss = nll + MOE_AUX * aux
+    return loss.detach(), tree_unflatten(params, torch.autograd.grad(
+        loss, leaves))
+
+
+class Routes:
+    """Stands in for ``parallel.moe._route`` while :meth:`run` runs:
+    ``"record"`` keeps every MoE layer's (expert, position, keep) of the
+    run, ``"replay"`` hands the recorded ones back, layer by layer, to a
+    second run.  In both the gate is the softmax at the routed expert
+    and the aux loss the Switch one over the routed experts, so two runs
+    whose attention differs route every token alike."""
+
+    def __init__(self):
+        from dist_keras_tpu_torch.parallel import moe as tmoe
+
+        self.moe, self.route, self.saved = tmoe, tmoe._route, []
+
+    def __call__(self, params, x, num_experts, capacity):
+        import torch
+
+        if self.mode == "record":
+            expert, pos, keep = self.route(params, x, num_experts,
+                                           capacity)[:3]
+            self.saved.append((expert, pos, keep))
+        else:
+            expert, pos, keep = self.saved[self.i]
+            self.i += 1
+        probs = torch.softmax((x @ params["router"]).float(), dim=-1)
+        gate = probs.gather(1, expert[:, None])[:, 0]
+        frac = torch.nn.functional.one_hot(expert, num_experts).float()
+        aux = torch.sum(frac.mean(0) * probs.mean(0)) * num_experts
+        return expert, pos, keep, gate, probs, aux
+
+    def run(self, mode, fn):
+        self.mode, self.i = mode, 0
+        self.moe._route = self
+        try:
+            return fn()
+        finally:
+            self.moe._route = self.route
+
+
+def route_flips(a, b):
+    """Two recorded runs' routing over all layers: -> (tokens sent to
+    another expert, kept in one and dropped in the other, at another
+    queue position (a flip moves every later token of its experts),
+    token-layers)."""
+    pairs = list(zip(a.saved, b.saved))
+    return (sum(int((ea != eb).sum()) for (ea, _, _), (eb, _, _) in pairs),
+            sum(int((ka != kb).sum()) for (_, _, ka), (_, _, kb) in pairs),
+            sum(int(((ea != eb) | (pa != pb)).sum())
+                for (ea, pa, _), (eb, pb, _) in pairs),
+            sum(int(e.numel()) for e, _, _ in a.saved))
+
+
+def moe_one_card(fa, fu, da, gpu, dev, p):
+    """17a: the MoE transformer at full width on one card."""
+    import torch
+
+    from dist_keras_tpu_torch.models.transformer import transformer_config
+    from dist_keras_tpu_torch.parallel import (
+        make_moe_train_step,
+        make_tp_train_step,
+    )
+    from dist_keras_tpu_torch.parallel import moe as tmoe
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    cfg = moe_cfg(p)
+    cuda = dev.type == "cuda"
+    init_fn, step = make_moe_train_step(cfg, causal=True,
+                                        compute_dtype=torch.bfloat16,
+                                        device=dev)
+    params, opt_state = init_fn(0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_expert = sum(t.numel() for blk in params["blocks"]
+                   for k, t in blk["moe"].items() if k != "router")
+    b, t, e = p["batch"], cfg["seq_len"], cfg["moe_experts"]
+    cap = math.ceil(b * t * MOE["moe_capacity_factor"] / e)
+    print(f"  model {p['model']} + {MOE}, batch {b} causal, bf16 compute, "
+          f"{n_params} f32 master params ({n_expert} in the experts), "
+          f"adam(1e-3); {b * t} tokens a layer, capacity {cap} an expert")
+    rng = np.random.default_rng(17)
+    x, y = train_data(rng, dev, b, t)
+
+    # one step through the kernels against the same step with plain
+    # attention: f32 free, bf16 with the routing replayed (both runs route
+    # every token alike), and bf16 free (recorded: a near-tie in the
+    # router's softmax sends a token elsewhere when the attention differs)
+    got = moe_loss_and_grads(params, x, y, cfg)
+    want = moe_loss_and_grads(params, x, y, cfg, attn_fn=plain_block)
+    compare_grads("one step, kernels vs plain attention, float32", got,
+                  want, STEP_F32_TOL)
+    del got, want
+    bf16 = torch.bfloat16
+    kern, plain = Routes(), Routes()
+    got = kern.run("record", lambda: moe_loss_and_grads(
+        params, x, y, cfg, compute_dtype=bf16))
+    want = plain.run("record", lambda: moe_loss_and_grads(
+        params, x, y, cfg, attn_fn=plain_block, compute_dtype=bf16))
+    expert, dropped, moved, tokens = route_flips(kern, plain)
+    errs = [float((g - w).norm() / w.norm().clamp_min(1e-30))
+            for g, w in zip(tree_leaves(got[1]), tree_leaves(want[1]))]
+    print(f"  one step, kernels vs plain attention, bfloat16, each routing "
+          f"its own (recorded): of {tokens} token-layers, {expert} "
+          f"({expert / tokens:.3%}) sent to another expert, {dropped} "
+          f"kept by one run and dropped by the other, {moved} at another "
+          f"queue position; loss {float(got[0]):.6f} vs "
+          f"{float(want[0]):.6f}; largest per-leaf relative norm error "
+          f"{max(errs):.3e}, median {float(np.median(errs)):.3e}")
+    del want
+    want = kern.run("replay", lambda: moe_loss_and_grads(
+        params, x, y, cfg, attn_fn=plain_block, compute_dtype=bf16))
+    again = kern.run("replay", lambda: moe_loss_and_grads(
+        params, x, y, cfg, compute_dtype=bf16))
+    compare_grads("one step, kernels vs plain attention, bfloat16, the "
+                  "kernels' routing replayed in both", again, want,
+                  STEP_BF16_TOL)
+    del got, want, again
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the index dispatch against the one-hot plain version where its
+    # (N, E, C) tensors fit
+    blk = params["blocks"][0]["moe"]
+    tok = torch.from_numpy(rng.standard_normal(
+        (p["plain_tokens"], cfg["d_model"]), np.float32)).to(dev)
+    idx_out, idx_aux = tmoe.switch_moe_dense(blk, tok, MOE[
+        "moe_capacity_factor"])
+    ref_out, ref_aux = tmoe.switch_moe_dense_reference(
+        blk, tok, MOE["moe_capacity_factor"])
+    equal = torch.equal(idx_out, ref_out) and torch.equal(idx_aux, ref_aux)
+    line = (f"  switch_moe_dense (index dispatch) against the one-hot plain "
+            f"version at N={p['plain_tokens']} tokens, f32: bit-equal "
+            f"{equal}")
+    if cuda:
+        ms = [time_ms(lambda: fn(blk, tok), 5, 3) for fn in (
+            tmoe.switch_moe_dense, tmoe.switch_moe_dense_reference)]
+        line += f"; {ms[0]:.4f} ms against {ms[1]:.4f} ms on {gpu}"
+    print(line)
+    require(equal, "the index dispatch differs from the one-hot version")
+    del tok, idx_out, ref_out
+
+    # the main path: adam steps through make_moe_train_step
+    params, opt_state = init_fn(0)
+    if cuda:
+        torch.cuda.synchronize()
+    zero_kernel_counts(fa, fu, da)
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(p["steps"]):
+        params, opt_state, m = step(params, opt_state, x, y)
+        metrics.append(m)
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(fa, fu, da)
+    print(f"  {p['steps']} adam steps: loss "
+          f"{[round(m['loss'], 5) for m in metrics]}, aux "
+          f"{[round(m['aux'], 4) for m in metrics]}")
+    print(f"  launches on the main path: {launches}")
+    require(all(np.isfinite(list(m.values())).all() for m in metrics),
+            "a MoE training metric is not finite")
+    per = p["steps"] * cfg["n_layers"]
+    if cuda:
+        require(launches["flash_fwd"] == per and launches["flash_bwd_dq"]
+                == per and launches["flash_bwd_dkv"] == per
+                and not launches["flash_bwd_fused"]
+                and not launches["paged_decode"],
+                f"expected {per} launches of K1, K2 and K3 (one per layer "
+                f"per step) and none of K4 / K5, got {launches}")
+    tokens = b * t * p["steps"]
+    print(f"  MoE training: {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tokens/s on {gpu}")
+    if not cuda:
+        return launches
+
+    def one_step():
+        return step(params, opt_state, x, y)
+
+    device_ms = time_ms(one_step, reps=3, trials=3, sleep_ms=400)
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        float(one_step()[2]["loss"])
+        walls.append((time.perf_counter() - t1) * 1e3)
+    wall_ms = float(np.median(walls))
+    dense_factory, dense_init = make_tp_train_step(
+        transformer_config(**p["model"]), causal=True,
+        compute_dtype=torch.bfloat16, device=dev)
+    dparams, dopt = dense_init(0)
+    dstep = dense_factory(dparams, dopt)
+    dense_ms = time_ms(lambda: dstep(dparams, dopt, x, y), reps=3, trials=3,
+                       sleep_ms=400)
+    del dparams, dopt
+    print(f"  MoE train step [B={b} T={t}] on {gpu}: wall {wall_ms:.3f} ms, "
+          f"device {device_ms:.3f} ms, card idle "
+          f"{max(0.0, 1 - device_ms / wall_ms):.0%} of the step; the dense "
+          f"step of phase 7 in this call: device {dense_ms:.3f} ms (MoE / "
+          f"dense {device_ms / dense_ms:.3f})")
+    profile_step(one_step, gpu)
+    # the MoE layer alone at the step's shape, forward and backward
+    y2 = torch.randn(b * t, cfg["d_model"], device=dev, dtype=torch.bfloat16,
+                     requires_grad=True)
+    lp = {k: v.detach().bfloat16().requires_grad_()
+          for k, v in params["blocks"][0]["moe"].items()}
+
+    def layer():
+        out, aux = tmoe.switch_moe_dense(lp, y2, MOE["moe_capacity_factor"])
+        torch.autograd.backward((out, aux), (torch.ones_like(out), None))
+
+    layer_ms = time_ms(layer, reps=3, trials=3)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        layer()
+        torch.cuda.synchronize()
+    top = sorted(((ev.self_device_time_total, ev.key)
+                  for ev in prof.key_averages()
+                  if ev.self_device_time_total > 0), reverse=True)
+    total = sum(us for us, _ in top)
+    require(total > 0, "the profiler saw no device time in the MoE layer")
+    print(f"  one MoE layer [N={b * t} d={cfg['d_model']} E={e} C={cap} "
+          f"bf16], forward and backward: {layer_ms:.3f} ms (CUDA events); "
+          f"by kernel (torch.profiler) {total / 1e3:.3f} ms: " + "; ".join(
+              f"{name[:60]} {us / 1e3:.3f} ms ({us / total:.1%})"
+              for us, name in top[:6]) + f" on {gpu}")
+    return launches
+
+
+def mp_task_ep(cfg, gates, rank):
+    """17b: ``make_moe_ep_train_step`` over the ranks (f32, sgd), held to
+    a witness in this process (the same steps with every rank's block
+    through the dense mixture at the block's capacity, grads summed);
+    then its samples/s, and rank 0's against one process alone."""
+    import hashlib
+
+    import torch
+
+    from dist_keras_tpu_torch import comm
+    from dist_keras_tpu_torch.ops import decode_attention as da
+    from dist_keras_tpu_torch.ops import flash_attention as fa
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
+    from dist_keras_tpu_torch.ops.optimizers import apply_updates, sgd
+    from dist_keras_tpu_torch.parallel import collectives
+    from dist_keras_tpu_torch.parallel import (
+        EXPERT_AXIS,
+        make_moe_ep_train_step,
+        make_moe_train_step,
+    )
+    from dist_keras_tpu_torch.parallel.mesh import rank_axis
+    from dist_keras_tpu_torch.parallel.moe import (
+        moe_transformer_param_specs,
+        split_moe_params,
+    )
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves, tree_map
+
+    p = cfg["sizes"]
+    dev = torch.device(cfg["device"])
+    cuda = dev.type == "cuda"
+    mcfg = moe_cfg(p)
+    axis = rank_axis(EXPERT_AXIS)
+    b, t = p["ep_batch"], mcfg["seq_len"]
+    rng = np.random.default_rng(171)
+    xs = torch.from_numpy(rng.standard_normal(
+        (axis.size * b, t, mcfg["input_dim"]), np.float32)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, mcfg["n_classes"],
+                                       axis.size * b)).to(dev)
+    x, y = xs[rank * b:(rank + 1) * b], ys[rank * b:(rank + 1) * b]
+    tx = sgd(p["lr"])
+    factory, init_fn = make_moe_ep_train_step(mcfg, optimizer=tx,
+                                              causal=True, device=dev)
+    params, opt = init_fn(0)
+    step = factory(params, opt)
+    gates.wait_open("ep")
+    if cuda:
+        torch.cuda.synchronize()
+    zero_kernel_counts(fa, fu, da)
+    for op in ("all_to_all", "all_reduce"):
+        collectives.reduce_stats(reset=True, op=op)
+    metrics = []
+    for _ in range(p["ep_steps"]):
+        params, opt, m = step(params, opt, x, y)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = kernel_counts(fa, fu, da)
+    exchange = collectives.reduce_stats(op="all_to_all")
+    reduce = collectives.reduce_stats(op="all_reduce")
+
+    # the witness: the full tree from the same seed, every rank's block
+    # through the dense mixture at the block's capacity, grads summed
+    wparams, _ = make_moe_train_step(mcfg, optimizer=tx, device=dev)[0](0)
+    wopt = tx.init(wparams)
+    for _ in range(p["ep_steps"]):
+        grads = None
+        for r in range(axis.size):
+            sl = slice(r * b, (r + 1) * b)
+            _, g = moe_loss_and_grads(wparams, xs[sl], ys[sl], mcfg)
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+        grads = tree_map(lambda v: v / axis.size, grads)
+        updates, wopt = tx.update(grads, wopt, wparams)
+        wparams = apply_updates(wparams, updates)
+    mine = split_moe_params(wparams, axis)
+    scale = max(float(v.abs().max()) for v in tree_leaves(mine))
+    err = max(float((a - w).abs().max()) for a, w in
+              zip(tree_leaves(params), tree_leaves(mine))) / scale
+    specs = tree_leaves(moe_transformer_param_specs(params))
+    digest = hashlib.sha256()
+    for v, s in zip(tree_leaves(params), specs):
+        if not s:
+            digest.update(v.detach().cpu().numpy().tobytes())
+    del wparams, wopt, mine, grads
+
+    # samples/s over the ranks, then one process alone (rank 0, the other
+    # rank waiting at the barrier)
+    comm.barrier("ep_timed")
+    t0 = time.perf_counter()
+    for _ in range(p["ep_timed"]):
+        params, opt, m = step(params, opt, x, y)
+    float(m["loss"])
+    split_s = time.perf_counter() - t0
+    comm.barrier("ep_alone")
+    alone_s = None
+    if rank == 0:
+        one_init, one_step = make_moe_train_step(mcfg, optimizer=tx,
+                                                 causal=True, device=dev)
+        op_, oo = one_init(0)
+        op_, oo, m = one_step(op_, oo, xs, ys)
+        float(m["loss"])
+        t0 = time.perf_counter()
+        for _ in range(p["ep_timed"]):
+            op_, oo, m = one_step(op_, oo, xs, ys)
+        float(m["loss"])
+        alone_s = time.perf_counter() - t0
+        del op_, oo
+    comm.barrier("ep_done")
+    gates.answer("ep", rank, {
+        "metrics": metrics, "launches": launches, "exchange": exchange,
+        "reduce": reduce, "err": err, "digest": digest.hexdigest(),
+        "split_sps": axis.size * b * p["ep_timed"] / split_s,
+        "alone_sps": (axis.size * b * p["ep_timed"] / alone_s
+                      if alone_s else None),
+        "steps": p["ep_steps"], "ranks": axis.size})
+
+
+def mp_task_ring_sp(cfg, gates, rank):
+    """17c: ``ring_attention`` against one-process flash attention on the
+    whole sequence (bf16, f32), then the sequence-parallel step against
+    the one-card step (rank 0 holds both; f32, sgd), its tokens/s and
+    the ring's blocked time."""
+    import hashlib
+
+    import torch
+
+    from dist_keras_tpu_torch import comm
+    from dist_keras_tpu_torch.models.transformer import transformer_config
+    from dist_keras_tpu_torch.ops import decode_attention as da
+    from dist_keras_tpu_torch.ops import flash_attention as fa
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
+    from dist_keras_tpu_torch.ops.attention import ring_attention
+    from dist_keras_tpu_torch.ops.optimizers import sgd
+    from dist_keras_tpu_torch.parallel import collectives, make_tp_mesh
+    from dist_keras_tpu_torch.parallel import make_tp_train_step
+    from dist_keras_tpu_torch.parallel.transformer_tp import (
+        loss_and_grads,
+        seq_block,
+    )
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    p = cfg["sizes"]
+    dev = torch.device(cfg["device"])
+    cuda = dev.type == "cuda"
+    model = p["model"]
+    mesh = make_tp_mesh(sp=comm.num_processes())
+    n, t = mesh.seq.size, model["seq_len"]
+    h = model["n_heads"]
+    d = model["d_model"] // h
+    tl = t // n
+    sl = slice(rank * tl, (rank + 1) * tl)
+    rng = np.random.default_rng(172)
+    gates.wait_open("ring_sp")
+    ring = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(
+            (p["ring_batch"], t, h, d), np.float32)).to(dev) for _ in range(4))
+        whole = [a.to(dtype).requires_grad_() for a in (q, k, v)]
+        out, _ = fa.flash_attention_with_lse(*whole, causal=True)
+        (out.float() * g).sum().backward()
+        mine = [a.to(dtype)[:, sl].detach().requires_grad_()
+                for a in (q, k, v)]
+        got = ring_attention(*mine, mesh.seq, causal=True)
+        (got.float() * g[:, sl]).sum().backward()
+        errs = [rel_err(got, out[:, sl].detach())] + [
+            rel_err(m.grad, w.grad[:, sl]) for m, w in zip(mine, whole)]
+        ring[str(dtype)[6:]] = {"errs": errs, "tol": tol}
+        del q, k, v, g, whole, out, mine, got
+    if cuda:
+        torch.cuda.empty_cache()
+
+    scfg = transformer_config(**model)
+    x = torch.from_numpy(rng.standard_normal(
+        (p["sp_batch"], t, scfg["input_dim"]), np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, scfg["n_classes"],
+                                      p["sp_batch"])).to(dev)
+    xb = seq_block(x, mesh)
+    tx = sgd(p["lr"])
+    factory, init_fn = make_tp_train_step(scfg, optimizer=tx, causal=True,
+                                          device=dev, mesh=mesh)
+    params, opt = init_fn(0)
+    loss, grads = loss_and_grads(params, xb, y, scfg, causal=True, mesh=mesh)
+    step = factory(params, opt)
+    if cuda:
+        torch.cuda.synchronize()
+    zero_kernel_counts(fa, fu, da)
+    for op in ("ring", "all_reduce"):
+        collectives.reduce_stats(reset=True, op=op)
+    losses = []
+    for _ in range(p["sp_steps"]):
+        params, opt, lv = step(params, opt, xb, y)
+        losses.append(float(lv))
+    launches = kernel_counts(fa, fu, da)
+    shifts = collectives.reduce_stats(op="ring")
+    reduce = collectives.reduce_stats(op="all_reduce")
+    digest = hashlib.sha256()
+    for v in tree_leaves(params):
+        digest.update(v.detach().cpu().numpy().tobytes())
+    comm.barrier("sp_ref")
+    ref = None
+    if rank == 0:
+        # the one-card step on the whole sequence, the ranks' inputs
+        ofactory, oinit = make_tp_train_step(scfg, optimizer=tx, causal=True,
+                                             device=dev)
+        oparams, oopt = oinit(0)
+        oloss, ograds = loss_and_grads(oparams, x, y, scfg, causal=True)
+        gerr = [float((a - w).norm() / w.norm().clamp_min(1e-30))
+                for a, w in zip(tree_leaves(grads), tree_leaves(ograds))]
+        del ograds
+        ostep = ofactory(oparams, oopt)
+        olosses = []
+        for _ in range(p["sp_steps"]):
+            oparams, oopt, lv = ostep(oparams, oopt, x, y)
+            olosses.append(float(lv))
+        perr = [float((a - w).norm() / w.norm().clamp_min(1e-30))
+                for a, w in zip(tree_leaves(params), tree_leaves(oparams))]
+        float(ostep(oparams, oopt, x, y)[2])
+        t0 = time.perf_counter()
+        for _ in range(p["sp_timed"]):
+            oparams, oopt, lv = ostep(oparams, oopt, x, y)
+        float(lv)
+        one_s = time.perf_counter() - t0
+        ref = {"loss_err": abs(float(loss) - float(oloss))
+               / abs(float(oloss)), "grad_err": max(gerr),
+               "param_err": max(perr), "losses": olosses,
+               "tokens_s": p["sp_batch"] * t * p["sp_timed"] / one_s}
+        del oparams, oopt
+    comm.barrier("sp_timed")
+    collectives.reduce_stats(reset=True, op="ring")
+    t0 = time.perf_counter()
+    for _ in range(p["sp_timed"]):
+        params, opt, lv = step(params, opt, xb, y)
+    float(lv)
+    sp_s = time.perf_counter() - t0
+    timed_ring = collectives.reduce_stats(op="ring")
+    gates.answer("ring_sp", rank, {
+        "ring": ring, "losses": losses, "launches": launches,
+        "shifts": shifts, "reduce": reduce, "digest": digest.hexdigest(),
+        "ref": ref, "tokens_s": p["sp_batch"] * t * p["sp_timed"] / sp_s,
+        "ring_ms": timed_ring["seconds"] / p["sp_timed"] * 1e3,
+        "ring_mb": timed_ring["bytes"] / p["sp_timed"] / 1e6,
+        "ranks": n})
+
+
+def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p):
+    """17b and 17c: two rank processes (``--mp-role``) sharing the card
+    under gloo. -> the K1-K3 launches of their main paths (the EP and
+    the SP steps), summed over the ranks."""
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="dk_mp_phase17_"))
+    procs = MPProcs(work)
+    gates = Gates(work)
+    launches = {}
+    try:
+        ranks = procs.launch("p17", ["ep", "ring_sp"], device, p)
+        gates.procs = ranks
+        print("phase 17b: make_moe_ep_train_step over 2 ranks (4 experts "
+              "each) sharing the card under gloo")
+        gates.open("ep")
+        ans = gates.answers("ep")
+        for r, q in enumerate(ranks):
+            init = procs.init(q)
+            print(f"  rank {r}: backend {init['backend']} on "
+                  f"{init['device']}, group up in {init['init_s']:.2f} s")
+        a0 = ans[0]
+        per_step = {k: a0["exchange"][k] / a0["steps"]
+                    for k in ("calls", "bytes", "seconds")}
+        print(f"  {MOE['moe_experts']} experts over {a0['ranks']} ranks, "
+              f"{p['ep_batch']} sequences a rank, f32, sgd({p['lr']}), "
+              f"{a0['steps']} steps: losses "
+              + " / ".join(str([round(m["loss"], 6) for m in a["metrics"]])
+                           for a in ans)
+              + " (rank 0 / rank 1)")
+        for r, a in enumerate(ans):
+            print(f"  rank {r}: params against the witness (every rank's "
+                  f"block through the dense mixture in one process, grads "
+                  f"summed) {a['err']:.3e} of the largest weight (held to "
+                  f"{EP_TOL:g}); launches {a['launches']}")
+        same = len({a["digest"] for a in ans}) == 1
+        print(f"  the ranks' replicated leaves bit-equal: {same}")
+        print(f"  the exchange (all_to_all, staged through pinned host "
+              f"buffers under gloo), rank 0: {per_step['calls']:.0f} calls, "
+              f"{per_step['bytes'] / 1e6:.3f} MB and "
+              f"{per_step['seconds'] * 1e3:.3f} ms blocked a step; the "
+              f"replicated grads' packed all-reduce "
+              f"{a0['reduce']['bytes'] / a0['steps'] / 1e6:.3f} MB and "
+              f"{a0['reduce']['seconds'] / a0['steps'] * 1e3:.3f} ms a step")
+        split = " / ".join(f"{a['split_sps']:.2f}" for a in ans)
+        print(f"  samples/s: 2 ranks {split} "
+              f"(rank 0 / rank 1, {p['ep_timed']} steps); one process alone "
+              f"on the whole batch {a0['alone_sps']:.2f} (recorded, not "
+              f"gated) on {gpu}")
+        require(same and all(a["err"] <= EP_TOL for a in ans)
+                and all(np.isfinite([m["loss"] for m in a["metrics"]]).all()
+                        for a in ans),
+                f"17b: errs {[a['err'] for a in ans]}, ranks equal {same}")
+        require(a0["exchange"]["calls"] == 4 * p["model"]["n_layers"]
+                * a0["steps"], f"17b: {a0['exchange']['calls']} exchanges")
+        for a in ans:
+            for k, v in a["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+
+        print("phase 17c: ring attention and the sequence-parallel step over "
+              "2 ranks sharing the card under gloo")
+        gates.open("ring_sp")
+        ans = gates.answers("ring_sp")
+        t = p["model"]["seq_len"]
+        for r, a in enumerate(ans):
+            for dt, res in a["ring"].items():
+                print(f"  rank {r}: ring_attention [B={p['ring_batch']} "
+                      f"T={t} ({t // a['ranks']} a rank) "
+                      f"H={p['model']['n_heads']} causal {dt}] "
+                      f"against flash_attention_with_lse on the whole "
+                      f"sequence, relative to the largest entry: out "
+                      f"{res['errs'][0]:.3e}, dq {res['errs'][1]:.3e}, dk "
+                      f"{res['errs'][2]:.3e}, dv {res['errs'][3]:.3e} (tol "
+                      f"{res['tol']:g})")
+                require(max(res["errs"]) <= res["tol"],
+                        f"17c rank {r}: ring_attention {dt} disagrees")
+        ref = ans[0]["ref"]
+        same = len({a["digest"] for a in ans}) == 1
+        print(f"  the SP step [sp=2, B={p['sp_batch']}, f32, sgd({p['lr']})] "
+              f"against the one-card step: loss relative "
+              f"{ref['loss_err']:.3e}, largest per-leaf relative norm error "
+              f"of the grads {ref['grad_err']:.3e} (tol {STEP_F32_TOL:g}), "
+              f"of the params after {p['sp_steps']} steps "
+              f"{ref['param_err']:.3e}; losses {ans[0]['losses']} against "
+              f"{ref['losses']}; the ranks' params bit-equal: {same}")
+        require(ref["grad_err"] <= STEP_F32_TOL and ref["loss_err"]
+                <= STEP_F32_TOL and ref["param_err"] <= STEP_F32_TOL
+                and same, "17c: the SP step disagrees with the one-card step")
+        sp2 = " / ".join(f"{a['tokens_s']:.1f}" for a in ans)
+        print(f"  tokens/s: sp=2 {sp2} "
+              f"(rank 0 / rank 1), sp=1 (rank 0 alone) {ref['tokens_s']:.1f}: "
+              f"{ans[0]['tokens_s'] / ref['tokens_s']:.3f} of one card; the "
+              f"ring's shifts {ans[0]['ring_mb']:.1f} MB and "
+              f"{ans[0]['ring_ms']:.3f} ms blocked a step on rank 0 "
+              f"(recorded, not gated) on {gpu}")
+        for r, a in enumerate(ans):
+            print(f"  rank {r}: launches of the SP step ({p['sp_steps']} "
+                  f"steps) {a['launches']}")
+            for k, v in a["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        for q in ranks:
+            procs.finish(q)
+            require(q.returncode == 0, f"{q.label} exited {q.returncode}: "
+                    f"{procs.output(q)[-600:]}")
+    finally:
+        procs.close()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def moe_and_sequence(fa, fu, da, gpu, device="cuda", sizes=None):
+    """Phase 17: 17a the MoE transformer on one card, 17b expert
+    parallelism and 17c ring attention and the SP step over two ranks.
+    -> ({kernel: launches} of 17a's bf16 path, of 17b/c's f32 paths)."""
+    import torch
+
+    p = {**PHASE17, **(sizes or {})}
+    t0 = time.perf_counter()
+    print("phase 17a: the MoE transformer at full width on one card")
+    bf16 = moe_one_card(fa, fu, da, gpu, torch.device(device), p)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    f32 = moe_and_sp_across_ranks(fa, fu, da, gpu, device, p)
+    if torch.device(device).type == "cuda":
+        for label, got in (("17a", bf16), ("17b + 17c", f32)):
+            require(all(got[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
+                                             "flash_bwd_dkv")),
+                    f"{label}: a kernel of the path never launched: {got}")
+    print(f"  phase 17 launches: 17a (bf16) {bf16}; 17b + 17c (f32, both "
+          f"ranks) {f32}")
+    print(f"  phase 17 wall {time.perf_counter() - t0:.1f} s on {gpu}")
+    return bf16, f32
+
+
+MP_TASKS.update(ep=mp_task_ep, ring_sp=mp_task_ring_sp)
+
+
 def main(argv=None):
     import argparse
 
@@ -6105,6 +6790,10 @@ def main(argv=None):
     ap.add_argument("--phase16", action="store_true",
                     help="run only phase 1 (the card) and phase 16 (the "
                          "workers across processes); no kernel is built")
+    ap.add_argument("--phase17", action="store_true",
+                    help="run only phase 1 (the card) and phase 17 (the MoE "
+                         "transformer, expert and sequence parallelism); "
+                         "builds K1, K2 and K3 only")
     ap.add_argument("--ps-role", metavar="JSON",
                     help="(phase 13's own processes) run one server or "
                          "worker of the phase, configured by JSON")
@@ -6166,6 +6855,13 @@ def main(argv=None):
     if a.phase16:
         print("phase 16: the workers across processes on the card")
         workers_across_processes(fa, fu, da, gpu)
+        return 0
+    if a.phase17:
+        print("phase 17: the MoE transformer, expert and sequence "
+              "parallelism on the card")
+        built = _build.build(["flash_fwd", "flash_bwd"])
+        print(f"  built {sorted(built)} before the ranks start")
+        moe_and_sequence(fa, fu, da, gpu)
         return 0
     if a.phase14:
         print("phase 14: the serving fabric on the card")
@@ -6309,10 +7005,21 @@ def main(argv=None):
     print(f"  launches on the fabric's backends: {fabric_launches}")
     torch.cuda.empty_cache()
     clock.start("15: the data path on the card")
-    data_path(fa, fu, da, gpu)
+    data_path(fa, fu, da, gpu, sizes=PROOF15)
     torch.cuda.empty_cache()
     clock.start("16: the workers across processes on the card")
     workers_across_processes(fa, fu, da, gpu)
+    torch.cuda.empty_cache()
+    clock.start("17: the MoE transformer, expert and sequence parallelism")
+    bf16, f32 = moe_and_sequence(fa, fu, da, gpu)
+    phase17 = {"flash_fwd_bf16": bf16["flash_fwd"],
+               "flash_bwd_dq": bf16["flash_bwd_dq"],
+               "flash_bwd_dkv": bf16["flash_bwd_dkv"],
+               "flash_fwd": f32["flash_fwd"],
+               "flash_bwd_dq_f32": f32["flash_bwd_dq"],
+               "flash_bwd_dkv_f32": f32["flash_bwd_dkv"]}
+    for r in rows:
+        r["launches"] += phase17.get(r["name"], 0)
     clock.summary()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,30 @@ path is the stacked reduction alone.  ``tree_pvary`` has no counterpart: with
 explicit stacking there is no implicit replicated-to-varying promotion
 to guard against, as long as per-worker copies are real copies, never
 ``expand`` views.
+
+Between the ranks of a mesh axis (a ``mesh.RankAxis``: the
+``experts`` axis of ``parallel/moe.py``, the ``seq`` axis of
+``make_tp_mesh``) run the collectives that are not data parallelism,
+each an identity that touches no ``torch.distributed`` at size 1:
+
+- :func:`all_to_all`: ``lax.all_to_all(split_axis=0, concat_axis=0)``,
+  dim 0 indexed by destination rank before and by source rank after;
+  its backward is the same exchange of the cotangents;
+- :func:`ring_shift`: ``lax.ppermute`` by ``offset`` along the ring
+  (rank i sends to i + offset, receives from i - offset) in one
+  ``batch_isend_irecv``; its backward shifts by ``-offset``;
+- :func:`sum_across`: ``lax.psum`` of a value every rank then holds
+  whole; its backward is the identity (the cotangent is the same on
+  every rank), so a loss computed from it on every rank does not scale
+  the gradients by the axis size;
+- :func:`cross_rank_sum`: the packed all-reduce (SUM) of a tree, the
+  replicated leaves' gradients after a backward.
+
+Under gloo (ranks sharing a card) the exchange and the shift stage a
+CUDA tensor through a pinned host buffer: gloo's point-to-point and
+all-to-all read host memory.  That staging is the transport, not a
+fallback.  ``reduce_stats(op=...)`` counts each kind apart
+(``"all_reduce"``, ``"all_to_all"``, ``"ring"``).
 """
 
 from __future__ import annotations
@@ -54,17 +78,28 @@ from dist_keras_tpu_torch.utils.pytree import (
     tree_unflatten,
 )
 
-_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+_STATS = {op: {"calls": 0, "bytes": 0, "seconds": 0.0}
+          for op in ("all_reduce", "all_to_all", "ring")}
 
 
-def reduce_stats(reset=False):
+def reduce_stats(reset=False, op="all_reduce"):
     """-> ``{"calls", "bytes", "seconds"}`` of the cross-rank
-    all-reduces so far (bytes of the packed buffers; seconds of the
-    blocking ones, enqueue to done); ``reset`` zeroes them."""
-    out = dict(_stats)
+    collectives of kind ``op`` so far: ``"all_reduce"`` (bytes of the
+    packed buffers; seconds of the blocking ones, enqueue to done),
+    ``"all_to_all"`` or ``"ring"`` (bytes sent; seconds blocked, the
+    host staging included); ``reset`` zeroes them."""
+    stats = _STATS[op]
+    out = dict(stats)
     if reset:
-        _stats.update(calls=0, bytes=0, seconds=0.0)
+        stats.update(calls=0, bytes=0, seconds=0.0)
     return out
+
+
+def _count(op, nbytes, t0):
+    stats = _STATS[op]
+    stats["calls"] += 1
+    stats["bytes"] += nbytes
+    stats["seconds"] += time.perf_counter() - t0
 
 
 def _group():
@@ -99,12 +134,14 @@ class PendingReduce:
         return self._tree
 
 
-def _cross(tree, ops, async_op=False):
-    """All-reduce every leaf of ``tree`` across the ranks with its op in
-    ``ops`` (one per leaf), packed per (dtype, device, op); -> the
-    reduced tree, or its :class:`PendingReduce` with ``async_op``."""
+def _cross(tree, ops, async_op=False, group=None):
+    """All-reduce every leaf of ``tree`` across the ranks of ``group``
+    (None: all of them) with its op in ``ops`` (one per leaf), packed
+    per (dtype, device, op); -> the reduced tree, or its
+    :class:`PendingReduce` with ``async_op``."""
     import torch.distributed as dist
 
+    stats = _STATS["all_reduce"]
     leaves = tree_leaves(tree)
     buckets = {}
     for i, (x, op) in enumerate(zip(leaves, ops)):
@@ -113,16 +150,16 @@ def _cross(tree, ops, async_op=False):
     jobs = []
     for (_, _, op), idx in buckets.items():
         flat = torch.cat([leaves[i].reshape(-1) for i in idx])
-        _stats["calls"] += 1
-        _stats["bytes"] += flat.numel() * flat.element_size()
-        jobs.append((dist.all_reduce(flat, op=op, async_op=True), flat,
-                     idx))
+        stats["calls"] += 1
+        stats["bytes"] += flat.numel() * flat.element_size()
+        jobs.append((dist.all_reduce(flat, op=op, group=group,
+                                     async_op=True), flat, idx))
     pending = PendingReduce(tree, list(leaves), jobs)
     if async_op:
         return pending
     with perf.phase("comm_blocked"):
         out = pending.wait()
-    _stats["seconds"] += time.perf_counter() - t0
+    stats["seconds"] += time.perf_counter() - t0
     return out
 
 
@@ -287,3 +324,141 @@ class AsyncMerge:
         self._result, self._inflight, self._event = result, None, None
         self.waits += 1
         return self._result
+
+
+# -- collectives between the ranks of a mesh axis ---------------------------
+def _staged(x):
+    """True when ``x`` must cross the host: a CUDA tensor under gloo."""
+    from dist_keras_tpu_torch.comm import backend as comm
+
+    g = comm.group_info()
+    return x.is_cuda and g is not None and g.backend == "gloo"
+
+
+def _to_host(x):
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    return host
+
+
+def _peer(axis, i):
+    """The global rank of ``axis``'s rank ``i``."""
+    if axis.group is None:
+        return i
+    import torch.distributed as dist
+
+    return dist.get_global_rank(axis.group, i)
+
+
+def _exchange(x, axis):
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    x = x.contiguous()
+    staged = _staged(x)
+    src = _to_host(x) if staged else x
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=axis.group)
+    if staged:
+        out = out.to(x.device, non_blocking=True)
+    _count("all_to_all", src.numel() * src.element_size(), t0)
+    return out
+
+
+def _shift(x, axis, offset):
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    n, i = axis.size, axis.index
+    x = x.contiguous()
+    staged = _staged(x)
+    send = _to_host(x) if staged else x
+    recv = torch.empty_like(send)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, _peer(axis, (i + offset) % n),
+                   axis.group),
+        dist.P2POp(dist.irecv, recv, _peer(axis, (i - offset) % n),
+                   axis.group)])
+    for work in works:
+        work.wait()
+    if staged:
+        recv = recv.to(x.device, non_blocking=True)
+    _count("ring", send.numel() * send.element_size(), t0)
+    return recv
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _exchange(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.axis), None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, offset):
+        ctx.axis, ctx.offset = axis, offset
+        return _shift(x, axis, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.axis, -ctx.offset), None, None
+
+
+class _SumAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
+        _count("all_reduce", out.numel() * out.element_size(), t0)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_to_all(x, axis):
+    """``x`` (axis.size, ...) with dim 0 indexed by destination rank ->
+    the same shape with dim 0 indexed by source rank.  Differentiable."""
+    if axis.size == 1:
+        return x
+    if x.shape[0] != axis.size:
+        raise ValueError(f"all_to_all over {axis.size} ranks needs dim 0 "
+                         f"of {axis.size}, got {tuple(x.shape)}")
+    return _AllToAll.apply(x, axis)
+
+
+def ring_shift(x, axis, offset=1):
+    """Rank i's ``x`` lands on rank (i + offset) mod n; -> what rank
+    (i - offset) mod n sent.  Differentiable."""
+    if axis.size == 1:
+        return x
+    return _RingShift.apply(x, axis, int(offset))
+
+
+def sum_across(x, axis):
+    """The sum of every rank's ``x``; the backward passes the cotangent
+    through unchanged (every rank holds the same one)."""
+    if axis.size == 1:
+        return x
+    return _SumAcross.apply(x, axis)
+
+
+def cross_rank_sum(tree, axis):
+    """Sum every leaf of ``tree`` across ``axis``'s ranks through the
+    packed all-reduce (one collective per dtype); the tree itself at
+    size 1."""
+    if axis.size == 1:
+        return tree
+    import torch.distributed as dist
+
+    return _cross(tree, [dist.ReduceOp.SUM] * len(tree_leaves(tree)),
+                  group=axis.group)

@@ -231,6 +231,8 @@ class DecodeEngine:
                 "DecodeEngine needs the causal Transformer model "
                 "contract (a cfg dict); got "
                 f"{type(model).__name__}")
+        if cfg.get("moe_experts", 0):
+            raise ValueError("MoE configs are not decodable here")
         if cfg["input_dim"] != cfg["n_classes"]:
             raise ValueError(
                 "causal decode needs token-in == logit-out: "

@@ -5,8 +5,9 @@ The serialized form is the reference's dict: ``'model'`` is the
 architecture-JSON string and ``'weights'`` a flat Keras-ordered list of
 numpy arrays.  The JSON is the JAX package's, so a model that either
 package serialized deserializes in the other into a model computing the
-same function.  The reference's Keras-adapter branch (Keras 3 JSON) and
-its Transformer branch are not ported yet and raise.
+same function: a ``Sequential`` or a ``Transformer`` (MoE configs
+included; its weights in ``jax.tree.leaves`` order).  The reference's
+Keras-adapter branch (Keras 3 JSON) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -25,15 +26,18 @@ def serialize_model(model):
     }
 
 
-def deserialize_model(d):
-    """dict -> Model, same contract as utils.py:~55."""
+def deserialize_model(d, device=None):
+    """dict -> Model, same contract as utils.py:~55.  A Transformer is
+    built on ``device`` (the card unless ``device="cpu"``)."""
     from dist_keras_tpu_torch.models.model import model_from_json
 
     arch = json.loads(d["model"])
     if arch.get("class_name") == "Transformer":
-        raise NotImplementedError(
-            "deserializing a Transformer is not ported yet (ROADMAP queue "
-            "1, item 25)")
+        from dist_keras_tpu_torch.models.transformer import Transformer
+
+        model = Transformer(cfg=arch["config"], device=device)
+        model.set_weights(d["weights"])
+        return model
     if arch.get("class_name") == "Sequential" and "layers" in arch and all(
             "class_name" in spec for spec in arch["layers"]):
         try:

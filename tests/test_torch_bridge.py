@@ -133,3 +133,22 @@ def test_pytree_helpers_match_jax():
     same(merged, jpt.tree_merge_floats(jpt.tree_scale(a, 2.0), a))
     assert merged["n"].dtype == torch.int32
     assert tpt.tree_size(ta) == jpt.tree_size(a) == 6 + 4 + 3
+
+
+def test_a_moe_tree_round_trips_and_maps_onto_the_module():
+    """A MoE transformer's tree (``blocks[i].moe.{router, w1, b1, w2,
+    b2}`` in place of the dense FFN) crosses bit for bit, and the
+    module's parameters and ``get_weights`` follow its layout and JAX's
+    leaf order."""
+    m = JaxTransformer(transformer_config(**CFG, moe_experts=4), seed=2)
+    ref = jax.tree.map(np.asarray, m.params)
+    back = params_to_numpy(params_from_jax(ref, "cpu"))
+    assert jax.tree.structure(back) == jax.tree.structure(ref)
+    for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    port = Transformer(m.cfg, params=ref, device="cpu")
+    names = {n for n, _ in port.named_parameters()}
+    assert set(_paths(ref)) == names
+    assert "blocks.0.moe.router" in names and "blocks.0.w1" not in names
+    for a, b in zip(port.get_weights(), m.get_weights()):
+        assert a.tobytes() == np.asarray(b).tobytes()

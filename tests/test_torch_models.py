@@ -110,9 +110,22 @@ def test_unported_branches_of_deserialize_raise():
                   "weights": []}
     with pytest.raises(NotImplementedError, match="item 18"):
         tser.deserialize_model(keras_like)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        tser.deserialize_model({"model": json.dumps(
-            {"class_name": "Transformer", "config": {}}), "weights": []})
+    # item 25 landed: the reference's Transformer JSON (dense and MoE)
+    # deserializes into the port's Transformer, computing the same logits
+    from dist_keras_tpu.models.transformer import Transformer as JT
+    from dist_keras_tpu_torch.models.transformer import Transformer as TT
+
+    x = np.random.default_rng(0).normal(size=(2, 8, 4)).astype(np.float32)
+    for moe in (0, 2):
+        jm = JT(input_dim=4, seq_len=8, d_model=16, n_heads=2, n_layers=1,
+                n_classes=3, moe_experts=moe, seed=1)
+        tm = tser.deserialize_model(jser.serialize_model(jm), device="cpu")
+        assert isinstance(tm, TT) and tm.cfg == jm.cfg
+        _close(tm(torch.from_numpy(x)).detach().numpy(), jm(x))
+        again = tser.deserialize_model(tser.serialize_model(tm),
+                                       device="cpu")
+        for a, b in zip(again.get_weights(), jm.get_weights()):
+            np.testing.assert_array_equal(a, np.asarray(b))
 
 
 def test_params_tree_has_the_reference_layout():

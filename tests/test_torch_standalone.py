@@ -127,6 +127,52 @@ def test_copied_modules_work_with_jax_blocked(tmp_path):
     assert '"kind": "fused_bwd_rejected"' in line
 
 
+def test_moe_ring_and_mesh_work_with_jax_blocked():
+    """The MoE layer and steps, ring attention and the rank mesh import
+    and run (one rank, CPU) where jax and the JAX package cannot be
+    imported."""
+    code = (
+        "import importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
+        "                                  'dist_keras_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "from dist_keras_tpu_torch.parallel import moe, mesh\n"
+        "from dist_keras_tpu_torch.parallel import (make_moe_train_step,\n"
+        "    make_moe_ep_train_step, make_tp_mesh, make_tp_train_step)\n"
+        "from dist_keras_tpu_torch.ops.attention import ring_attention\n"
+        "from dist_keras_tpu_torch.models.transformer import (\n"
+        "    transformer_config)\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "p = moe.init_moe_params(g, 8, 16, 4)\n"
+        "x = torch.randn(32, 8, generator=g)\n"
+        "a = moe.switch_moe_dense(p, x)[0]\n"
+        "b = moe.switch_moe_dense_reference(p, x)[0]\n"
+        "assert torch.equal(a, b)\n"
+        "q = torch.randn(1, 8, 2, 4, generator=g)\n"
+        "assert ring_attention(q, q, q, causal=True).shape == q.shape\n"
+        "assert make_tp_mesh().shape['seq'] == 1\n"
+        "cfg = transformer_config(4, 8, d_model=8, n_heads=2, n_layers=1,\n"
+        "                         moe_experts=2)\n"
+        "init_fn, step = make_moe_train_step(cfg, device='cpu')\n"
+        "params, opt = init_fn(0)\n"
+        "xs = torch.randn(2, 8, 4, generator=g)\n"
+        "params, opt, m = step(params, opt, xs, torch.tensor([0, 1]))\n"
+        "assert torch.isfinite(m['loss'])\n"
+        "factory, ep_init = make_moe_ep_train_step(cfg, device='cpu')\n"
+        "assert factory(*ep_init(0))\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in\n"
+        "            ('jax', 'dist_keras_tpu')]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_a_reference_checkpoint_restores_with_jax_and_optax_blocked(
         tmp_path, monkeypatch):
     """A step the JAX package wrote (an optax adam state, chunked leaves)
@@ -263,6 +309,29 @@ def test_training_entry_points_refuse_without_cuda(no_cuda):
     y = torch.zeros(2, dtype=torch.int64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_tp_transformer(cfg, x, y, steps=1)
+
+
+def test_moe_and_sp_entry_points_refuse_without_cuda(no_cuda):
+    from dist_keras_tpu_torch.parallel import (
+        make_moe_ep_train_step,
+        make_moe_train_step,
+        make_tp_mesh,
+    )
+    from dist_keras_tpu_torch.utils.serialization import deserialize_model
+
+    cfg = transformer_config(**CFG, moe_experts=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_moe_train_step(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_moe_ep_train_step(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_tp_train_step(transformer_config(**CFG), mesh=make_tp_mesh())
+    model = Transformer(cfg, device="cpu")
+    d = {"model": model.to_json(), "weights": model.get_weights()}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deserialize_model(d)
+    assert deserialize_model(d, device="cpu").count_params == \
+        model.count_params
 
 
 def test_training_runs_on_the_cpu_when_asked(no_cuda):
