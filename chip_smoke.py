@@ -263,17 +263,36 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the ranks' params bit-equal; tokens/s at sp=2 beside sp=1 and the
    ring's blocked ms a step.  K1-K3 launch on 17a's and 17b/c's main
    paths, and the kernels' ``launches`` include them.
+18. The transformer across ranks, two ``--mp-role`` ranks sharing the
+   card under gloo, at ``TRAIN_MODEL``'s widths, B=16, f32, each split
+   run against one process in the same call (``SPLIT_TOL``): 18a the TP
+   step at tp=2 (3 heads and half the FFN a rank; *f* / *g* around
+   each half), sgd: loss, grads and the params after 2 steps, the
+   replicated leaves bit-equal, and one bf16 step against plain
+   attention (``STEP_BF16_TOL``); 18b FSDP over the 2 ranks (8 rows a
+   rank, every big leaf and its adam moments sharded), adam: the losses
+   and the moments after step 1 against the whole batch, and with them
+   the params after 2 steps against one process taking the ranks' step
+   (each rank's rows apart, summed in rank order), sgd: the params after
+   2 steps, each rank's persistent bytes against one process's;
+   18c the pipeline over 2 stages (2 layers a stage), 8 microbatches of
+   2, sgd, 1F1B then interleaved at v=2: loss, grads, params, the stash
+   peak.  Each prints its rate split against one process, the
+   collectives' calls, MB and blocked ms, and K1-K3 launches per rank;
+   the kernels' ``launches`` include them.
 
 Each phase's seconds are printed as the next one starts, and all of them
-after phase 17.  The full run cuts 15b's repeats and run lengths
+after phase 18.  The full run cuts 15b's repeats and run lengths
 (``PROOF15``: one resident and one streamed MLP run of one epoch, a
-shorter CNN pair) so that it stays well inside the time limit; every
-check still runs.
+shorter CNN pair), 16b's turns (``PROOF16``: one run of ~1 s each) and
+13b's runs (``PROOF13_EPOCHS``: 3 epochs each) so that it stays well
+inside the time limit; every check still runs.
 
 ``python3 chip_smoke.py --phase12`` runs only phases 1 and 12;
 ``--phase13`` only phases 1 and 13; ``--phase14`` only phases 1 and 14;
 ``--phase15`` only phases 1 and 15 (at its full sizes); ``--phase16``
-only phases 1 and 16; ``--phase17`` only phases 1 and 17.
+only phases 1 and 16 (at its full sizes); ``--phase17`` only phases 1
+and 17; ``--phase18`` only phases 1 and 18.
 ``python3 chip_smoke.py --paged-timing-of CHECKOUT`` runs only phase 6's
 K5 timing, on the ``dist_keras_tpu_torch`` of another checkout, so that
 two trees' K5 can be timed on the same inputs in one run.
@@ -355,7 +374,8 @@ class PhaseClock:
         self._stop()
         print("phase seconds: " + ", ".join(
             f"{n} {dt:.1f}" for n, dt in self.rows)
-            + f"; phases 2-17 {time.perf_counter() - self.t0:.1f} s")
+            + f"; phases {self.rows[0][0]}-{self.rows[-1][0]} "
+            f"{time.perf_counter() - self.t0:.1f} s")
 
 
 class SmokeFailure(RuntimeError):
@@ -3827,12 +3847,12 @@ def ps_gate(procs, work, gpu, device):
 
 
 def ps_mnist_spawn(procs, work, data, device, compress=None,
-                   profile=False):
+                   profile=False, epochs=GATE_EPOCHS):
     """13b's processes: one server and PS_WORKERS workers sharing the
     card, ``mnist_mlp()`` at full width, window 12, adam 1e-3, batch 64,
-    6 epochs of the phase-9 gate set, each worker shuffling with its own
-    seed; with ``profile``, one epoch with each worker's whole run under
-    ``torch.profiler``.  The workers wait at the run's gate
+    ``epochs`` epochs of the phase-9 gate set, each worker shuffling with
+    its own seed; with ``profile``, one epoch with each worker's whole
+    run under ``torch.profiler``.  The workers wait at the run's gate
     (:func:`ps_start`)."""
     tag = "profiled" if profile else compress or "f32"
     run = os.path.join(work, f"mnist_{tag}")
@@ -3844,12 +3864,12 @@ def ps_mnist_spawn(procs, work, data, device, compress=None,
     workers = [procs.spawn(f"mnist_{tag}_worker_{i}", {
         "role": "worker", "rank": i + 1, "run": run, "data": data,
         "arch": {}, "window": PS_WINDOW, "opt": "adam", "lr": 1e-3,
-        "batch": 64, "epochs": 1 if profile else GATE_EPOCHS, "x": "fn",
+        "batch": 64, "epochs": 1 if profile else epochs, "x": "fn",
         "y": "le", "seed": i, "device": device, "shuffle": True,
         "gate": gate, "profile": profile},
         DK_COORD_RANK=str(i + 1), **env) for i in range(PS_WORKERS)]
     return {"tag": tag, "run": run, "obs": obs, "server": server,
-            "workers": workers, "gate": gate}
+            "workers": workers, "gate": gate, "epochs": epochs}
 
 
 def ps_start(procs, r):
@@ -3890,7 +3910,7 @@ def ps_mnist(procs, r, test, gpu, device):
     split = {p: float(np.mean([r["phases_ms"][p] for r in res]))
              for p in PS_PHASES}
     print(f"  13b mnist_mlp, {PS_WORKERS} worker processes on the card, "
-          f"window {PS_WINDOW}, adam 1e-3, batch 64, {GATE_EPOCHS} epochs, "
+          f"window {PS_WINDOW}, adam 1e-3, batch 64, {r['epochs']} epochs, "
           f"{tag}: center accuracy {acc:.4f} on the {len(test)} held-out "
           f"rows (threshold {GATE_ACC}); {samples} samples in {span:.3f} s "
           f"from the first join to the last commit = {samples / span:.1f} "
@@ -3992,12 +4012,12 @@ def ps_card_against_cpu(train, gpu, device):
             "the card's PS worker disagrees with the CPU's")
 
 
-def ps_mode(fa, fu, da, gpu, device="cuda"):
+def ps_mode(fa, fu, da, gpu, device="cuda", epochs=GATE_EPOCHS):
     """Phase 13: the PS gate on the card (kill and rejoin, drain,
     attribution, chaos), then ``mnist_mlp()`` at full width with 4 worker
-    processes sharing the card (uncompressed, int8, and a profiled run
-    for the idle share), and card against CPU; no hand-written kernel
-    launched in any of its processes."""
+    processes sharing the card (uncompressed and int8, ``epochs`` epochs
+    each, and a profiled run for the idle share), and card against CPU;
+    no hand-written kernel launched in any of its processes."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -4022,10 +4042,12 @@ def ps_mode(fa, fu, da, gpu, device="cuda"):
               "card")
         # one run after the other, so no run's processes share the host
         # with another's
-        plain = ps_mnist(procs, ps_mnist_spawn(procs, work, data, device),
+        plain = ps_mnist(procs, ps_mnist_spawn(procs, work, data, device,
+                                               epochs=epochs),
                          test, gpu, device)
         int8 = ps_mnist(procs, ps_mnist_spawn(procs, work, data, device,
-                                              compress="int8"),
+                                              compress="int8",
+                                              epochs=epochs),
                         test, gpu, device)
         require(int8["ratio"] >= 2.0,
                 f"int8 commit payload ratio {int8['ratio']} < 2")
@@ -5416,6 +5438,11 @@ PARITY_TOL = 1e-5       # 16a: of the largest center weight
 # gaps: the witness's own 2 + 2 against 4 reading shows how far
 PARITY_RUNS = (("sgd", "float64", True), ("sgd", None, False),
                ("adam", None, False))
+# the full run cuts 16b's turns to one run of ~1 s each (``--phase16``
+# keeps PHASE16); every check stays
+PROOF16 = dict(bench_seconds=1.0, bench_runs=1)
+# and 13b's two runs to 3 epochs each (``--phase13`` keeps GATE_EPOCHS)
+PROOF13_EPOCHS = 3
 PHASE16 = dict(
     parity_batch=32, parity_steps=24,          # 2 windows of 12, f32
     bench_batch=ADAG_BENCH_BATCH, bench_steps=ADAG_BENCH_STEPS,
@@ -6519,7 +6546,7 @@ def mp_task_ring_sp(cfg, gates, rank):
     from dist_keras_tpu_torch.parallel import make_tp_train_step
     from dist_keras_tpu_torch.parallel.transformer_tp import (
         loss_and_grads,
-        seq_block,
+        local_block,
     )
     from dist_keras_tpu_torch.utils.pytree import tree_leaves
 
@@ -6558,7 +6585,7 @@ def mp_task_ring_sp(cfg, gates, rank):
         (p["sp_batch"], t, scfg["input_dim"]), np.float32)).to(dev)
     y = torch.from_numpy(rng.integers(0, scfg["n_classes"],
                                       p["sp_batch"])).to(dev)
-    xb = seq_block(x, mesh)
+    xb = local_block(x, mesh)
     tx = sgd(p["lr"])
     factory, init_fn = make_tp_train_step(scfg, optimizer=tx, causal=True,
                                           device=dev, mesh=mesh)
@@ -6764,6 +6791,639 @@ def moe_and_sequence(fa, fu, da, gpu, device="cuda", sizes=None):
 MP_TASKS.update(ep=mp_task_ep, ring_sp=mp_task_ring_sp)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the transformer across ranks (TP, FSDP, the pipeline)
+# ---------------------------------------------------------------------------
+SPLIT_TOL = 1e-4        # 18a-c: split run against one process, f32
+# bench_transformer_tp's widths; a rehearsal on the CPU passes smaller ones
+PHASE18 = dict(model=TRAIN_MODEL, batch=TRAIN_BATCH, steps=2, timed=2,
+               lr=0.01, adam_lr=1e-3, microbatches=8,
+               fsdp_min_elems=2 ** 12)   # fsdp_specs' default
+
+
+def leaf_errs(got, want):
+    """Per-leaf relative norm errors of two trees (same leaf order)."""
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    return [float((a.float() - w.float()).norm()
+                  / w.float().norm().clamp_min(1e-30))
+            for a, w in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def leaf_max_errs(got, want):
+    """Per-leaf max |got - want| over the leaf's largest |want|."""
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves
+
+    return [rel_err(a, w) for a, w in zip(tree_leaves(got),
+                                          tree_leaves(want))]
+
+
+def replicated_digest(tree, specs):
+    """SHA-256 of the leaves whose spec names no mesh axis."""
+    import hashlib
+
+    from dist_keras_tpu_torch.parallel.mesh import tree_map_specs
+
+    digest = hashlib.sha256()
+    tree_map_specs(lambda v, sp: None if any(sp) else digest.update(
+        v.detach().cpu().numpy().tobytes()), tree, specs)
+    return digest.hexdigest()
+
+
+def split_stats(ops):
+    """``collectives.reduce_stats`` of each op, then zeroed."""
+    from dist_keras_tpu_torch.parallel import collectives
+
+    return {op: collectives.reduce_stats(reset=True, op=op) for op in ops}
+
+
+def phase18_data(p, dev, seed):
+    import torch
+
+    from dist_keras_tpu_torch.models.transformer import transformer_config
+
+    scfg = transformer_config(**p["model"])
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(
+        (p["batch"], scfg["seq_len"], scfg["input_dim"]), np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, scfg["n_classes"],
+                                      p["batch"])).to(dev)
+    return scfg, x, y
+
+
+def full_params(scfg, dev, seed=0):
+    import torch
+
+    from dist_keras_tpu_torch.models.transformer import (
+        init_transformer_params,
+    )
+    from dist_keras_tpu_torch.utils.pytree import tree_map
+
+    gen = torch.Generator().manual_seed(seed)
+    return tree_map(lambda t: t.to(dev), init_transformer_params(gen, scfg))
+
+
+def one_process_sgd(params, x, y, scfg, tx, steps, dev):
+    """The one-card TP step (no mesh) from ``params``: -> (losses,
+    params after ``steps``)."""
+    from dist_keras_tpu_torch.parallel import make_tp_train_step
+
+    factory, _ = make_tp_train_step(scfg, optimizer=tx, causal=True,
+                                    device=dev)
+    opt = tx.init(params)
+    step = factory(params, opt)
+    losses = []
+    for _ in range(steps):
+        params, opt, lv = step(params, opt, x, y)
+        losses.append(float(lv))
+    return losses, params, step, opt
+
+
+def timed_steps(step, state, data, n):
+    """Seconds of ``n`` calls of ``step(*state, *data)``, each call's
+    first ``len(state)`` outputs the next one's state (the last call's
+    loss, the output after them, fetched to the host at the end)."""
+    state = list(state)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = step(*state, *data)
+        state = list(out[:len(state)])
+    float(out[len(state)])
+    return time.perf_counter() - t0
+
+
+def mp_task_tp(cfg, gates, rank):
+    """18a: the TP step at tp=2 (3 heads and half the FFN a rank), f32,
+    sgd: its grads and params after the steps against the one-card step
+    (rank 0 holds both), then one bf16 step against plain attention,
+    tokens/s split against one process, the model axis's all-reduces."""
+    import torch
+
+    from dist_keras_tpu_torch import comm
+    from dist_keras_tpu_torch.ops import decode_attention as da
+    from dist_keras_tpu_torch.ops import flash_attention as fa
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
+    from dist_keras_tpu_torch.ops.optimizers import sgd
+    from dist_keras_tpu_torch.parallel import make_tp_mesh
+    from dist_keras_tpu_torch.parallel.transformer_tp import (
+        gather_tp_params,
+        loss_and_grads,
+        make_tp_train_step,
+        param_specs,
+        split_tp_params,
+    )
+
+    p = cfg["sizes"]
+    dev = torch.device(cfg["device"])
+    mesh = make_tp_mesh(tp=comm.num_processes())
+    scfg, x, y = phase18_data(p, dev, 181)
+    full = full_params(scfg, dev)
+    params = split_tp_params(full, mesh)
+    tx = sgd(p["lr"])
+    factory, _ = make_tp_train_step(scfg, optimizer=tx, causal=True,
+                                    device=dev, mesh=mesh)
+    opt = tx.init(params)
+    step = factory(params, opt)
+    gates.wait_open("tp")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_kernel_counts(fa, fu, da)
+    split_stats(("all_reduce", "all_gather"))
+    loss, grads = loss_and_grads(params, x, y, scfg, causal=True, mesh=mesh)
+    losses = []
+    for _ in range(p["steps"]):
+        params, opt, lv = step(params, opt, x, y)
+        losses.append(float(lv))
+    launches = kernel_counts(fa, fu, da)
+    stats = split_stats(("all_reduce",))
+    grads = gather_tp_params(grads, mesh)
+    whole = gather_tp_params(params, mesh)
+    digest = replicated_digest(params, param_specs(params))
+    comm.barrier("tp_ref")
+    ref = None
+    if rank == 0:
+        oloss, ograds = loss_and_grads(full, x, y, scfg, causal=True)
+        gerr = leaf_max_errs(grads, ograds)
+        del ograds
+        olosses, oparams, ostep, oopt = one_process_sgd(
+            full, x, y, scfg, tx, p["steps"], dev)
+        perr = leaf_errs(whole, oparams)
+        one_s = timed_steps(ostep, (oparams, oopt), (x, y), p["timed"])
+        ref = {"loss_err": abs(float(loss) - float(oloss)) / abs(
+            float(oloss)), "grad_err": max(gerr), "param_err": max(perr),
+            "losses": olosses,
+            "tokens_s": p["batch"] * scfg["seq_len"] * p["timed"] / one_s}
+        del oparams, oopt, ostep
+    del grads, whole
+    comm.barrier("tp_timed")
+    split_stats(("all_reduce",))
+    split_s = timed_steps(step, (params, opt), (x, y), p["timed"])
+    timed = split_stats(("all_reduce",))["all_reduce"]
+    # one bf16 step, the kernels on each rank's heads, against one process
+    # with plain attention
+    _, bgrads = loss_and_grads(split_tp_params(full, mesh), x, y, scfg,
+                               causal=True, compute_dtype=torch.bfloat16,
+                               mesh=mesh)
+    bgrads = gather_tp_params(bgrads, mesh)
+    comm.barrier("tp_bf16")
+    if rank == 0:
+        _, pgrads = loss_and_grads(full, x, y, scfg, causal=True,
+                                   compute_dtype=torch.bfloat16,
+                                   attn_fn=plain_block)
+        ref["bf16_err"] = max(leaf_errs(bgrads, pgrads))
+        del pgrads
+    del bgrads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    comm.barrier("tp_done")
+    gates.answer("tp", rank, {
+        "losses": losses, "launches": launches, "stats": stats,
+        "digest": digest, "ref": ref,
+        "tokens_s": p["batch"] * scfg["seq_len"] * p["timed"] / split_s,
+        "ar_ms": timed["seconds"] / p["timed"] * 1e3,
+        "ar_mb": timed["bytes"] / p["timed"] / 1e6,
+        "ar_calls": timed["calls"] / p["timed"], "steps": p["steps"],
+        "ranks": mesh.model.size})
+
+
+def mp_task_fsdp(cfg, gates, rank):
+    """18b: FSDP over the ranks (the batch split, every big leaf and its
+    optimizer state sharded), f32, against one process on the whole
+    batch (rank 0): with adam, the losses of the steps and the gathered
+    adam moments after the first (the grads' image); with sgd, the
+    params after the steps.  Adam's params after the steps are held
+    against one process that takes the ranks' step itself (each rank's
+    rows apart, their grads and losses summed in rank order and
+    divided), the losses and moments too; against the whole batch they
+    are printed beside that process's own distance from it (the
+    summation order alone).  Each rank's persistent bytes against one
+    process's, samples/s split against one process, the gathers and
+    scatters."""
+    import torch
+
+    from dist_keras_tpu_torch import comm
+    from dist_keras_tpu_torch.models.transformer import transformer_apply
+    from dist_keras_tpu_torch.ops import decode_attention as da
+    from dist_keras_tpu_torch.ops import flash_attention as fa
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
+    from dist_keras_tpu_torch.ops.optimizers import adam, apply_updates, sgd
+    from dist_keras_tpu_torch.parallel import fsdp, grid_mesh
+    from dist_keras_tpu_torch.parallel.mesh import P, tree_map_specs
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves, tree_unflatten
+
+    p = cfg["sizes"]
+    dev = torch.device(cfg["device"])
+    mesh = grid_mesh({"workers": comm.num_processes()})
+    scfg, x, y = phase18_data(p, dev, 182)
+    full = full_params(scfg, dev)
+
+    def apply_fn(params, xb):
+        return transformer_apply(params, xb, scfg, causal=True)
+
+    def loss_fn(logits, yb):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(1, yb.long()[:, None]).mean()
+
+    def sharded(tx):
+        init_fn, factory = fsdp.make_fsdp_train_step(
+            mesh, loss_fn, apply_fn, optimizer=tx, device=dev,
+            min_shard_elems=p["fsdp_min_elems"])
+        sp, so = init_fn(full)
+        return factory(sp, so), sp, so, factory.specs["params"]
+
+    def gather(tree, specs):
+        return fsdp.gather_by_specs(mesh, tree, specs)
+
+    adam_tx, sgd_tx = adam(p["adam_lr"]), sgd(p["lr"])
+    step, sp, so, specs = sharded(adam_tx)
+    xb, yb = (fsdp.place_by_specs(mesh, t, P("workers")) for t in (x, y))
+    gates.wait_open("fsdp")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    zero_kernel_counts(fa, fu, da)
+    split_stats(("all_gather", "reduce_scatter", "all_reduce"))
+    losses = []
+    for i in range(p["steps"]):
+        sp, so, lv = step(sp, so, xb, yb)
+        losses.append(float(lv))
+        if i == 0:
+            moments = {k: gather(so[k], specs) for k in ("mu", "nu")}
+    launches = kernel_counts(fa, fu, da)
+    stats = split_stats(("all_gather", "reduce_scatter", "all_reduce"))
+    nbytes = fsdp.persistent_bytes(sp, so)
+    # params, adam's mu and nu: 1/n of each sharded leaf, every replicated
+    # one whole; and the step count
+    bound = 3 * sum(
+        t.numel() * t.element_size() // (mesh.workers.size if split else 1)
+        for t, split in zip(tree_leaves(full), tree_leaves(tree_map_specs(
+            lambda _, s: any(s), full, specs)))) + 4
+    digest = replicated_digest(sp, specs)
+    adam_whole = gather(sp, specs)
+    sstep, ssp, sso, _ = sharded(sgd_tx)
+    for _ in range(p["steps"]):
+        ssp, sso, _ = sstep(ssp, sso, xb, yb)
+    sgd_whole = gather(ssp, specs)
+    del sstep, ssp, sso
+    comm.barrier("fsdp_ref")
+    ref = None
+    if rank == 0:
+        n = mesh.workers.size
+
+        def one_step(tx, parts=1):
+            # parts > 1: the ranks' step on one process, the grads and
+            # loss of each part summed in rank order, then divided
+            def run(params, opt, x, y):
+                leaves = [t.detach().requires_grad_()
+                          for t in tree_leaves(params)]
+                tree = tree_unflatten(params, leaves)
+                gs = lv = None
+                for xp, yp in zip(x.chunk(parts), y.chunk(parts)):
+                    lp = loss_fn(apply_fn(tree, xp), yp)
+                    g = torch.autograd.grad(lp, leaves)
+                    gs = g if gs is None else [a + b for a, b in zip(gs, g)]
+                    lv = lp.detach() if lv is None else lv + lp.detach()
+                if parts > 1:
+                    gs, lv = [g / parts for g in gs], lv / parts
+                updates, opt = tx.update(tree_unflatten(params, gs), opt,
+                                         params)
+                return apply_updates(params, updates), opt, lv
+            return run
+
+        def adam_run(parts):
+            params, opt, olosses = full, adam_tx.init(full), []
+            ostep = one_step(adam_tx, parts)
+            for i in range(p["steps"]):
+                params, opt, lv = ostep(params, opt, x, y)
+                olosses.append(float(lv))
+                if i == 0:
+                    merr = (leaf_errs(moments["mu"], opt["mu"])
+                            + leaf_errs(moments["nu"], opt["nu"]))
+            return params, opt, olosses, max(merr), ostep
+
+        def loss_errs(a, b):
+            return max(abs(u - w) / abs(w) for u, w in zip(a, b))
+
+        params, opt, olosses, merr, ostep = adam_run(1)
+        hparams, _, hlosses, hmerr, _ = adam_run(n)
+        ref = {"moment_err": merr, "losses": olosses,
+               "loss_err": loss_errs(losses, olosses),
+               "adam_param_err": max(leaf_errs(adam_whole, params)),
+               "order_err": max(leaf_errs(hparams, params)),
+               "same_order_err": max(loss_errs(losses, hlosses), hmerr,
+                                     max(leaf_errs(adam_whole, hparams))),
+               "bytes": fsdp.persistent_bytes(params, opt)}
+        del hparams
+        one_s = timed_steps(ostep, (params, opt), (x, y), p["timed"])
+        ref["sps"] = p["batch"] * p["timed"] / one_s
+        del params, opt
+        sparams, sopt = full, sgd_tx.init(full)
+        for _ in range(p["steps"]):
+            sparams, sopt, _ = one_step(sgd_tx)(sparams, sopt, x, y)
+        ref["param_err"] = max(leaf_errs(sgd_whole, sparams))
+        del sparams, sopt
+    del moments, sgd_whole, adam_whole
+    comm.barrier("fsdp_timed")
+    split_stats(("all_gather", "reduce_scatter", "all_reduce"))
+    split_s = timed_steps(step, (sp, so), (xb, yb), p["timed"])
+    timed = split_stats(("all_gather", "reduce_scatter", "all_reduce"))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    comm.barrier("fsdp_done")
+    gates.answer("fsdp", rank, {
+        "losses": losses, "launches": launches, "stats": stats,
+        "timed": timed, "bytes": nbytes, "bound": bound, "digest": digest,
+        "ref": ref, "sps": p["batch"] * p["timed"] / split_s,
+        "steps": p["steps"], "ranks": mesh.workers.size})
+
+
+def layer_order(blocks, p, v):
+    """Gathered stage blocks ((L, ...), or (P, v, Lpc, ...) with v > 1)
+    -> the (L, ...) stack in layer order."""
+    import torch
+
+    from dist_keras_tpu_torch.utils.pytree import tree_map
+
+    if v == 1:
+        return blocks
+
+    def unstack(a):
+        lpc = a.shape[2]
+        order = [None] * (p * v * lpc)
+        for s_ in range(p):
+            for c in range(v):
+                for j in range(lpc):
+                    order[(c * p + s_) * lpc + j] = a[s_, c, j]
+        return torch.stack(order)
+
+    return tree_map(unstack, blocks)
+
+
+def mp_task_pp(cfg, gates, rank):
+    """18c: the pipeline over the ranks (one stage a rank), 1F1B, then
+    interleaved at v=2: loss, grads and the params after the sgd steps
+    against the one-card step (rank 0), the stash peak, tokens/s split
+    against one process, the point-to-point traffic."""
+    import torch
+
+    from dist_keras_tpu_torch import comm
+    from dist_keras_tpu_torch.ops import decode_attention as da
+    from dist_keras_tpu_torch.ops import flash_attention as fa
+    from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
+    from dist_keras_tpu_torch.ops.optimizers import sgd
+    from dist_keras_tpu_torch.parallel import pipeline as pp
+    from dist_keras_tpu_torch.parallel.transformer_tp import loss_and_grads
+
+    p = cfg["sizes"]
+    dev = torch.device(cfg["device"])
+    mesh = pp.make_pp_mesh(comm.num_processes())
+    nst = mesh.stages.size
+    scfg, x, y = phase18_data(p, dev, 183)
+    full = full_params(scfg, dev)
+    rest = {k: v for k, v in full.items() if k != "blocks"}
+    tx, m = sgd(p["lr"]), p["microbatches"]
+    gates.wait_open("pp")
+    ref = None
+    if rank == 0:
+        oloss, ograds = loss_and_grads(full, x, y, scfg, causal=True)
+        olosses, oparams, ostep, oopt = one_process_sgd(
+            full, x, y, scfg, tx, p["steps"], dev)
+        one_s = timed_steps(ostep, (oparams, oopt), (x, y), p["timed"])
+        ref = {"losses": olosses,
+               "tokens_s": p["batch"] * scfg["seq_len"] * p["timed"] / one_s}
+        del ostep, oopt
+    runs = {}
+    for v in (1, 2):
+        stacked = (pp.stack_blocks_interleaved(full["blocks"], nst, v)
+                   if v > 1 else pp.stack_blocks(full["blocks"]))
+        blocks = pp.split_stage_blocks(stacked, mesh, v)
+        del stacked
+        factory, _ = pp.make_pp_train_step(mesh, scfg, m, optimizer=tx,
+                                           causal=True, virtual=v,
+                                           device=dev)
+        ro, bo = tx.init(rest), tx.init(blocks)
+        step = factory(rest, blocks, ro, bo)
+        comm.barrier(f"pp_{v}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        zero_kernel_counts(fa, fu, da)
+        split_stats(("p2p", "all_reduce"))
+        loss, aux, rg, bg = pp.pp_transformer_1f1b_grads(
+            rest, blocks, x, y, scfg, m, causal=True, axis=mesh, virtual=v)
+        peak = pp.stash_peak()
+        r, b, o1, o2 = rest, blocks, ro, bo
+        losses = []
+        for _ in range(p["steps"]):
+            r, b, o1, o2, lv, _ = step(r, b, o1, o2, x, y)
+            losses.append(float(lv))
+        launches = kernel_counts(fa, fu, da)
+        stats = split_stats(("p2p", "all_reduce"))
+        bg = layer_order(pp.gather_stage_blocks(bg, mesh, v), nst, v)
+        b_whole = layer_order(pp.gather_stage_blocks(b, mesh, v), nst, v)
+        res = {"losses": losses, "launches": launches, "stats": stats,
+               "peak": peak, "bound": (min(m, 2 * nst - 1) if v == 1 else
+                                       pp.interleaved_1f1b_stash_entries(
+                                           nst, v, m))}
+        if rank == 0:
+            want_b = pp.stack_blocks(ograds["blocks"])
+            want_r = {k: ograds[k] for k in rg}
+            res["loss_err"] = abs(float(loss) - float(oloss)) / abs(
+                float(oloss))
+            res["grad_err"] = max(leaf_max_errs(rg, want_r)
+                                  + leaf_max_errs(bg, want_b))
+            res["param_err"] = max(
+                leaf_errs({k: r[k] for k in rest},
+                          {k: oparams[k] for k in rest})
+                + leaf_errs(b_whole, pp.stack_blocks(oparams["blocks"])))
+        del bg, b_whole, rg
+        comm.barrier(f"pp_timed_{v}")
+        split_stats(("p2p",))
+        split_s = timed_steps(step, (r, b, o1, o2), (x, y), p["timed"])
+        timed = split_stats(("p2p",))["p2p"]
+        res.update(tokens_s=p["batch"] * scfg["seq_len"] * p["timed"]
+                   / split_s, p2p_ms=timed["seconds"] / p["timed"] * 1e3,
+                   p2p_mb=timed["bytes"] / p["timed"] / 1e6,
+                   p2p_calls=timed["calls"] / p["timed"])
+        runs[v] = res
+        del r, b, o1, o2, step, blocks
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    if rank == 0:
+        del ograds, oparams
+    comm.barrier("pp_done")
+    gates.answer("pp", rank, {"runs": runs, "ref": ref, "stages": nst,
+                              "microbatches": m})
+
+
+def print_launches(label, ans):
+    for r, a in enumerate(ans):
+        print(f"  rank {r}: K1 / K2 / K3 launches of {label} "
+              f"{a['launches']['flash_fwd']} / "
+              f"{a['launches']['flash_bwd_dq']} / "
+              f"{a['launches']['flash_bwd_dkv']}")
+
+
+def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None):
+    """Phase 18: 18a the TP step at tp=2, 18b FSDP over 2 ranks, 18c the
+    pipeline over 2 stages (1F1B, then interleaved at v=2), in two rank
+    processes (``--mp-role``) sharing the card under gloo, each split run
+    against one process in the same call.  -> the K1-K3 launches of the
+    ranks' main paths, summed over the ranks."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    p = {**PHASE18, **(sizes or {})}
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="dk_mp_phase18_"))
+    procs = MPProcs(work)
+    gates = Gates(work)
+    launches = {}
+
+    def add(ans):
+        for a in ans:
+            for k, v in a["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+
+    try:
+        ranks = procs.launch("p18", ["tp", "fsdp", "pp"], device, p)
+        gates.procs = ranks
+        t = p["model"]["seq_len"]
+        print(f"phase 18a: the TP step at tp=2 ({p['model']['n_heads'] // 2}"
+              f" heads a rank), B={p['batch']}, T={t}, f32, sgd({p['lr']}), "
+              f"two ranks sharing the card under gloo")
+        gates.open("tp")
+        ans = gates.answers("tp")
+        for r, q in enumerate(ranks):
+            init = procs.init(q)
+            print(f"  rank {r}: backend {init['backend']} on "
+                  f"{init['device']}, group up in {init['init_s']:.2f} s")
+        ref = ans[0]["ref"]
+        same = len({a["digest"] for a in ans}) == 1
+        print(f"  against the one-card step: loss relative "
+              f"{ref['loss_err']:.3e}, grads {ref['grad_err']:.3e} of each "
+              f"leaf's largest |grad|, params after {p['steps']} steps "
+              f"{ref['param_err']:.3e} (per-leaf relative norm; tol "
+              f"{SPLIT_TOL:g}); losses {ans[0]['losses']} against "
+              f"{ref['losses']}; replicated leaves bit-equal: {same}")
+        print(f"  one bf16 step, the kernels on each rank's heads, against "
+              f"one process with plain attention: {ref['bf16_err']:.3e} "
+              f"(per-leaf relative norm; tol {STEP_BF16_TOL:g})")
+        require(max(ref["loss_err"], ref["grad_err"], ref["param_err"])
+                <= SPLIT_TOL and same and ref["bf16_err"] <= STEP_BF16_TOL,
+                "18a: the TP step disagrees with the one-card step")
+        a0 = ans[0]
+        st = a0["stats"]["all_reduce"]
+        split = " / ".join(f"{a['tokens_s']:.1f}" for a in ans)
+        print(f"  tokens/s: tp=2 {split} "
+              f"(rank 0 / rank 1), one process {ref['tokens_s']:.1f}: "
+              f"{a0['tokens_s'] / ref['tokens_s']:.3f} of one card; the "
+              f"model axis's all-reduces {a0['ar_calls']:.0f} calls, "
+              f"{a0['ar_mb']:.1f} MB and {a0['ar_ms']:.1f} ms blocked a "
+              f"step on rank 0 ({st['calls']} calls, "
+              f"{st['bytes'] / 1e6:.1f} MB in the parity run) on {gpu}")
+        print_launches("the TP step (its grads and steps)", ans)
+        add(ans)
+
+        print(f"phase 18b: FSDP over 2 ranks, B={p['batch']} "
+              f"({p['batch'] // 2} a rank), adam({p['adam_lr']}), f32")
+        gates.open("fsdp")
+        ans = gates.answers("fsdp")
+        ref = ans[0]["ref"]
+        same = len({a["digest"] for a in ans}) == 1
+        print(f"  against one process on the whole batch: adam, the loss of "
+              f"each of {p['steps']} steps {ref['loss_err']:.3e} relative "
+              f"(losses {ans[0]['losses']} against {ref['losses']}), the "
+              f"gathered adam moments after the first step "
+              f"{ref['moment_err']:.3e}; sgd({p['lr']}), the params after "
+              f"{p['steps']} steps {ref['param_err']:.3e} (per-leaf "
+              f"relative norm; tol {SPLIT_TOL:g}); replicated leaves "
+              f"bit-equal: {same}")
+        print(f"  against one process taking the ranks' step (each rank's "
+              f"rows apart, summed in rank order): adam's losses, moments "
+              f"after the first step and params after {p['steps']} steps "
+              f"{ref['same_order_err']:.3e} (tol {SPLIT_TOL:g}); adam's "
+              f"params against the whole batch {ref['adam_param_err']:.3e}, "
+              f"that process's own {ref['order_err']:.3e} (the summation "
+              f"order alone)")
+        require(max(ref["loss_err"], ref["moment_err"], ref["param_err"],
+                    ref["same_order_err"]) <= SPLIT_TOL and same,
+                "18b: FSDP disagrees with one process")
+        for r, a in enumerate(ans):
+            print(f"  rank {r}: persistent bytes (params + adam state) "
+                  f"{a['bytes'] / 1e6:.1f} MB against one process's "
+                  f"{ref['bytes'] / 1e6:.1f} MB "
+                  f"({a['bytes'] / ref['bytes']:.3f}; bound: 1/2 of the "
+                  f"sharded leaves and the replicated ones, "
+                  f"{a['bound'] / 1e6:.1f} MB)")
+        require(all(a["bytes"] <= a["bound"] for a in ans),
+                "18b: a rank's persistent state is not sharded")
+        tm = ans[0]["timed"]
+        split = " / ".join(f"{a['sps']:.2f}" for a in ans)
+        print(f"  samples/s: 2 ranks {split} "
+              f"(rank 0 / rank 1), one process {ref['sps']:.2f}: "
+              f"{ans[0]['sps'] / ref['sps']:.3f}; a step on rank 0: "
+              + ", ".join(f"{op} {v['calls'] / p['timed']:.0f} calls "
+                          f"{v['bytes'] / p['timed'] / 1e6:.1f} MB "
+                          f"{v['seconds'] / p['timed'] * 1e3:.1f} ms"
+                          for op, v in tm.items()) + f" on {gpu}")
+        print_launches("the FSDP steps", ans)
+        add(ans)
+
+        print(f"phase 18c: the pipeline over 2 stages "
+              f"({p['model']['n_layers'] // 2} layers a stage), "
+              f"M={p['microbatches']} microbatches of "
+              f"{p['batch'] // p['microbatches']}, f32, sgd({p['lr']})")
+        gates.open("pp")
+        ans = gates.answers("pp")
+        ref = ans[0]["ref"]
+        for v in ("1", "2"):
+            r0 = ans[0]["runs"][v]
+            kind = "1F1B" if v == "1" else "interleaved 1F1B at v=2"
+            print(f"  {kind}: against the one-card step: loss relative "
+                  f"{r0['loss_err']:.3e}, grads {r0['grad_err']:.3e} of "
+                  f"each leaf's largest |grad|, params after {p['steps']} "
+                  f"steps {r0['param_err']:.3e} (tol {SPLIT_TOL:g}); losses "
+                  f"{r0['losses']} against {ref['losses']}")
+            for r, a in enumerate(ans):
+                run = a["runs"][v]
+                print(f"  rank {r} (stage {r}): stash peak {run['peak']} "
+                      f"microbatch inputs (bound {run['bound']}); "
+                      f"{run['tokens_s']:.1f} tokens/s; point-to-point "
+                      f"{run['p2p_calls']:.0f} messages, "
+                      f"{run['p2p_mb']:.1f} MB sent, {run['p2p_ms']:.1f} ms "
+                      f"blocked a step; K1 / K2 / K3 "
+                      f"{run['launches']['flash_fwd']} / "
+                      f"{run['launches']['flash_bwd_dq']} / "
+                      f"{run['launches']['flash_bwd_dkv']}")
+                require(1 <= run["peak"] <= run["bound"],
+                        f"18c rank {r}: stash peak {run['peak']}")
+                for k, n in run["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+            print(f"  {kind}: tokens/s one process {ref['tokens_s']:.1f}: "
+                  f"{r0['tokens_s'] / ref['tokens_s']:.3f} of one card "
+                  f"on {gpu}")
+            require(max(r0["loss_err"], r0["grad_err"], r0["param_err"])
+                    <= SPLIT_TOL, f"18c: {kind} disagrees with one card")
+        for q in ranks:
+            procs.finish(q)
+            require(q.returncode == 0, f"{q.label} exited {q.returncode}: "
+                    f"{procs.output(q)[-600:]}")
+    finally:
+        procs.close()
+        shutil.rmtree(work, ignore_errors=True)
+    if torch.device(device).type == "cuda":
+        require(all(launches.get(k, 0) > 0 for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+            f"18: a kernel of the path never launched: {launches}")
+    print(f"  phase 18 launches (f32, both ranks): {launches}")
+    print(f"  phase 18 wall {time.perf_counter() - t0:.1f} s on {gpu}")
+    return launches
+
+
+MP_TASKS.update(tp=mp_task_tp, fsdp=mp_task_fsdp, pp=mp_task_pp)
+
+
 def main(argv=None):
     import argparse
 
@@ -6780,7 +7440,8 @@ def main(argv=None):
                          "(checkpoints and resume); no kernel is built")
     ap.add_argument("--phase13", action="store_true",
                     help="run only phase 1 (the card) and phase 13 "
-                         "(parameter-server mode); no kernel is built")
+                         "(parameter-server mode, 13b at its full "
+                         "epochs); no kernel is built")
     ap.add_argument("--phase14", action="store_true",
                     help="run only phase 1 (the card) and phase 14 (the "
                          "serving fabric); builds K1 and K5 only")
@@ -6794,6 +7455,10 @@ def main(argv=None):
                     help="run only phase 1 (the card) and phase 17 (the MoE "
                          "transformer, expert and sequence parallelism); "
                          "builds K1, K2 and K3 only")
+    ap.add_argument("--phase18", action="store_true",
+                    help="run only phase 1 (the card) and phase 18 (the "
+                         "transformer across ranks: TP, FSDP, the "
+                         "pipeline); builds K1, K2 and K3 only")
     ap.add_argument("--ps-role", metavar="JSON",
                     help="(phase 13's own processes) run one server or "
                          "worker of the phase, configured by JSON")
@@ -6862,6 +7527,12 @@ def main(argv=None):
         built = _build.build(["flash_fwd", "flash_bwd"])
         print(f"  built {sorted(built)} before the ranks start")
         moe_and_sequence(fa, fu, da, gpu)
+        return 0
+    if a.phase18:
+        print("phase 18: the transformer across ranks on the card")
+        built = _build.build(["flash_fwd", "flash_bwd"])
+        print(f"  built {sorted(built)} before the ranks start")
+        transformer_across_ranks(fa, fu, da, gpu)
         return 0
     if a.phase14:
         print("phase 14: the serving fabric on the card")
@@ -6998,7 +7669,7 @@ def main(argv=None):
     checkpoints_and_resume(fa, fu, da, gpu)
     torch.cuda.empty_cache()
     clock.start("13: parameter-server mode on the card")
-    ps_mode(fa, fu, da, gpu)
+    ps_mode(fa, fu, da, gpu, epochs=PROOF13_EPOCHS)
     torch.cuda.empty_cache()
     clock.start("14: the serving fabric on the card")
     fabric_launches = serving_fabric(fa, fu, da, gpu)
@@ -7008,7 +7679,7 @@ def main(argv=None):
     data_path(fa, fu, da, gpu, sizes=PROOF15)
     torch.cuda.empty_cache()
     clock.start("16: the workers across processes on the card")
-    workers_across_processes(fa, fu, da, gpu)
+    workers_across_processes(fa, fu, da, gpu, sizes=PROOF16)
     torch.cuda.empty_cache()
     clock.start("17: the MoE transformer, expert and sequence parallelism")
     bf16, f32 = moe_and_sequence(fa, fu, da, gpu)
@@ -7020,6 +7691,14 @@ def main(argv=None):
                "flash_bwd_dkv_f32": f32["flash_bwd_dkv"]}
     for r in rows:
         r["launches"] += phase17.get(r["name"], 0)
+    torch.cuda.empty_cache()
+    clock.start("18: the transformer across ranks (TP, FSDP, the pipeline)")
+    f32 = transformer_across_ranks(fa, fu, da, gpu)
+    phase18 = {"flash_fwd": f32["flash_fwd"],
+               "flash_bwd_dq_f32": f32["flash_bwd_dq"],
+               "flash_bwd_dkv_f32": f32["flash_bwd_dkv"]}
+    for r in rows:
+        r["launches"] += phase18.get(r["name"], 0)
     clock.summary()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -123,22 +123,48 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def attention_half(blk, h, attn_fn, causal):
+def _megatron(model):
+    """-> (f, g) over the ``model`` axis (a ``parallel.mesh.RankAxis``):
+    Megatron's pair, ``parallel/collectives.py`` ``copy_to`` (identity
+    forward, the sum of the ranks' cotangents backward) and
+    ``sum_across`` (the sum forward, identity backward); both the
+    identity without an axis, so the parallel package is imported only
+    by a step that splits the heads."""
+    if model is None:
+        return _identity, _identity
+    from dist_keras_tpu_torch.parallel.collectives import copy_to, sum_across
+
+    return (functools.partial(copy_to, axis=model),
+            functools.partial(sum_across, axis=model))
+
+
+def _identity(x):
+    return x
+
+
+def attention_half(blk, h, attn_fn, causal, model=None):
     """The block's pre-LN attention residual (the attention half of
-    ``_tp_block``). h: (B, T, d)."""
-    y = layer_norm(blk["ln1"], h)
+    ``_tp_block``). h: (B, T, d).  Under a ``model`` axis ``blk`` holds
+    this rank's heads: the normalised input enters the column-split
+    products through *f* and the ``wo`` product leaves through *g*
+    (:func:`_megatron`)."""
+    f, g = _megatron(model)
+    y = f(layer_norm(blk["ln1"], h))
     q = torch.einsum("btd,dhk->bthk", y, blk["wq"])
     k = torch.einsum("btd,dhk->bthk", y, blk["wk"])
     v = torch.einsum("btd,dhk->bthk", y, blk["wv"])
     a = attn_fn(q, k, v, causal=causal)
-    return h + torch.einsum("bthk,hkd->btd", a, blk["wo"])
+    return h + g(torch.einsum("bthk,hkd->btd", a, blk["wo"]))
 
 
-def mlp_half(blk, h):
-    """The block's pre-LN FFN residual (``_mlp_half``). h: (..., d)."""
-    y = layer_norm(blk["ln2"], h)
+def mlp_half(blk, h, model=None):
+    """The block's pre-LN FFN residual (``_mlp_half``). h: (..., d).
+    Under a ``model`` axis ``blk`` holds this rank's columns of ``w1`` /
+    ``b1`` and rows of ``w2``: *f* before ``w1``, *g* after ``w2``."""
+    f, g = _megatron(model)
+    y = f(layer_norm(blk["ln2"], h))
     u = gelu(y @ blk["w1"] + blk["b1"])
-    return h + u @ blk["w2"] + blk["b2"]
+    return h + g(u @ blk["w2"]) + blk["b2"]
 
 
 def apply_block_aux(blk, h, attn_fn, causal, capacity_factor=1.25,

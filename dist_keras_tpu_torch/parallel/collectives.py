@@ -39,9 +39,11 @@ to guard against, as long as per-worker copies are real copies, never
 ``expand`` views.
 
 Between the ranks of a mesh axis (a ``mesh.RankAxis``: the
-``experts`` axis of ``parallel/moe.py``, the ``seq`` axis of
-``make_tp_mesh``) run the collectives that are not data parallelism,
-each an identity that touches no ``torch.distributed`` at size 1:
+``experts`` axis of ``parallel/moe.py``, the ``workers`` / ``model`` /
+``seq`` axes of ``make_tp_mesh``, FSDP's ``workers`` axis, the
+pipeline's ``stages`` axis) run the collectives that are not the
+stacked workers' merge, each an identity that touches no
+``torch.distributed`` at size 1:
 
 - :func:`all_to_all`: ``lax.all_to_all(split_axis=0, concat_axis=0)``,
   dim 0 indexed by destination rank before and by source rank after;
@@ -52,15 +54,32 @@ each an identity that touches no ``torch.distributed`` at size 1:
 - :func:`sum_across`: ``lax.psum`` of a value every rank then holds
   whole; its backward is the identity (the cotangent is the same on
   every rank), so a loss computed from it on every rank does not scale
-  the gradients by the axis size;
+  the gradients by the axis size.  It is Megatron's *g*;
+- :func:`copy_to`: Megatron's *f*, the conjugate of :func:`sum_across`:
+  the identity forward, the sum of every rank's cotangent backward.  A
+  replicated activation entering rank-local compute (the column-split
+  products of the ``model`` axis) goes through it, so the grads of
+  what came before are whole on every rank — JAX's vma-aware transpose
+  inserts that psum by itself;
 - :func:`cross_rank_sum`: the packed all-reduce (SUM) of a tree, the
-  replicated leaves' gradients after a backward.
+  replicated leaves' gradients after a backward;
+- :func:`all_gather` / :func:`reduce_scatter` (SUM) along a dimension
+  (FSDP's gather before the forward and its gradient scatter);
+- :func:`broadcast` from one rank of the axis;
+- :func:`isend` / :func:`recv`: one point-to-point message to or from
+  a rank of the axis (the pipeline's activations and cotangents).  The
+  send is posted and returns its :class:`SendWork` (waited later), the
+  receive blocks; each message carries a ``tag`` (gloo matches by
+  source and tag, in posting order).
 
-Under gloo (ranks sharing a card) the exchange and the shift stage a
-CUDA tensor through a pinned host buffer: gloo's point-to-point and
-all-to-all read host memory.  That staging is the transport, not a
-fallback.  ``reduce_stats(op=...)`` counts each kind apart
-(``"all_reduce"``, ``"all_to_all"``, ``"ring"``).
+Under gloo (ranks sharing a card) gloo reduces and broadcasts CUDA
+tensors itself, but its all-gather, reduce-scatter, all-to-all and
+point-to-point read host memory: those stage a CUDA tensor through a
+pinned host buffer (:func:`_staged` decides, from the backend and the
+tensor's device).  That staging is the transport, not a fallback.
+``reduce_stats(op=...)`` counts each kind apart (``"all_reduce"``,
+``"all_to_all"``, ``"ring"``, ``"all_gather"``, ``"reduce_scatter"``,
+``"broadcast"``, ``"p2p"``).
 """
 
 from __future__ import annotations
@@ -79,15 +98,18 @@ from dist_keras_tpu_torch.utils.pytree import (
 )
 
 _STATS = {op: {"calls": 0, "bytes": 0, "seconds": 0.0}
-          for op in ("all_reduce", "all_to_all", "ring")}
+          for op in ("all_reduce", "all_to_all", "ring", "all_gather",
+                     "reduce_scatter", "broadcast", "p2p")}
 
 
 def reduce_stats(reset=False, op="all_reduce"):
     """-> ``{"calls", "bytes", "seconds"}`` of the cross-rank
     collectives of kind ``op`` so far: ``"all_reduce"`` (bytes of the
     packed buffers; seconds of the blocking ones, enqueue to done),
-    ``"all_to_all"`` or ``"ring"`` (bytes sent; seconds blocked, the
-    host staging included); ``reset`` zeroes them."""
+    ``"all_to_all"``, ``"ring"``, ``"all_gather"``, ``"reduce_scatter"``,
+    ``"broadcast"`` (bytes sent; seconds blocked, the host staging
+    included) or ``"p2p"`` (bytes sent; seconds blocked in the
+    receives, their staging included); ``reset`` zeroes them."""
     stats = _STATS[op]
     out = dict(stats)
     if reset:
@@ -328,11 +350,14 @@ class AsyncMerge:
 
 # -- collectives between the ranks of a mesh axis ---------------------------
 def _staged(x):
-    """True when ``x`` must cross the host: a CUDA tensor under gloo."""
+    """True when ``x`` (a tensor or a device) must cross the host: a CUDA
+    tensor under gloo."""
     from dist_keras_tpu_torch.comm import backend as comm
 
     g = comm.group_info()
-    return x.is_cuda and g is not None and g.backend == "gloo"
+    cuda = (x.is_cuda if isinstance(x, torch.Tensor)
+            else torch.device(x).type == "cuda")
+    return cuda and g is not None and g.backend == "gloo"
 
 
 def _to_host(x):
@@ -409,20 +434,35 @@ class _RingShift(torch.autograd.Function):
         return _shift(g, ctx.axis, -ctx.offset), None, None
 
 
+def _all_reduce(x, axis):
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
+    _count("all_reduce", out.numel() * out.element_size(), t0)
+    return out
+
+
 class _SumAcross(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
-        import torch.distributed as dist
-
-        t0 = time.perf_counter()
-        out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
-        _count("all_reduce", out.numel() * out.element_size(), t0)
-        return out
+        return _all_reduce(x, axis)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis), None
 
 
 def all_to_all(x, axis):
@@ -462,3 +502,120 @@ def cross_rank_sum(tree, axis):
 
     return _cross(tree, [dist.ReduceOp.SUM] * len(tree_leaves(tree)),
                   group=axis.group)
+
+
+def copy_to(x, axis):
+    """``x`` itself; the backward sums every rank's cotangent (Megatron's
+    *f*, the conjugate of :func:`sum_across`)."""
+    if axis.size == 1:
+        return x
+    return _CopyTo.apply(x, axis)
+
+
+def all_gather(x, axis, dim=0):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (the
+    tiled all-gather); ``x`` itself at size 1.  Not differentiable."""
+    if axis.size == 1:
+        return x
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    xt = x.movedim(dim, 0).contiguous()
+    staged = _staged(xt)
+    src = _to_host(xt) if staged else xt
+    out = src.new_empty((axis.size * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=axis.group)
+    if staged:
+        out = out.to(x.device, non_blocking=True)
+    _count("all_gather", src.numel() * src.element_size(), t0)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(x, axis, dim=0):
+    """The sum of every rank's ``x``, split along ``dim`` into
+    ``axis.size`` equal blocks; -> this rank's block (``x`` itself at
+    size 1).  Not differentiable."""
+    if axis.size == 1:
+        return x
+    import torch.distributed as dist
+
+    n = axis.size
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter over {n} ranks: dim {dim} of "
+                         f"{tuple(x.shape)} does not divide")
+    t0 = time.perf_counter()
+    xt = x.movedim(dim, 0).contiguous()
+    staged = _staged(xt)
+    src = _to_host(xt) if staged else xt
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
+                               group=axis.group)
+    if staged:
+        out = out.to(x.device, non_blocking=True)
+    _count("reduce_scatter", src.numel() * src.element_size(), t0)
+    return out.movedim(0, dim)
+
+
+def broadcast(x, axis, src):
+    """Rank ``src`` (its index on ``axis``)'s ``x`` on every rank of the
+    axis (every rank passes a tensor of the same shape and dtype); ``x``
+    itself at size 1.  Not differentiable."""
+    if axis.size == 1:
+        return x
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = x.contiguous().clone()
+    dist.broadcast(out, _peer(axis, src), group=axis.group)
+    _count("broadcast", out.numel() * out.element_size(), t0)
+    return out
+
+
+class SendWork:
+    """A posted :func:`isend`: ``wait()`` blocks until the receiver has
+    taken it; it keeps the (staged) buffer alive until then."""
+
+    def __init__(self, work, buf):
+        self._work, self._buf = work, buf
+
+    def done(self):
+        return self._work.is_completed()
+
+    def wait(self):
+        self._work.wait()
+        self._buf = None
+
+
+def isend(x, axis, to, tag=0):
+    """Post ``x`` to rank ``to`` (its index on ``axis``) with ``tag``;
+    -> its :class:`SendWork`.  A CUDA tensor under gloo is copied to a
+    pinned host buffer first."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    x = x.contiguous()
+    buf = _to_host(x) if _staged(x) else x
+    work = dist.isend(buf, _peer(axis, to), group=axis.group, tag=int(tag))
+    stats = _STATS["p2p"]
+    stats["calls"] += 1
+    stats["bytes"] += buf.numel() * buf.element_size()
+    stats["seconds"] += time.perf_counter() - t0
+    return SendWork(work, buf)
+
+
+def recv(shape, dtype, device, axis, frm, tag=0):
+    """-> the tensor rank ``frm`` (its index on ``axis``) sent with
+    ``tag``, on ``device``; blocks until it arrives."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    staged = _staged(device)
+    buf = torch.empty(tuple(shape), dtype=dtype,
+                      device="cpu" if staged else device,
+                      pin_memory=staged)
+    dist.irecv(buf, _peer(axis, frm), group=axis.group, tag=int(tag)).wait()
+    if staged:
+        buf = buf.to(device, non_blocking=True)
+    _STATS["p2p"]["seconds"] += time.perf_counter() - t0
+    return buf

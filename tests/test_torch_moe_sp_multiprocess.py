@@ -26,8 +26,9 @@ of 4 ranks, each running every task once:
 - ``make_tp_train_step(mesh=make_tp_mesh(sp=n))`` against JAX
   ``make_tp_train_step(make_tp_mesh(sp=n))``, f32, causal: the loss and
   every grad within 1e-5, the params after 3 sgd steps within 1e-5;
-  ``make_tp_mesh`` refusing ``dp=2`` / ``tp=2`` (item 17) and an ``sp``
-  other than the group's size.
+  ``make_tp_mesh(dp=2)`` / ``(tp=2)`` building ``(2, 1, n/2)`` /
+  ``(1, 2, n/2)`` and refusing an ``sp`` whose product is not the
+  group's size.
 
 Every launch has its own ``communicate(timeout=...)`` and its group a
 timeout (``DK_COORD_TIMEOUT_S``).
@@ -91,7 +92,7 @@ from dist_keras_tpu_torch.ops.optimizers import sgd
 from dist_keras_tpu_torch.parallel import collectives, mesh as tmesh
 from dist_keras_tpu_torch.parallel import moe as tmoe
 from dist_keras_tpu_torch.parallel.transformer_tp import (
-    loss_and_grads, make_tp_train_step, seq_block)
+    loss_and_grads, local_block, make_tp_train_step)
 from dist_keras_tpu_torch.utils.bridge import params_from_jax, params_to_numpy
 from dist_keras_tpu_torch.utils.pytree import tree_leaves, tree_unflatten
 comm.initialize(device="cpu")
@@ -186,7 +187,7 @@ res["ring_sub"] = dict(index=sub.index, size=sub.size,
 # the sequence-parallel step
 mesh = tmesh.make_tp_mesh(sp=world)
 cfg = inp["sp_cfg"]
-x = seq_block(torch.from_numpy(inp["sp_x"]), mesh)
+x = local_block(torch.from_numpy(inp["sp_x"]), mesh)
 y = torch.from_numpy(inp["sp_y"])
 params = params_from_jax(inp["sp_params"], "cpu")
 loss, grads = loss_and_grads(params, x, y, cfg, causal=True, mesh=mesh)
@@ -201,7 +202,7 @@ for _ in range(inp["steps"]):
 errors = []
 for kw in ({"sp": world + 1}, {"dp": 2}, {"tp": 2}):
     try:
-        tmesh.make_tp_mesh(**kw)
+        errors.append(tmesh.make_tp_mesh(**kw).shape)
     except (ValueError, NotImplementedError) as e:
         errors.append(type(e).__name__ + ": " + str(e))
 res["sp"] = dict(loss=float(loss), grads=params_to_numpy(grads),
@@ -516,7 +517,8 @@ def test_the_sp_step_matches_the_reference(run):
         for a, b in zip(jax.tree.leaves(sp["params"]),
                         jax.tree.leaves(wparams)):
             np.testing.assert_allclose(a, b, atol=1e-5)
-        kinds = [e.split(":")[0] for e in sp["errors"]]
-        assert kinds == ["ValueError", "NotImplementedError",
-                         "NotImplementedError"]
-        assert all("item 17" in e for e in sp["errors"][1:])
+        # any product equal to the group's size builds; others raise
+        refused, dp2, tp2 = sp["errors"]
+        assert refused.startswith("ValueError: make_tp_mesh(")
+        assert dp2 == {"workers": 2, "model": 1, "seq": n // 2}
+        assert tp2 == {"workers": 1, "model": 2, "seq": n // 2}

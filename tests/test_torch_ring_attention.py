@@ -28,7 +28,7 @@ from dist_keras_tpu_torch.parallel.mesh import (
 )
 from dist_keras_tpu_torch.parallel.transformer_tp import (
     make_tp_train_step,
-    seq_block,
+    local_block,
     train_tp_transformer,
 )
 from dist_keras_tpu_torch.models.transformer import transformer_config
@@ -106,10 +106,15 @@ def test_collectives_are_the_identity_at_one_rank():
     assert collectives.all_to_all(x, axis) is x
     assert collectives.ring_shift(x, axis) is x
     assert collectives.sum_across(x, axis) is x
+    assert collectives.copy_to(x, axis) is x
+    assert collectives.all_gather(x, axis, 1) is x
+    assert collectives.reduce_scatter(x, axis, 2) is x
+    assert collectives.broadcast(x, axis, 0) is x
     tree = [x, torch.ones(2)]
     assert collectives.cross_rank_sum(tree, axis) is tree
     assert not dist.is_initialized()
-    for op in ("all_reduce", "all_to_all", "ring"):
+    for op in ("all_reduce", "all_to_all", "ring", "all_gather",
+               "reduce_scatter", "broadcast", "p2p"):
         assert set(collectives.reduce_stats(op=op)) == {"calls", "bytes",
                                                         "seconds"}
 
@@ -124,9 +129,9 @@ def test_make_tp_mesh_over_one_process():
     assert mesh.shape == {"workers": 1, "model": 1, "seq": 1}
     assert mesh.seq == RankAxis(SEQ_AXIS, 1, 0, None)
     assert make_tp_mesh(sp=1) == mesh
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="dp=2"):
         make_tp_mesh(dp=2)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="tp=2"):
         make_tp_mesh(tp=2, sp=1)
     with pytest.raises(ValueError, match="sp=2"):
         make_tp_mesh(sp=2)
@@ -136,7 +141,7 @@ def test_a_one_rank_mesh_is_the_one_card_step_bit_for_bit():
     rng = np.random.default_rng(0)
     x = rng.normal(size=(4, 16, 6)).astype(np.float32)
     y = rng.integers(0, 3, 4)
-    assert seq_block(x, make_tp_mesh()) is x
+    assert local_block(x, make_tp_mesh()) is x
     runs = [train_tp_transformer(CFG, x, y, steps=2, optimizer=sgd(0.1),
                                  causal=True, device="cpu", mesh=m)
             for m in (None, make_tp_mesh())]

@@ -128,9 +128,9 @@ def test_copied_modules_work_with_jax_blocked(tmp_path):
 
 
 def test_moe_ring_and_mesh_work_with_jax_blocked():
-    """The MoE layer and steps, ring attention and the rank mesh import
-    and run (one rank, CPU) where jax and the JAX package cannot be
-    imported."""
+    """The MoE layer and steps, ring attention, the rank mesh, FSDP and
+    the pipeline import and run (one rank, CPU) where jax and the JAX
+    package cannot be imported."""
     code = (
         "import importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -164,6 +164,24 @@ def test_moe_ring_and_mesh_work_with_jax_blocked():
         "assert torch.isfinite(m['loss'])\n"
         "factory, ep_init = make_moe_ep_train_step(cfg, device='cpu')\n"
         "assert factory(*ep_init(0))\n"
+        "from dist_keras_tpu_torch.parallel import fsdp, pipeline\n"
+        "from dist_keras_tpu_torch.parallel import grid_mesh, make_pp_mesh\n"
+        "from dist_keras_tpu_torch.models.transformer import (\n"
+        "    init_transformer_params, transformer_apply)\n"
+        "dcfg = transformer_config(4, 8, d_model=8, n_heads=2, n_layers=2)\n"
+        "loss_fn = lambda lg, yb: torch.nn.functional.cross_entropy(lg, yb)\n"
+        "init_fn, fac = fsdp.make_fsdp_train_step(\n"
+        "    grid_mesh({'workers': 1}), loss_fn,\n"
+        "    lambda p, xb: transformer_apply(p, xb, dcfg), device='cpu')\n"
+        "p, o = init_fn(init_transformer_params(g, dcfg))\n"
+        "ys = torch.tensor([0, 1])\n"
+        "p, o, l = fac(p, o)(p, o, xs, ys)\n"
+        "assert torch.isfinite(l)\n"
+        "pfac, pinit = pipeline.make_pp_train_step(make_pp_mesh(1), dcfg, 2,\n"
+        "                                          device='cpu')\n"
+        "r, b, orr, ob = pinit(0)\n"
+        "out = pfac(r, b, orr, ob)(r, b, orr, ob, xs, ys)\n"
+        "assert torch.isfinite(out[4]) and pipeline.stash_peak() == 1\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in\n"
         "            ('jax', 'dist_keras_tpu')]\n"
         "print('ok')\n")
@@ -332,6 +350,30 @@ def test_moe_and_sp_entry_points_refuse_without_cuda(no_cuda):
         deserialize_model(d)
     assert deserialize_model(d, device="cpu").count_params == \
         model.count_params
+
+
+def test_fsdp_and_pipeline_entry_points_refuse_without_cuda(no_cuda):
+    from dist_keras_tpu_torch.parallel import (
+        grid_mesh,
+        make_fsdp_train_step,
+        make_pp_mesh,
+        make_pp_train_step,
+        train_pp_transformer,
+    )
+
+    cfg = transformer_config(**CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_fsdp_train_step(grid_mesh({"workers": 1}), None, None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pp_train_step(make_pp_mesh(1), cfg, 2)
+    x = torch.zeros((2, CFG["seq_len"], CFG["input_dim"]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_pp_transformer(make_pp_mesh(1), cfg, x, torch.tensor([0, 1]),
+                             2, steps=1)
+    _, losses = train_pp_transformer(make_pp_mesh(1), cfg, x,
+                                     torch.tensor([0, 1]), 2, steps=1,
+                                     device="cpu")
+    assert math.isfinite(losses[0])
 
 
 def test_training_runs_on_the_cpu_when_asked(no_cuda):
