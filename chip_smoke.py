@@ -307,8 +307,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the span flag is off again; the wall per step with and without the
    trace.  The kernels' ``launches`` include 19d's.
 
+20. The last modules.  20a: on a host without Keras (the card's),
+   ``KerasModelAdapter``, ``from_keras_json`` and ``deserialize_model``
+   of a Keras 3 JSON each raise the ``ImportError`` that says what to
+   install and that ``KERAS_BACKEND=torch`` comes first; with Keras, a
+   Keras MLP through the adapter on the card against the same weights on
+   the CPU (``KERAS_TOL``), its serialized form back, and one
+   ``SingleTrainer`` epoch whose params end on the card.  20b, beside
+   20a: ``python -m dist_keras_tpu_torch.analysis --json`` over the
+   checkout's port in a process of its own: rc 0, no finding with the
+   shipped empty baseline, no jax imported; its per-pass seconds.  The
+   phase prints its wall against its 20 s budget.  No kernel launches.
+
 Each phase's seconds are printed as the next one starts, and all of them
-after phase 19.  The full run cuts 15b's repeats and run lengths
+after phase 20.  The full run cuts 15b's repeats and run lengths
 (``PROOF15``: one resident and one streamed MLP run of one epoch, a
 shorter CNN pair), 16b's turns (``PROOF16``: one run of ~1 s each),
 13b's runs (``PROOF13_EPOCHS``: 3 epochs each) and the phase 9 and 10
@@ -317,7 +329,7 @@ inside the time limit; every check still runs.
 
 ``python3 chip_smoke.py --phase9`` runs only phases 1 and 9 (the bench
 at full length); ``--phase10`` only phases 1 and 10 (likewise);
-``--phase19`` only phases 1 and 19;
+``--phase19`` only phases 1 and 19; ``--phase20`` only phases 1 and 20;
 ``python3 chip_smoke.py --phase12`` runs only phases 1 and 12;
 ``--phase13`` only phases 1 and 13; ``--phase14`` only phases 1 and 14;
 ``--phase15`` only phases 1 and 15 (at its full sizes); ``--phase16``
@@ -8178,6 +8190,185 @@ def launcher_and_sim(fa, fu, da, gpu, device="cuda", sizes=None):
     write_record(f"  phase 19 wall {time.perf_counter() - t0:.1f} s on {gpu}")
     return launches
 
+# -- phase 20: the Keras adapter and the port's dklint ----------------------
+def _keras_dense(name, units, activation, fan_in):
+    return {"module": "keras.layers", "class_name": "Dense",
+            "config": {"name": name, "units": units,
+                       "activation": activation},
+            "registered_name": None,
+            "build_config": {"input_shape": [None, fan_in]}}
+
+
+# a Keras 3 MLP's architecture JSON (Input 8 -> Dense 16 relu -> Dense 2),
+# the form ``keras.Sequential.to_json`` writes, with the defaults left out
+KERAS_MLP_JSON = json.dumps({
+    "module": "keras", "class_name": "Sequential",
+    "config": {"name": "mlp", "layers": [
+        {"module": "keras.layers", "class_name": "InputLayer",
+         "config": {"batch_shape": [None, 8], "name": "input_layer"},
+         "registered_name": None},
+        _keras_dense("dense", 16, "relu", 8),
+        _keras_dense("dense_1", 2, "linear", 16)],
+        "build_input_shape": [None, 8]},
+    "registered_name": None, "build_config": {"input_shape": [None, 8]}})
+KERAS_TOL = 1e-4   # the card against the CPU, f32 with TF32 off
+
+
+class RefuseJax:
+    """A meta-path finder that refuses jax: Keras imports jax where it is
+    installed, and this script imports nothing of JAX."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"{name} is refused in chip_smoke.py")
+        return None
+
+
+def start_dklint():
+    """20b's first half: ``python -m dist_keras_tpu_torch.analysis --json``
+    over the checkout's port, in a process of its own started beside 20a
+    (``-X importtime`` lists what it imported); -> (the process, its start
+    time)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m",
+         "dist_keras_tpu_torch.analysis", "--json"], cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_dklint(gpu, proc, t0):
+    """20b's second half: rc 0, no fresh finding with the shipped (empty)
+    baseline, no jax in the process; prints its per-pass seconds."""
+    try:
+        out, err = proc.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure("20b: the dklint CLI hung (killed at 120 s)")
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"20b: the port's dklint exited {proc.returncode}: "
+            f"{out[-1500:]}{err[-800:]}")
+    doc = json.loads(out)
+    loaded = {line.rsplit("|", 1)[-1].strip() for line in err.splitlines()
+              if line.startswith("import time:")}
+    jax_mods = sorted(m for m in loaded if m.split(".")[0] in
+                      ("jax", "jaxlib", "dist_keras_tpu"))
+    write_record(f"phase 20b: python -m dist_keras_tpu_torch.analysis "
+                 f"--json on the card's host: rc {proc.returncode}, "
+                 f"{doc['total']} finding(s), {doc['fresh']} fresh, "
+                 f"baseline {Path(doc['baseline']).name}, "
+                 f"{len(loaded)} modules imported, jax among them: "
+                 f"{bool(jax_mods)}")
+    write_record(f"  pass_seconds {json.dumps(doc['pass_seconds'])} "
+                 f"(sum {sum(doc['pass_seconds'].values()):.4f} s), the "
+                 f"process's wall {wall:.2f} s on {gpu}")
+    require(doc["fresh"] == 0 and doc["total"] == 0,
+            f"20b: the port's tree is not clean: {doc['findings'][:5]}")
+    require(not jax_mods, f"20b: the dklint process imported {jax_mods}")
+
+
+def keras_on_the_card(gpu, device):
+    """20a with Keras importable: a Keras MLP through the adapter on
+    ``device`` against the same weights on the CPU, its serialized form
+    back, and one ``SingleTrainer`` epoch on ``device``."""
+    import torch
+
+    from dist_keras_tpu_torch.data import Dataset
+    from dist_keras_tpu_torch.models import keras_adapter as ka
+    from dist_keras_tpu_torch.trainers import SingleTrainer
+    from dist_keras_tpu_torch.utils.serialization import (
+        deserialize_model,
+        serialize_model,
+    )
+
+    sys.meta_path.insert(0, RefuseJax())
+    card = ka.from_keras_json(KERAS_MLP_JSON, device=device)
+    rng = np.random.default_rng(20)
+    card.set_weights([rng.normal(scale=0.3, size=w.shape).astype(w.dtype)
+                      for w in card.get_weights()])
+    cpu = ka.from_keras_json(card.to_json(), card.get_weights(),
+                             device="cpu")
+    x = rng.normal(size=(64, 8)).astype(np.float32)
+    err = float(np.max(np.abs(card.predict(x) - cpu.predict(x))))
+    back = deserialize_model(serialize_model(card), device=device)
+    again = float(np.max(np.abs(back.predict(x) - card.predict(x))))
+    dev_type = torch.device(device).type
+    t = SingleTrainer(card, loss="categorical_crossentropy",
+                      worker_optimizer="adam", batch_size=32, num_epoch=1,
+                      label_col="label_encoded", device=device)
+    trained = t.train(Dataset(blobs_columns()))
+    hist = np.asarray(t.get_history())
+    leaves = trained.params["trainable"] + trained.params["state"]
+    write_record(f"phase 20a: Keras {sys.modules['keras'].__version__} "
+                 f"(backend {sys.modules['keras'].backend.backend()}): the "
+                 f"MLP on {device} against the CPU max abs err {err:.3e} "
+                 f"(tol {KERAS_TOL}), serialized and back {again:.3e}; one "
+                 f"SingleTrainer epoch, {hist.size} steps, loss "
+                 f"{hist.ravel()[0]:.4f} -> {hist.ravel()[-1]:.4f}, params "
+                 f"on {sorted({str(p.device) for p in leaves})} ({gpu})")
+    require(err <= KERAS_TOL, f"20a: the Keras MLP on {device} is "
+                              f"{err} from the CPU")
+    require(again == 0.0, f"20a: the round trip moved the outputs {again}")
+    require(np.isfinite(hist).all(), "20a: a non-finite loss")
+    require(all(p.device.type == dev_type for p in card.params["trainable"])
+            and all(p.device.type == dev_type for p in leaves),
+            f"20a: a param is not on {device}")
+
+
+def keras_and_dklint(fa, fu, da, gpu, device="cuda"):
+    """Phase 20: 20b (the port's dklint CLI, in a process of its own)
+    starts first and runs beside 20a (the Keras adapter); 20a launches no
+    kernel."""
+    import importlib.util
+
+    from dist_keras_tpu_torch.models import keras_adapter as ka
+    from dist_keras_tpu_torch.utils.serialization import deserialize_model
+
+    t0 = time.perf_counter()
+    proc, t_lint = start_dklint()
+    try:
+        zero_kernel_counts(fa, fu, da)
+        if importlib.util.find_spec("keras") is None:
+            calls = {
+                "KerasModelAdapter": lambda: ka.KerasModelAdapter(
+                    object(), device=device),
+                "from_keras_json": lambda: ka.from_keras_json(
+                    KERAS_MLP_JSON, device=device),
+                "deserialize_model": lambda: deserialize_model(
+                    {"model": KERAS_MLP_JSON, "weights": []},
+                    device=device)}
+            said = {}
+            for name, call in calls.items():
+                try:
+                    call()
+                    said[name] = None
+                except ImportError as e:
+                    said[name] = str(e)
+            write_record(f"phase 20a: no Keras on the card's host; "
+                         f"{', '.join(calls)} each raise ImportError: "
+                         f"{said['KerasModelAdapter']!r}")
+            for name, msg in said.items():
+                require(msg is not None
+                        and "pip install" in msg
+                        and "KERAS_BACKEND=torch" in msg,
+                        f"20a: {name} without Keras said {msg!r}")
+        else:
+            keras_on_the_card(gpu, device)
+        counts = kernel_counts(fa, fu, da)
+        require(not any(counts.values()),
+                f"20a launched a hand-written kernel: {counts}")
+        finish_dklint(gpu, proc, t_lint)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    secs = time.perf_counter() - t0
+    write_record(f"  phase 20 wall {secs:.1f} s on {gpu} (its budget: "
+                 f"20 s)")
+
+
 def main(argv=None):
     import argparse
 
@@ -8225,6 +8416,10 @@ def main(argv=None):
                     help="run only phase 1 (the card) and phase 19 (the "
                          "launcher, the simulator, the device trace); "
                          "builds K1, K2 and K3 only")
+    ap.add_argument("--phase20", action="store_true",
+                    help="run only phase 1 (the card) and phase 20 (the "
+                         "Keras adapter, the port's dklint); no kernel is "
+                         "built")
     ap.add_argument("--ps-role", metavar="JSON",
                     help="(phase 13's own processes) run one server or "
                          "worker of the phase, configured by JSON")
@@ -8290,6 +8485,10 @@ def main(argv=None):
         built = _build.build(["flash_fwd", "flash_bwd"])
         print(f"  built {sorted(built)} before the phase")
         launcher_and_sim(fa, fu, da, gpu)
+        return 0
+    if a.phase20:
+        print("phase 20: the Keras adapter and the port's dklint")
+        keras_and_dklint(fa, fu, da, gpu)
         return 0
     if a.phase12:
         print("phase 12: checkpoints and resume on the card")
@@ -8493,6 +8692,8 @@ def main(argv=None):
                "flash_bwd_dkv": bf16["flash_bwd_dkv"]}
     for r in rows:
         r["launches"] += phase19.get(r["name"], 0)
+    clock.start("20: the Keras adapter and the port's dklint")
+    keras_and_dklint(fa, fu, da, gpu)
     clock.summary()
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -47,7 +47,11 @@ parameter-server mode (``ps/``): the center-variable server with its
 center in numpy on the host, the HTTP client, the delta codec and the
 in-process pair (copies of the JAX package's, on the same wire and
 checkpoints), ``PSWorkerTrainer`` training its windows on the card, and
-the run report (``observability/report.py``).
+the run report (``observability/report.py``).  And the rest: the
+serving fabric, the data path, workers across processes, MoE and the
+transformer across ranks, the launcher and the simulator, and lastly
+the Keras 3 adapter on Keras's torch backend (``models/keras_adapter``)
+and dklint over the port's own tree (``analysis/``).
 """
 
 __version__ = "0.1.0"

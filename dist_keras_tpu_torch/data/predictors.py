@@ -58,7 +58,7 @@ class ModelPredictor(Predictor):
 
     @torch.no_grad()
     def predict(self, dataset):
-        model = deserialize_model(self.serialized)
+        model = deserialize_model(self.serialized, device=self.device)
         params = tree_map(lambda t: t.to(self.device), model.params)
         x = np.asarray(dataset[self.features_col], dtype=np.float32)
         bs = min(self.batch_size, max(1, len(x)))

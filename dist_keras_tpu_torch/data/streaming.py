@@ -279,7 +279,7 @@ class StreamingPredictor(Predictor):
         # not pay the registry lock per tick
         self._m_batches = _metrics.counter("stream.batches")
         self._m_rows = _metrics.counter("stream.rows")
-        self._model = deserialize_model(self.serialized)
+        self._model = deserialize_model(self.serialized, device=self.device)
         self._params = tree_map(lambda t: t.detach().to(self.device),
                                 self._model.params)
         self._host = None   # the pinned upload buffer (on the card)

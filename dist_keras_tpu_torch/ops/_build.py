@@ -118,6 +118,9 @@ def load(name, signatures):
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            # dklint: ignore[blocking-under-lock] the build is the critical
+            # section: _LOCK makes first use build each library once, and every
+            # other acquirer needs the library being built
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             lib.dk_error_string.argtypes = [ctypes.c_int]

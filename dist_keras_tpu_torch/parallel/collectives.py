@@ -146,6 +146,10 @@ class PendingReduce:
 
     def wait(self):
         for work, flat, idx in self._jobs:
+            # dklint: ignore[unbounded-wait] a torch.distributed Work, bounded
+            # by its process group's timeout (comm/backend.py passes
+            # DK_COORD_TIMEOUT_S to init_process_group): it raises on a lost
+            # peer rather than hang; not a thread/event wait
             work.wait()
             parts = flat.split([self._leaves[i].numel() for i in idx])
             for i, part in zip(idx, parts):
@@ -180,6 +184,9 @@ def _cross(tree, ops, async_op=False, group=None):
     if async_op:
         return pending
     with perf.phase("comm_blocked"):
+        # dklint: ignore[unbounded-wait] PendingReduce.wait waits
+        # torch.distributed Works, bounded by the process group's timeout
+        # (comm/backend.py); not a thread/event wait
         out = pending.wait()
     stats["seconds"] += time.perf_counter() - t0
     return out
@@ -322,6 +329,10 @@ class AsyncMerge:
         """Enqueue ``merge_fn(*args)``; -> self.  Waits out a previous
         merge first."""
         if self._inflight is not None:
+            # dklint: ignore[unbounded-wait] AsyncMerge.wait waits a
+            # PendingReduce (bounded by the process group's timeout) or a CUDA
+            # event on already-enqueued work, which completes; not a
+            # thread/event wait
             self.wait()
         fault_point("comm.merge")
         with perf.phase("comm_overlap"):
@@ -340,6 +351,9 @@ class AsyncMerge:
         with perf.phase("comm_blocked"):
             result = self._inflight
             if isinstance(result, PendingReduce):
+                # dklint: ignore[unbounded-wait] PendingReduce.wait waits
+                # torch.distributed Works, bounded by the process group's
+                # timeout (comm/backend.py); not a thread/event wait
                 result = result.wait()
             elif self._event is not None:
                 self._event.synchronize()
@@ -405,6 +419,10 @@ def _shift(x, axis, offset):
         dist.P2POp(dist.irecv, recv, _peer(axis, (i - offset) % n),
                    axis.group)])
     for work in works:
+        # dklint: ignore[unbounded-wait] a torch.distributed Work, bounded by
+        # its process group's timeout (comm/backend.py passes
+        # DK_COORD_TIMEOUT_S to init_process_group): it raises on a lost peer
+        # rather than hang; not a thread/event wait
         work.wait()
     if staged:
         recv = recv.to(x.device, non_blocking=True)
@@ -582,6 +600,10 @@ class SendWork:
         return self._work.is_completed()
 
     def wait(self):
+        # dklint: ignore[unbounded-wait] a torch.distributed Work, bounded by
+        # its process group's timeout (comm/backend.py passes
+        # DK_COORD_TIMEOUT_S to init_process_group): it raises on a lost peer
+        # rather than hang; not a thread/event wait
         self._work.wait()
         self._buf = None
 
@@ -614,6 +636,10 @@ def recv(shape, dtype, device, axis, frm, tag=0):
     buf = torch.empty(tuple(shape), dtype=dtype,
                       device="cpu" if staged else device,
                       pin_memory=staged)
+    # dklint: ignore[unbounded-wait] a torch.distributed Work, bounded by its
+    # process group's timeout (comm/backend.py passes DK_COORD_TIMEOUT_S to
+    # init_process_group): it raises on a lost peer rather than hang; not a
+    # thread/event wait
     dist.irecv(buf, _peer(axis, frm), group=axis.group, tag=int(tag)).wait()
     if staged:
         buf = buf.to(device, non_blocking=True)

@@ -119,6 +119,9 @@ def _post(works):
 
 def _flush():
     for w in _PENDING:
+        # dklint: ignore[unbounded-wait] each is a posted send's
+        # torch.distributed Work, bounded by the process group's timeout
+        # (comm/backend.py); not a thread/event wait
         w.wait()
     del _PENDING[:]
 

@@ -650,7 +650,8 @@ class DecodeEngine:
         if seq.on_token is not None:
             try:
                 seq.on_token(int(token))
-            # a caller's token callback must never kill the scheduler
+            # dklint: ignore[broad-except] a caller's token callback must never
+            # kill the scheduler
             except Exception as e:  # noqa: BLE001
                 events.emit("decode_error", sid=seq.sid,
                             where="on_token", error=type(e).__name__)
@@ -690,7 +691,8 @@ class DecodeEngine:
                 torch.from_numpy(toks).to(dev), seq.prompt_len,
                 torch.from_numpy(page_idx).to(dev),
                 torch.from_numpy(page_off).to(dev)))
-        # a failed prefill lands TYPED on its own future, pages reclaimed
+        # dklint: ignore[broad-except] a failed prefill lands TYPED on its own
+        # future, pages reclaimed
         except Exception as e:  # noqa: BLE001
             with self._cond:
                 rep.active.remove(seq)
@@ -778,8 +780,8 @@ class DecodeEngine:
                 ).cpu().numpy()
                 err = None
                 break
-            # a failed step retries in place, then quarantines or lands
-            # TYPED
+            # dklint: ignore[broad-except] a failed step retries in place, then
+            # quarantines or lands TYPED
             except Exception as e:  # noqa: BLE001
                 err = e
                 if attempt < self.step_retries:
@@ -848,8 +850,8 @@ class DecodeEngine:
                 self._worker_loop(rep)
         except _ReplicaDead as e:
             self._quarantine(rep, e.cause)
-        # a crashed worker quarantines its replica; sequences migrate or
-        # land typed, never hang
+        # dklint: ignore[broad-except] a crashed worker quarantines its
+        # replica; sequences migrate or land typed, never hang
         except Exception as e:  # noqa: BLE001
             self._quarantine(rep, e)
 
@@ -864,9 +866,9 @@ class DecodeEngine:
                        and not self._orphans
                        and not self._stopped and not rep.retiring
                        and not rep.killed):
-                    # the idle park: every admit, cancel and lifecycle
-                    # exit notifies this cond, and the predicate
-                    # re-checks stop / retire / kill on wake
+                    # dklint: ignore[unbounded-wait] the idle park: every
+                    # admit, cancel and lifecycle exit notifies this cond, and
+                    # the predicate re-checks stop / retire / kill on wake
                     self._cond.wait()
                 if self._stopped:
                     break
@@ -1048,7 +1050,8 @@ class DecodeEngine:
         recover_err = None
         try:
             fault_point("decode.recover")
-        # a failed recovery resolves every orphan TYPED — never a hang
+        # dklint: ignore[broad-except] a failed recovery resolves every orphan
+        # TYPED — never a hang
         except Exception as e:  # noqa: BLE001
             recover_err = e
         migrated = []

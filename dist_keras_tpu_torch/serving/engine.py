@@ -310,8 +310,9 @@ class ServingEngine:
             while not self._pending:
                 if self._stopped or self._draining:
                     return None
-                # the batcher's idle park: every producer (submit) and
-                # both lifecycle exits notify under this cond
+                # dklint: ignore[unbounded-wait] the batcher's idle park: every
+                # producer (submit) and both lifecycle exits notify under this
+                # cond
                 self._cond.wait()
             # at least one request: wait up to the latency bound for a
             # full largest rung — unless draining, which flushes NOW
@@ -362,8 +363,8 @@ class ServingEngine:
             try:
                 rung = self._rung_for(len(take))
                 x, n = pack_rows([r.x for r in take], rung)
-            # a ragged batch fails ITS OWN futures typed, never the
-            # batcher thread
+            # dklint: ignore[broad-except] a ragged batch fails ITS OWN futures
+            # typed, never the batcher thread
             except Exception as e:  # noqa: BLE001
                 with self._cond:
                     self._n_errors += len(take)
@@ -420,9 +421,9 @@ class ServingEngine:
     def _replica_loop(self, rep):
         with torch.inference_mode(), on_stream(rep.stream):
             while True:
-                # the replica's idle park: the batcher is the only
-                # producer, and shutdown posts the None sentinel after
-                # joining it
+                # dklint: ignore[unbounded-wait] the replica's idle park: the
+                # batcher is the only producer, and shutdown posts the None
+                # sentinel after joining it
                 item = rep.inbox.get()
                 if item is None:
                     break
@@ -435,7 +436,8 @@ class ServingEngine:
             fault_point("serve.predict")
             perf.count_dispatch()  # one model launch sequence per batch
             preds = self._forward(rep, x)
-        # the predict error lands TYPED on every future in the batch
+        # dklint: ignore[broad-except] the predict error lands TYPED on every
+        # future in the batch
         except Exception as e:  # noqa: BLE001
             with self._cond:
                 self._n_errors += len(reqs)

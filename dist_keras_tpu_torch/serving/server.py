@@ -213,7 +213,8 @@ class _Handler(BaseHTTPRequestHandler):
         except ValueError as e:  # row shape mismatch: the CALLER's bug
             return 400, {"error": "bad_request",
                          "detail": str(e)[:200]}, None
-        # an admission error (the enqueue fault) maps to a typed 500
+        # dklint: ignore[broad-except] an admission error (the enqueue fault)
+        # maps to a typed 500
         except Exception as e:  # noqa: BLE001
             return 500, {"error": type(e).__name__,
                          "detail": str(e)[:200]}, None
@@ -225,7 +226,8 @@ class _Handler(BaseHTTPRequestHandler):
         except (TimeoutError, concurrent.futures.TimeoutError):
             return 504, {"error": "timeout",
                          "timeout_s": srv.request_timeout_s}, None
-        # a predict error maps to a typed 500 naming the type
+        # dklint: ignore[broad-except] a predict error maps to a typed 500
+        # naming the type
         except Exception as e:  # noqa: BLE001
             return 500, {"error": type(e).__name__,
                          "detail": str(e)[:200]}, None
@@ -295,7 +297,8 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, TypeError) as e:  # the CALLER's bad prompt
             return None, (400, {"error": "bad_request",
                                 "detail": str(e)[:200]}, None)
-        # an admission error (the admit fault, ...) maps to a typed 500
+        # dklint: ignore[broad-except] an admission error (the admit fault,
+        # ...) maps to a typed 500
         except Exception as e:  # noqa: BLE001
             return None, (500, {"error": type(e).__name__,
                                 "detail": str(e)[:200]}, None)
@@ -315,7 +318,8 @@ class _Handler(BaseHTTPRequestHandler):
             gen.cancel()
             return 504, {"error": "timeout",
                          "timeout_s": srv.request_timeout_s}, None
-        # a decode error maps to a typed 500 naming the type
+        # dklint: ignore[broad-except] a decode error maps to a typed 500
+        # naming the type
         except Exception as e:  # noqa: BLE001
             return 500, {"error": type(e).__name__,
                          "detail": str(e)[:200]}, None
@@ -378,7 +382,8 @@ class _Handler(BaseHTTPRequestHandler):
                        "prompt_len": doc["prompt_len"],
                        "steps": doc["steps"], "ttft_s": doc["ttft_s"],
                        "recoveries": doc.get("recoveries", 0)})
-            # a failed generation ends the stream with a typed error line
+            # dklint: ignore[broad-except] a failed generation ends the stream
+            # with a typed error line
             except Exception as e:  # noqa: BLE001
                 chunk({"done": True, "error": type(e).__name__,
                        "detail": str(e)[:200]})

@@ -330,7 +330,7 @@ class Trainer:
 
     # ---- shared plumbing ----
     def _fresh_model(self):
-        return deserialize_model(self.serialized_model)
+        return deserialize_model(self.serialized_model, device=self.device)
 
     def _resolve(self):
         """-> (model, loss_fn, optimizer)."""
@@ -368,8 +368,7 @@ class Trainer:
         model; record history."""
         self.history = history
         model = self._fresh_model()
-        model.set_params([{k: v.detach().cpu() for k, v in p.items()}
-                          for p in params])
+        model.set_params(tree_map(lambda v: v.detach().cpu(), params))
         return model
 
     def train(self, dataset, shuffle=False):

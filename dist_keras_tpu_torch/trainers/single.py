@@ -37,6 +37,7 @@ import torch
 
 from dist_keras_tpu_torch.trainers.base import Trainer
 from dist_keras_tpu_torch.trainers.chunking import init_streaming, run_chunked
+from dist_keras_tpu_torch.utils.pytree import tree_map
 
 
 class SingleTrainer(Trainer):
@@ -57,8 +58,8 @@ class SingleTrainer(Trainer):
         dev = self.device
 
         step, opt_init = self._make_step(model, loss_fn, tx)
-        params = [{k: v.detach().to(dev, copy=True) for k, v in p.items()}
-                  for p in model.params]
+        params = tree_map(lambda v: v.detach().to(dev, copy=True),
+                          model.params)
         opt_state = opt_init(params)
         generator = torch.Generator(device=dev).manual_seed(self.seed)
 

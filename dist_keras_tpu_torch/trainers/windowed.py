@@ -234,6 +234,10 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             ``pending``)."""
             nonlocal pending
             if merger is not None and merger.pending:
+                # dklint: ignore[unbounded-wait] AsyncMerge.wait waits a
+                # PendingReduce (bounded by the process group's timeout) or a
+                # CUDA event on already-enqueued work, which completes; not a
+                # thread/event wait
                 pending = tree_merge_floats(merger.wait(), pending)
             return pending
 
@@ -290,6 +294,10 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             # center holds every worker's final delta
             flush = AsyncMerge(
                 lambda c, p: tree_merge_floats(tree_add(c, p), c))
+            # dklint: ignore[unbounded-wait] the flush is a local add on the
+            # trainer's device: its wait synchronizes a CUDA event on
+            # already-enqueued work (none on the CPU), which completes; not
+            # a thread/event wait
             center = flush.submit(center, landed()).wait()
         return self._finalize(center, history)
 

@@ -5,9 +5,10 @@ The serialized form is the reference's dict: ``'model'`` is the
 architecture-JSON string and ``'weights'`` a flat Keras-ordered list of
 numpy arrays.  The JSON is the JAX package's, so a model that either
 package serialized deserializes in the other into a model computing the
-same function: a ``Sequential`` or a ``Transformer`` (MoE configs
-included; its weights in ``jax.tree.leaves`` order).  The reference's
-Keras-adapter branch (Keras 3 JSON) is not ported yet and raises.
+same function: a ``Sequential``, a ``Transformer`` (MoE configs
+included; its weights in ``jax.tree.leaves`` order) or a Keras 3 model
+(``models/keras_adapter.py``, on Keras's torch backend; without Keras it
+raises ``ImportError`` saying what to install).
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ def serialize_model(model):
 
 
 def deserialize_model(d, device=None):
-    """dict -> Model, same contract as utils.py:~55.  A Transformer is
-    built on ``device`` (the card unless ``device="cpu"``)."""
+    """dict -> Model, same contract as utils.py:~55.  A Transformer or a
+    Keras adapter is built on ``device`` (the card unless
+    ``device="cpu"``)."""
     from dist_keras_tpu_torch.models.model import model_from_json
 
     arch = json.loads(d["model"])
@@ -43,13 +45,13 @@ def deserialize_model(d, device=None):
         try:
             model = model_from_json(d["model"])
         except KeyError:
-            model = None  # layer classes not ours -> Keras JSON
+            model = None  # layer classes not ours -> fall through to Keras
         if model is not None:
             model.set_weights(d["weights"])
             return model
-    raise NotImplementedError(
-        "Keras architecture JSON needs models/keras_adapter.py, which is "
-        "not ported yet (ROADMAP queue 1, item 18)")
+    from dist_keras_tpu_torch.models.keras_adapter import from_keras_json
+
+    return from_keras_json(d["model"], d["weights"], device=device)
 
 
 # Reference-spelled aliases so a dist-keras user finds the names they know.

@@ -8,6 +8,7 @@
 - ``to_json`` is the JAX package's, string for string."""
 
 import json
+import sys
 
 import jax
 import numpy as np
@@ -104,12 +105,29 @@ def test_model_from_json_builds_the_reference_architecture():
         tmodel.model_from_json(json.dumps({"class_name": "Functional"}))
 
 
-def test_unported_branches_of_deserialize_raise():
+def test_unported_branches_of_deserialize_raise(monkeypatch):
+    # item 18 landed: Keras JSON goes to the Keras adapter, on the device
+    # asked for; without Keras its ImportError says what to install
+    from dist_keras_tpu_torch.models import keras_adapter
+
     keras_like = {"model": json.dumps({"class_name": "Sequential",
                                        "layers": [{"class_name": "Keras"}]}),
-                  "weights": []}
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tser.deserialize_model(keras_like)
+                  "weights": [np.zeros(2, np.float32)]}
+    seen = []
+    with monkeypatch.context() as m:
+        m.setattr(keras_adapter, "from_keras_json",
+                  lambda js, weights=None, device=None:
+                  seen.append((js, weights, device)) or "adapter")
+        assert tser.deserialize_model(keras_like, device="cpu") == "adapter"
+    assert seen == [(keras_like["model"], keras_like["weights"], "cpu")]
+    monkeypatch.setitem(sys.modules, "keras", None)
+    for call in (lambda: tser.deserialize_model(keras_like, device="cpu"),
+                 lambda: keras_adapter.from_keras_json("{}", device="cpu"),
+                 lambda: keras_adapter.KerasModelAdapter(object(),
+                                                         device="cpu")):
+        with pytest.raises(ImportError, match="pip install") as e:
+            call()
+        assert "KERAS_BACKEND=torch" in str(e.value)
     # item 25 landed: the reference's Transformer JSON (dense and MoE)
     # deserializes into the port's Transformer, computing the same logits
     from dist_keras_tpu.models.transformer import Transformer as JT
