@@ -329,6 +329,8 @@ inside the time limit; every check still runs.
 
 ``python3 chip_smoke.py --phase9`` runs only phases 1 and 9 (the bench
 at full length); ``--phase10`` only phases 1 and 10 (likewise);
+``--phase11`` only phases 1 and 11 (11a on an untrained CNN: on a host
+with several cards its one-card predictor shards over all of them);
 ``--phase19`` only phases 1 and 19; ``--phase20`` only phases 1 and 20;
 ``python3 chip_smoke.py --phase12`` runs only phases 1 and 12;
 ``--phase13`` only phases 1 and 13; ``--phase14`` only phases 1 and 14;
@@ -392,32 +394,80 @@ PEAK_FLOPS_S = {"float32": 67e12,     # f32 outside the tensor cores
                 "bfloat16": 989e12}   # bf16 tensor cores, dense
 
 
+class CountedPopen(subprocess.Popen):
+    """``subprocess.Popen`` that counts the processes this process starts
+    (``subprocess.run`` and ``call`` go through it); :func:`main`
+    installs it, so the phase seconds line can say what each phase
+    started."""
+
+    started = 0
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        CountedPopen.started += 1
+
+
 class PhaseClock:
-    """Prints each phase's title as it starts and its seconds as the next
-    one starts; :meth:`summary` prints them all and the total."""
+    """Prints each phase's title as it starts and its seconds and the
+    processes it started as the next one starts; :meth:`watch` notes
+    when a job running beside the phases ends; :meth:`summary` prints
+    them all and the total."""
 
     def __init__(self):
         self.t0 = self.mark = time.perf_counter()
-        self.name, self.rows = None, []
+        self.name, self.rows, self.procs = None, [], 0
+        self.jobs = []
 
     def _stop(self):
         if self.name is not None:
             dt = time.perf_counter() - self.mark
-            self.rows.append((self.name, dt))
-            print(f"  phase {self.name} took {dt:.1f} s")
+            n = CountedPopen.started - self.procs
+            self.rows.append((self.name, dt, n))
+            print(f"  phase {self.name} took {dt:.1f} s, {n} processes "
+                  f"started")
         self.name = None
 
     def start(self, title):
         self._stop()
         print(f"phase {title}")
         self.name, self.mark = title.split(":")[0], time.perf_counter()
+        self.procs = CountedPopen.started
+
+    def watch(self, label, wait):
+        """A job started now runs beside the phases until ``wait()``
+        returns: print when it ended, on this clock and in which phase,
+        so a host-timed number of a phase it ran beside is read as taken
+        under its load."""
+        job = {"label": label, "from": self.name,
+               "at": time.perf_counter() - self.t0, "to": None, "end": None}
+        self.jobs.append(job)
+
+        def run():
+            wait()
+            job["end"] = time.perf_counter() - self.t0
+            job["to"] = self.name
+            print(f"  beside the phases: {label} ended at {job['end']:.1f} "
+                  f"s on the phase clock, in phase {job['to']}", flush=True)
+
+        threading.Thread(target=run, daemon=True).start()
 
     def summary(self):
         self._stop()
-        print("phase seconds: " + ", ".join(
-            f"{n} {dt:.1f}" for n, dt in self.rows)
+        for job in self.jobs:
+            names = [name for name, *_ in self.rows]
+            i = names.index(job["from"])
+            j = (names.index(job["to"]) + 1 if job["to"] in names
+                 else len(names))
+            print(f"beside the phases: {job['label']} from "
+                  f"{job['at']:.1f} s to "
+                  + (f"{job['end']:.1f} s" if job["end"] is not None
+                     else "the end")
+                  + f", beside phases {', '.join(names[i:j])}")
+        print("phase seconds (processes started): " + ", ".join(
+            f"{name} {dt:.1f} ({n})" for name, dt, n in self.rows)
             + f"; phases {self.rows[0][0]}-{self.rows[-1][0]} "
-            f"{time.perf_counter() - self.t0:.1f} s")
+            f"{time.perf_counter() - self.t0:.1f} s, "
+            f"{sum(n for *_, n in self.rows)} processes")
 
 
 class SmokeFailure(RuntimeError):
@@ -2226,9 +2276,101 @@ def windowed_gates(train, test, gpu):
     return adag
 
 
-def adag_card_against_cpu(train, gpu, card_device="cuda"):
+def parity_trainer(dev, model, epochs=PARITY_WINDOWS):
+    """ADAG on the MNIST CNN as :func:`adag_card_against_cpu` runs it."""
+    from dist_keras_tpu_torch.trainers import ADAG
+
+    return ADAG(model, num_workers=ADAG_WORKERS,
+                communication_window=ADAG_WINDOW, worker_optimizer="sgd",
+                optimizer_kwargs={"learning_rate": 0.05}, batch_size=64,
+                num_epoch=epochs, features_col="fi", label_col="le",
+                device=dev)
+
+
+def parity_data(train):
+    return train.take(ADAG_WORKERS * ADAG_WINDOW * 64).shuffle(seed=0)
+
+
+def parity_grads(model, xs, ys, d, dtype):
+    """The first step's stacked gradient on ``d`` in ``dtype``, as f64
+    leaves on the CPU."""
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from dist_keras_tpu_torch.trainers import step as st
+    from dist_keras_tpu_torch.utils.pytree import tree_leaves, tree_stack
+
+    loss_of = st.make_loss_fn(model.apply,
+                              parity_trainer("cpu", model)._resolve()[1])
+    p = tree_stack([{k: v.detach().to(d, dtype) for k, v in q.items()}
+                    for q in model.params], ADAG_WORKERS)
+    g, _ = vmap(grad_and_value(loss_of))(
+        p, torch.from_numpy(xs[:, 0]).to(d, dtype),
+        torch.from_numpy(ys[:, 0]).to(d, dtype))
+    return [x.double().cpu() for x in tree_leaves(g)]
+
+
+def adag_cpu_side(train):
+    """The CPU's half of :func:`adag_card_against_cpu`, which needs no
+    card (the full run computes it on a thread of its own beside phases
+    2-9): for f64 and f32 compute, the CPU's state before each step and
+    each merge and what the step or merge made of it; the free-running
+    run and the run from a one-ulp nudge; the first step's stacked
+    gradient in f64 and in f32."""
+    import torch
+
+    from dist_keras_tpu_torch.utils.pytree import (
+        tree_merge_floats,
+        tree_stack,
+    )
+
+    model = no_dropout_cnn(seed=1)
+    data = parity_data(train)
+    xs, ys = parity_trainer("cpu", model)._shards(data)
+
+    def forced(compute):
+        t = parity_trainer("cpu", model)
+        t.compute_dtype = compute
+        m, loss_fn, tx = t._resolve()
+        step, opt_init = t._make_worker_step(m, loss_fn, tx)[:2]
+        center = t._device_params(model.params)
+        local = tree_stack(center, ADAG_WORKERS)
+        opt = tree_stack(opt_init(center), ADAG_WORKERS)
+        gen, steps, merges = torch.Generator(), [], []
+        for _ in range(PARITY_WINDOWS):
+            for j in range(ADAG_WINDOW):
+                batch = (torch.from_numpy(xs[:, j]),
+                         torch.from_numpy(ys[:, j]))
+                (new_local, new_opt, _), loss = step((local, opt, gen),
+                                                     batch)
+                steps.append((local, opt, batch, new_local, loss))
+                local, opt = new_local, new_opt
+            new_center, new_local = t.merge(center, local)
+            merges.append((center, local, new_center))
+            center = tree_merge_floats(new_center, center)
+            local = tree_merge_floats(new_local, local)
+        return steps, merges
+
+    def free(m):
+        t = parity_trainer("cpu", m)
+        out = t.train(data)
+        return np.asarray(t.get_history()), out.get_weights()
+
+    nudged = no_dropout_cnn(seed=1)
+    nudged.set_weights([np.nextafter(w, np.float32(np.inf))
+                        for w in model.get_weights()])
+    return {"model": model, "data": data, "xs": xs, "ys": ys,
+            "forced": {torch.float64: forced(torch.float64),
+                       None: forced(None)},
+            "free": free(model), "nudged": free(nudged),
+            "exact": parity_grads(model, xs, ys, "cpu", torch.float64),
+            "cpu_f32": parity_grads(model, xs, ys, "cpu", torch.float32)}
+
+
+def adag_card_against_cpu(train, gpu, card_device="cuda", cpu=None):
     """ADAG on the MNIST CNN (dropout 0), sgd in f32, TF32 off, card
-    against CPU from the same weights for PARITY_WINDOWS windows.
+    against CPU from the same weights for PARITY_WINDOWS windows; ``cpu``
+    is :func:`adag_cpu_side`'s result (computed here when not given).
 
     Held to CARD_CPU_TOL, step by step with f64 compute
     (``compute_dtype``; the weights, the updates and the loss stay f32):
@@ -2248,26 +2390,11 @@ def adag_card_against_cpu(train, gpu, card_device="cuda"):
     few thousandths of their size, so each f32 conv implementation lands
     ~1e-3 from the exact value)."""
     import torch
-    from torch.func import grad_and_value, vmap
 
-    from dist_keras_tpu_torch.trainers import ADAG
-    from dist_keras_tpu_torch.trainers import step as st
-    from dist_keras_tpu_torch.utils.pytree import (
-        tree_leaves,
-        tree_map,
-        tree_merge_floats,
-        tree_stack,
-    )
+    from dist_keras_tpu_torch.utils.pytree import tree_map
 
-    model = no_dropout_cnn(seed=1)
-    data = train.take(ADAG_WORKERS * ADAG_WINDOW * 64).shuffle(seed=0)
-
-    def trainer(dev, m=model, epochs=PARITY_WINDOWS):
-        return ADAG(m, num_workers=ADAG_WORKERS,
-                    communication_window=ADAG_WINDOW, worker_optimizer="sgd",
-                    optimizer_kwargs={"learning_rate": 0.05}, batch_size=64,
-                    num_epoch=epochs, features_col="fi", label_col="le",
-                    device=dev)
+    cpu = cpu or adag_cpu_side(train)
+    model, data = cpu["model"], cpu["data"]
 
     # 1. step by step from the CPU's state: f64 compute held, f32 printed
     dev = torch.device(card_device)
@@ -2276,77 +2403,46 @@ def adag_card_against_cpu(train, gpu, card_device="cuda"):
         return tree_map(lambda x: x.to(dev), tree)
 
     def forced(compute):
-        trs = {"card": trainer(dev), "cpu": trainer("cpu")}
-        steps = {}
-        for name, t in trs.items():
-            t.compute_dtype = compute
-            m, loss_fn, tx = t._resolve()
-            steps[name] = t._make_worker_step(m, loss_fn, tx)
-        center = trs["cpu"]._device_params(model.params)
-        local = tree_stack(center, ADAG_WORKERS)
-        opt = tree_stack(steps["cpu"][1](center), ADAG_WORKERS)
-        gens = {"cpu": torch.Generator(),
-                "card": torch.Generator(device=dev)}
+        t = parity_trainer(dev, model)
+        t.compute_dtype = compute
+        m, loss_fn, tx = t._resolve()
+        step = t._make_worker_step(m, loss_fn, tx)[0]
+        steps, merges = cpu["forced"][compute]
+        gen = torch.Generator(device=dev)
         loss_err = local_err = center_err = 0.0
-        for _ in range(PARITY_WINDOWS):
-            for j in range(ADAG_WINDOW):
-                batch = (torch.from_numpy(xs[:, j]),
-                         torch.from_numpy(ys[:, j]))
-                (new_local, new_opt, _), loss = steps["cpu"][0](
-                    (local, opt, gens["cpu"]), batch)
-                (local_c, _, _), loss_c = steps["card"][0](
-                    (card(local), card(opt), gens["card"]), card(batch))
-                loss_err = max(loss_err, float(
-                    ((loss_c.cpu() - loss).abs() / loss.abs()).max()))
-                local_err = max(local_err, tree_err(local_c, new_local)[0])
-                local, opt = new_local, new_opt
-            new_center, new_local = trs["cpu"].merge(center, local)
-            new_center_c, _ = trs["card"].merge(card(center), card(local))
+        for local, opt, batch, new_local, loss in steps:
+            (local_c, _, _), loss_c = step((card(local), card(opt), gen),
+                                           card(batch))
+            loss_err = max(loss_err, float(
+                ((loss_c.cpu() - loss).abs() / loss.abs()).max()))
+            local_err = max(local_err, tree_err(local_c, new_local)[0])
+        for center, local, new_center in merges:
+            new_center_c, _ = t.merge(card(center), card(local))
             center_err = max(center_err,
                              tree_err(new_center_c, new_center)[0])
-            center = tree_merge_floats(new_center, center)
-            local = tree_merge_floats(new_local, local)
         return loss_err, local_err, center_err
 
-    xs, ys = trainer("cpu")._shards(data)
     held, f32 = forced(torch.float64), forced(None)
 
     # 2. free-running, and the CPU against itself from a one-ulp nudge
-    def free(d, m=model):
-        t = trainer(d, m)
-        out = t.train(data)
-        return np.asarray(t.get_history()), out.get_weights()
-
     def apart(a, b):
         (ha, wa), (hb, wb) = a, b
         return (float(np.max(np.abs(ha - hb) / np.abs(hb))),
                 max(float(np.abs(x - y).max() / np.abs(y).max())
                     for x, y in zip(wa, wb)))
 
-    runs = {"card": free(dev), "cpu": free("cpu")}
-    nudged = no_dropout_cnn(seed=1)
-    nudged.set_weights([np.nextafter(w, np.float32(np.inf))
-                        for w in model.get_weights()])
-    card_cpu, floor = (apart(runs["card"], runs["cpu"]),
-                       apart(free("cpu", nudged), runs["cpu"]))
+    t = parity_trainer(dev, model)
+    out = t.train(data)
+    card_cpu = apart((np.asarray(t.get_history()), out.get_weights()),
+                     cpu["free"])
+    floor = apart(cpu["nudged"], cpu["free"])
 
     # 3. the first step's stacked gradient against f64
-    loss_of = st.make_loss_fn(model.apply, trainer("cpu")._resolve()[1])
-
-    def grads(d, dtype):
-        p = tree_stack([{k: v.detach().to(d, dtype) for k, v in q.items()}
-                        for q in model.params], ADAG_WORKERS)
-        g, _ = vmap(grad_and_value(loss_of))(
-            p, torch.from_numpy(xs[:, 0]).to(d, dtype),
-            torch.from_numpy(ys[:, 0]).to(d, dtype))
-        return [x.double().cpu() for x in tree_leaves(g)]
-
-    exact = grads("cpu", torch.float64)
-
-    def off(d):
+    def off(got):
         return max(float((a - b).abs().max() / b.abs().max())
-                   for a, b in zip(grads(d, torch.float32), exact))
+                   for a, b in zip(got, cpu["exact"]))
 
+    on_card = parity_grads(model, cpu["xs"], cpu["ys"], dev, torch.float32)
     print(f"  ADAG card against CPU (mnist_cnn without dropout, "
           f"{ADAG_WORKERS} workers, {PARITY_WINDOWS} windows of "
           f"{ADAG_WINDOW}, sgd on f32 weights, TF32 off) on {gpu}: step by "
@@ -2361,7 +2457,7 @@ def adag_card_against_cpu(train, gpu, card_device="cuda"):
           f"one f32 ulp up: {floor[0]:.3e} and {floor[1]:.3e} (not held); "
           f"first step's stacked gradient against f64 on the CPU, max err "
           f"of each leaf's largest entry: card f32 (cuDNN) "
-          f"{off(dev):.3e}, CPU f32 {off('cpu'):.3e}")
+          f"{off(on_card):.3e}, CPU f32 {off(cpu['cpu_f32']):.3e}")
     require(max(held) <= CARD_CPU_TOL,
             "the card's ADAG steps and merges disagree with the CPU's")
 
@@ -2615,14 +2711,15 @@ def profile_worker_step(ds, gpu):
           f"kernels (torch.profiler)")
 
 
-def train_windowed(fa, fu, da, gpu, bench=None):
+def train_windowed(fa, fu, da, gpu, bench=None, cpu_half=None):
     """Phase 10: the windowed trainers on W workers stacked on the card —
     the windowed gates, ADAG card against CPU, the stacked step against
     single steps, no host sync in a dispatch, and samples/s with one
     global step's profile at ``bench_adag_mnist_cnn``'s shape (``bench``:
-    :func:`bench_adag`'s seconds and runs).  -> the
-    ADAG gate's trained model and the gate's held-out rows (phase 11
-    serves them)."""
+    :func:`bench_adag`'s seconds and runs).  ``cpu_half``: a future of
+    :func:`adag_cpu_side` on the gate's rows, computed beside the
+    earlier phases (here when not given).  -> the ADAG gate's trained
+    model and the gate's held-out rows (phase 11 serves them)."""
     import torch
 
     t0 = time.perf_counter()
@@ -2637,7 +2734,13 @@ def train_windowed(fa, fu, da, gpu, bench=None):
         adag = windowed_gates(train, test, gpu)
     finally:
         torch.backends.cudnn.deterministic = False
-    adag_card_against_cpu(train, gpu)
+    t1 = time.perf_counter()
+    cpu = cpu_half.result() if cpu_half is not None else None
+    if cpu_half is not None:
+        print(f"  the CPU's half of the card-against-CPU check, computed on "
+              f"a thread of its own since phase 2: waited "
+              f"{time.perf_counter() - t1:.1f} s for it")
+    adag_card_against_cpu(train, gpu, cpu=cpu)
     stacked_against_single(train, torch.device("cuda"), gpu)
     no_sync_in_dispatch(train, gpu)
     bench_adag(gpu, **(bench or {}))
@@ -2654,6 +2757,7 @@ def train_windowed(fa, fu, da, gpu, bench=None):
 SERVE_LADDER = (1, 8, 32, 128)
 SERVE_CLIENTS, SERVE_MAX_ROWS = 8, 64
 SERVE_TOL = 1e-5      # relative to each row's largest logit (f32, TF32 off)
+PREDICT_ROWS = 1 << 16  # 11a's predictors timed at this many rows too
 KILL_AFTER = 8        # tokens request 0 streams before replica 0 is killed
 SHED_WATERMARK = 0.01
 
@@ -2766,6 +2870,7 @@ def serve_predict(model, test, fa, fu, da, gpu, device=None):
         prediction_col="prediction_index", label_col="label").evaluate(
         LabelIndexTransformer(input_col="prediction").transform(
             predictor.predict(test)))
+    sharded_predictor(model, test, predictor, ref, gpu)
     spans = ragged_requests(len(x), np.random.default_rng(11))
     zero_kernel_counts(fa, fu, da)
     engine = ServingEngine(model, replicas=2, batch_ladder=SERVE_LADDER,
@@ -2863,6 +2968,66 @@ def serve_predict(model, test, fa, fu, da, gpu, device=None):
     require(not any(counts.values()),
             f"11a launched a hand-written kernel: {counts}")
     print(f"  11a wall {time.perf_counter() - t_phase:.1f} s on {gpu}")
+
+
+def sharded_predictor(model, test, one, ref, gpu):
+    """11a: ``ModelPredictor(sharded=True)`` over two shards of the
+    default predictor ``one``'s first device, handed to it through the
+    predictor's device seam: each shard a replica of the params on a
+    stream of its own, the rows padded to whole batches.  Held against
+    ``ref``, ``one``'s outputs on the same rows (``one`` runs on the one
+    card, or shards over every card of a host with several); both
+    timed, at the test rows and at ``PREDICT_ROWS``, and beside them on
+    a host with several cards one card with ``sharded=False``."""
+    from dist_keras_tpu_torch.data import ModelPredictor, predictors
+
+    shards = [one.device] * 2
+    seam = predictors._shard_devices
+    predictors._shard_devices = lambda: shards
+    try:
+        sharded = ModelPredictor(model, features_col="fi")
+    finally:
+        predictors._shard_devices = seam
+    require(sharded.devices == shards,
+            f"the sharded predictor planned {sharded.devices}")
+    times = {}
+    for label, pred in (("one", one), ("sharded", sharded)) * 2:
+        t0 = time.perf_counter()
+        out = np.asarray(pred.predict(test)["prediction"])
+        times[label] = time.perf_counter() - t0
+    err = float(np.abs(out - ref).max() / np.abs(ref).max())
+    print(f"  ModelPredictor(sharded=True) over 2 shards of {shards[0]} "
+          f"(the device seam; a params replica and a stream a shard): "
+          f"{len(out)} rows in {times['sharded'] * 1e3:.1f} ms against the "
+          f"default predictor's on {[str(d) for d in one.devices]} "
+          f"{times['one'] * 1e3:.1f} ms (each the "
+          f"second call: the model's deserialization and the params' "
+          f"upload included); max err {err:.3e} of the largest logit (held "
+          f"to {SERVE_TOL:g}), bit-equal {bool(np.array_equal(out, ref))} "
+          f"on {gpu}")
+    require(out.shape == ref.shape and err <= SERVE_TOL,
+            f"the sharded predictor disagrees with the one-card one: "
+            f"{out.shape} against {ref.shape}, err {err}")
+    # at PREDICT_ROWS rows too (the test rows repeated), beside one
+    # card with sharded=False where the default spans several
+    from dist_keras_tpu_torch.data import Dataset
+
+    x = np.asarray(test["fi"], np.float32)
+    big = Dataset({"fi": np.resize(x, (PREDICT_ROWS,) + x.shape[1:])})
+    runs = [(f"the default on {len(one.devices)} device(s)", one),
+            (f"2 shards of {shards[0]}", sharded)]
+    if len(one.devices) > 1:
+        runs.append((f"sharded=False on {one.device}", ModelPredictor(
+            model, features_col="fi", sharded=False)))
+    for rows in (test, big):
+        got = {}
+        for label, pred in runs * 2:   # each the second call
+            t0 = time.perf_counter()
+            pred.predict(rows)
+            got[label] = time.perf_counter() - t0
+        print(f"  {len(rows['fi'])} rows: " + ", ".join(
+            f"{label} {t * 1e3:.1f} ms" for label, t in got.items())
+            + f" on {gpu}")
 
 
 def top2_margins(params, tokens, attention, apply_block, layer_norm):
@@ -3350,11 +3515,12 @@ def preempt_and_resume(name, make, data, gpu, check=None):
         check(resumed, t2)
 
 
-def adag_with_saves(gpu):
+def adag_with_saves(gpu, turns=2):
     """ADAG samples/s at ``bench_adag_mnist_cnn``'s shape, without saves
     and with ``checkpoint_every_windows=CKPT_EVERY_WINDOWS`` (async
-    saves), alternated twice; samples over ``get_training_time()``, which
-    includes the end-of-run drain of the last save."""
+    saves), in ``turns`` turns (without, with; then with, without; ...);
+    samples over ``get_training_time()``, which includes the end-of-run
+    drain of the last save."""
     import tempfile
 
     import torch
@@ -3388,7 +3554,7 @@ def adag_with_saves(gpu):
 
     run(False)   # warm-up
     out, kept = {False: [], True: []}, []
-    for saves in (False, True, True, False):
+    for saves in [k % 2 != w for k in range(turns) for w in (0, 1)]:
         sps, steps = run(saves)
         out[saves].append(sps)
         kept = steps or kept
@@ -3404,12 +3570,17 @@ def adag_with_saves(gpu):
     return off, on
 
 
-def checkpoints_and_resume(fa, fu, da, gpu):
+# the full run's cut of the saves bench: one turn (without, with), not
+# two; ``--phase12`` runs two
+PROOF12_TURNS = 1
+
+
+def checkpoints_and_resume(fa, fu, da, gpu, turns=2):
     """Phase 12: the round trip, the save stall, SingleTrainer (MNIST
     MLP) and ADAG (MNIST CNN, with dropout) preempted by a real SIGTERM
     and resumed bit-equal under deterministic algorithms, the resumed
-    ADAG through its phase-10 gate, ADAG with cadence saves; no
-    hand-written kernel launched."""
+    ADAG through its phase-10 gate, ADAG with cadence saves (``turns``
+    of :func:`adag_with_saves`); no hand-written kernel launched."""
     import torch
 
     from dist_keras_tpu_torch.models import mnist_cnn, mnist_mlp
@@ -3450,7 +3621,7 @@ def checkpoints_and_resume(fa, fu, da, gpu):
     finally:
         deterministic(False)
     torch.cuda.empty_cache()
-    adag_with_saves(gpu)
+    adag_with_saves(gpu, turns)
     counts = kernel_counts(fa, fu, da)
     print(f"  hand-written kernels launched by phase 12: {counts} (none is "
           f"on this path)")
@@ -3600,7 +3771,8 @@ def ps_worker_role(cfg, counts):
         Path(f"{gate}.{cfg['rank']}").touch()
         t0 = time.perf_counter()
         while not os.path.exists(gate):
-            require(time.perf_counter() - t0 < 120, "no start signal")
+            require(time.perf_counter() - t0 < PS_TIMEOUT_S,
+                    "no start signal")
             time.sleep(0.005)
     ready = cfg.get("ready")
     if ready:
@@ -3817,8 +3989,10 @@ def ps_check(run, final, label, obs_dir=None, killed_wid=None, min_joins=0):
     return state["center"]
 
 
-def ps_gate(procs, work, gpu, device):
-    """13a: ``gates.py``'s ``run_ps_gate`` with the workers on the card."""
+def ps_gate(procs, work, gpu, device, between=None):
+    """13a: ``gates.py``'s ``run_ps_gate`` with the workers on the card;
+    ``between()`` runs after the kill-and-rejoin run, before the chaos
+    sweep."""
     run = os.path.join(work, "main")
     obs = os.path.join(run, "obs")
     os.makedirs(obs, exist_ok=True)
@@ -3871,6 +4045,8 @@ def ps_gate(procs, work, gpu, device):
           f"{final['sha'][:12]}; the lapse, 3+ joins and per-worker commits "
           f"attributed by report.summarize; "
           f"{time.perf_counter() - t0:.1f} s on {gpu}")
+    if between is not None:
+        between()
 
     # the chaos sweep, the seeds side by side: every run ends completed or
     # typed with a verified promoted step, none hangs
@@ -4092,35 +4268,39 @@ def ps_mode(fa, fu, da, gpu, device="cuda", epochs=GATE_EPOCHS):
     work = tempfile.mkdtemp(prefix="dk_ps_phase13_")
     procs = PSProcs(work)
     try:
+        runs = {}
+
+        def spawn_13b():
+            # 13b's three runs start up while 13a's chaos sweep runs, and
+            # wait at their gates until their turn
+            train, test, data = sets.result()
+            runs.update(train=train, test=test)
+            for tag, kw in (("f32", {}), ("int8", {"compress": "int8"})):
+                runs[tag] = ps_mnist_spawn(procs, work, data, device,
+                                           epochs=epochs, **kw)
+            runs["profiled"] = ps_mnist_spawn(procs, work, data, device,
+                                              profile=True)
+
         with ThreadPoolExecutor(1) as pool:
             sets = pool.submit(mnist_data)   # 13b's rows, made during 13a
             print("phase 13a: the PS gate on the card")
-            ps_gate(procs, work, gpu, device)
-            train, test, data = sets.result()
+            ps_gate(procs, work, gpu, device, between=spawn_13b)
+        train, test = runs["train"], runs["test"]
         print("phase 13b: mnist_mlp at full width, 4 workers sharing the "
               "card")
-        # one run after the other, so no run's processes share the host
-        # with another's
-        plain = ps_mnist(procs, ps_mnist_spawn(procs, work, data, device,
-                                               epochs=epochs),
-                         test, gpu, device)
-        int8 = ps_mnist(procs, ps_mnist_spawn(procs, work, data, device,
-                                              compress="int8",
-                                              epochs=epochs),
-                        test, gpu, device)
+        # one run after the other, so no run trains beside another
+        plain = ps_mnist(procs, runs["f32"], test, gpu, device)
+        int8 = ps_mnist(procs, runs["int8"], test, gpu, device)
         require(int8["ratio"] >= 2.0,
                 f"int8 commit payload ratio {int8['ratio']} < 2")
         print(f"  13b int8 against f32: {int8['sps']:.1f} against "
               f"{plain['sps']:.1f} samples/s, accuracy {int8['acc']:.4f} "
               f"against {plain['acc']:.4f}, wire ratio {int8['ratio']:.3f} "
               f"on {gpu}")
-        # the profiled run's processes start while the card-against-CPU
-        # check runs here, and train after it, at their gate
-        profiled = ps_mnist_spawn(procs, work, data, device, profile=True)
         ps_card_against_cpu(train, gpu, device)
         print("  13b device idle share, a run of its own (the runs above "
               "are not profiled):")
-        ps_idle(procs, profiled, plain["window_ms"], gpu)
+        ps_idle(procs, runs["profiled"], plain["window_ms"], gpu)
     finally:
         procs.close()
         shutil.rmtree(work, ignore_errors=True)
@@ -4145,6 +4325,7 @@ FABRIC_ROUNDS = 3          # passes over the prompt set the 14a clients send
 FABRIC_CLIENTS = 8
 FABRIC_KILL_AFTER = 6      # answered requests before backend 1 is SIGKILLed
 FABRIC_TIMING_PASSES = 6   # direct and routed passes over the prompt set
+PROOF14_PASSES = 4         # the full run's cut of them (--phase14: 6)
 HEDGE_SLOW_S = 0.5         # decode.step delay on the restarted backend 1
 SERVE_ROLE_TIMEOUT_S = 240  # the longest any one process of the phase may run
 SLO_ENV = {"DK_SLO": "1", "DK_SLO_TTFT_S": "1e-6", "DK_OBS_SAMPLE_S": "0.2",
@@ -4330,8 +4511,10 @@ def percentile_ms(xs, q):
 
 
 def serving_fabric(fa, fu, da, gpu, device="cuda", model_cfg=MODEL,
-                   prompt_lens=PROMPT_LENS, benches=True):
-    """Phase 14.  -> the K1-K5 launches its backends made in 14a."""
+                   prompt_lens=PROMPT_LENS, benches=True,
+                   timing_passes=FABRIC_TIMING_PASSES):
+    """Phase 14 (``timing_passes``: 14a's direct and routed passes over
+    the prompt set).  -> the K1-K5 launches its backends made in 14a."""
     import shutil
     import tempfile
 
@@ -4416,7 +4599,7 @@ def serving_fabric(fa, fu, da, gpu, device="cuda", model_cfg=MODEL,
         # backend's stream)
         direct, routed, ttft, per_token = [], [], [], []
         diff = {"plain": {}, "hedge-eligible": {}}
-        for k in range(FABRIC_TIMING_PASSES):
+        for k in range(timing_passes):
             for n, p, want in zip(prompt_lens, prompts, oracle):
                 body = {"tokens": p, "max_new_tokens": MAX_NEW}
                 pair = {}
@@ -4438,7 +4621,7 @@ def serving_fabric(fa, fu, da, gpu, device="cuda", model_cfg=MODEL,
                 routed.append(pair[raddr])
                 diff[path].setdefault(n, []).append(pair[raddr] - pair[a0])
         print(f"  /generate over the prompt set {list(prompt_lens)}, "
-              f"{MAX_NEW} tokens, one at a time, {FABRIC_TIMING_PASSES} "
+              f"{MAX_NEW} tokens, one at a time, {timing_passes} "
               f"passes, direct and routed back to back ({len(direct)} "
               f"each): direct p50 {percentile_ms(direct, 50):.3f} ms / max "
               f"{max(direct) * 1e3:.3f} ms; routed p50 "
@@ -4925,9 +5108,12 @@ PHASE15 = dict(
     cnn_batch=ADAG_BENCH_BATCH, cnn_steps=ADAG_BENCH_STEPS,
     cnn_seconds=4.0, budget=4 << 20, stream_batch=256)
 # the full run's cut of 15b (one streamed and one resident run of one
-# epoch, a shorter CNN pair): every check stays, only repeats and run
-# lengths shrink; ``--phase15`` runs PHASE15's full sizes
-PROOF15 = dict(mlp_runs=1, mlp_epochs=1, cnn_seconds=1.0)
+# epoch of a quarter of the rows, its chunks a quarter as long, so an
+# epoch is still 8 chunks and the warm-ups 4; the budget under the
+# shorter warm-up epoch; a shorter CNN pair): every check stays, only
+# repeats and run lengths shrink; ``--phase15`` runs PHASE15's full sizes
+PROOF15 = dict(mlp_runs=1, mlp_epochs=1, cnn_seconds=1.0,
+               mlp_rows=1 << 18, mlp_chunk=8, budget=1 << 20)
 STREAM_PARITY = 0.9   # bench.py's streamed / resident target: recorded
 STREAM_TOL = 1e-5     # StreamingPredictor against ModelPredictor (f32)
 
@@ -4974,8 +5160,57 @@ def params_bit_equal(a, b):
                zip(a.get_weights(), b.get_weights()))
 
 
-def csv_flow(work, gpu, device, p):
-    """15a: ``load_mnist``'s sets written with ``to_csv`` and read back
+CSV_TIMEOUT_S = 600     # the longest 15a waits for its CSV writer
+
+
+def csv_paths(work, rows):
+    """15a's two CSV files under ``work``: {"train": path, "test": path}."""
+    return {split: os.path.join(work, f"mnist_{split}_{n}.csv")
+            for split, n in zip(("train", "test"), rows)}
+
+
+def write_csvs(paths, rows):
+    """``to_csv`` of the synthetic MNIST sets (seeds 0 and 1) of ``rows``
+    rows to :func:`csv_paths`' ``paths``."""
+    from dist_keras_tpu_torch.data.synthetic import synthetic_mnist, to_csv
+
+    for path, n, seed in zip(paths.values(), rows, (0, 1)):
+        to_csv(synthetic_mnist(n, seed=seed), path)
+
+
+def start_csv_writer(rows):
+    """Start 15a's CSV writer (``--csv-role``), a process of its own that
+    writes the two sets with ``to_csv`` while the phases before 15 run.
+    -> (its ``Popen``, the paths it writes)."""
+    import atexit
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="dk_csv_phase15_")
+    atexit.register(shutil.rmtree, work, True)
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--csv-role",
+         json.dumps({"work": work, "rows": list(rows)})],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(ROOT))
+    atexit.register(proc.kill)
+    return proc, csv_paths(work, rows)
+
+
+def csv_role(cfg):
+    """15a's writer: :func:`write_csvs` into ``cfg["work"]``, then
+    ``CSV_DONE {"seconds": ...}``."""
+    sys.path.insert(0, str(ROOT))
+    t0 = time.perf_counter()
+    write_csvs(csv_paths(cfg["work"], cfg["rows"]), cfg["rows"])
+    print("CSV_DONE " + json.dumps({"seconds": time.perf_counter() - t0}),
+          flush=True)
+    return 0
+
+
+def csv_flow(work, gpu, device, p, writer=None):
+    """15a: ``load_mnist``'s sets written with ``to_csv`` (here, or by
+    ``writer``, :func:`start_csv_writer`'s process) and read back
     with ``Dataset.from_csv`` (the native reader, against ``np.loadtxt``),
     then the reference's transformer chain, ADAG on the MNIST CNN
     streamed one window a chunk, and predictor -> label index ->
@@ -4992,16 +5227,23 @@ def csv_flow(work, gpu, device, p):
     )
     from dist_keras_tpu_torch.data import csv as csv_mod
     from dist_keras_tpu_torch.data import native
-    from dist_keras_tpu_torch.data.synthetic import synthetic_mnist, to_csv
     from dist_keras_tpu_torch.models import mnist_cnn
     from dist_keras_tpu_torch.trainers import ADAG
 
-    paths, t0 = {}, time.perf_counter()
-    for split, n, seed in zip(("train", "test"), p["csv_rows"], (0, 1)):
-        paths[split] = os.path.join(work, f"mnist_{split}_{n}.csv")
-        to_csv(synthetic_mnist(n, seed=seed), paths[split])
+    if writer is None:
+        paths, t0 = csv_paths(work, p["csv_rows"]), time.perf_counter()
+        write_csvs(paths, p["csv_rows"])
+        wrote, where = time.perf_counter() - t0, "host"
+    else:
+        proc, paths = writer
+        out = proc.communicate(timeout=CSV_TIMEOUT_S)[0]
+        m = re.search(r"^CSV_DONE (\{.*\})$", out, re.M)
+        require(proc.returncode == 0 and m,
+                f"the CSV writer exited {proc.returncode}: {out[-600:]}")
+        wrote = json.loads(m.group(1))["seconds"]
+        where = "host, a process of its own started with phase 2"
     print(f"  wrote {p['csv_rows'][0]} + {p['csv_rows'][1]} synthetic MNIST "
-          f"rows as CSV in {time.perf_counter() - t0:.1f} s (host)")
+          f"rows as CSV in {wrote:.1f} s ({where})")
     t0 = time.perf_counter()
     lib = native.load_fastcsv()
     built = time.perf_counter() - t0
@@ -5454,9 +5696,11 @@ def runner_telemetry(work, train, gpu, device, p):
         reset()
 
 
-def data_path(fa, fu, da, gpu, device="cuda", sizes=None):
+def data_path(fa, fu, da, gpu, device="cuda", sizes=None, writer=None):
     """Phase 15: the CSV flow, streaming at full width, streaming
-    inference and the runner's telemetry; no hand-written kernel."""
+    inference and the runner's telemetry; no hand-written kernel.
+    ``writer``: :func:`start_csv_writer`'s, which wrote 15a's files."""
+    import shutil
     import tempfile
 
     import torch
@@ -5466,7 +5710,14 @@ def data_path(fa, fu, da, gpu, device="cuda", sizes=None):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
         print("phase 15a: the paper's flow from CSV")
-        model, test, train = csv_flow(work, gpu, device, p)
+        try:
+            model, test, train = csv_flow(work, gpu, device, p, writer)
+        finally:
+            if writer is not None:
+                writer[0].kill()
+                writer[0].wait()
+                shutil.rmtree(Path(writer[1]["train"]).parent,
+                              ignore_errors=True)
         print("phase 15b: streaming at full width")
         stream_full_width(gpu, device, p)
         if torch.device(device).type == "cuda":
@@ -5725,6 +5976,10 @@ def mp_role(cfg):
             "device": str(g.device), "local_world": g.local_world,
             "init_s": time.perf_counter() - t0}))
         gates = Gates(cfg["work"])
+        if cfg.get("hold"):
+            # started ahead of its phase: up, but no work on the card
+            # until the phase opens this gate
+            gates.wait_open(cfg["hold"])
         for task in cfg["tasks"]:
             MP_TASKS[task](cfg, gates, g.rank)
         return 0
@@ -6712,20 +6967,43 @@ def mp_task_ring_sp(cfg, gates, rank):
         "ranks": n})
 
 
-def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p):
-    """17b and 17c: two rank processes (``--mp-role``) sharing the card
-    under gloo. -> the K1-K3 launches of their main paths (the EP and
-    the SP steps), summed over the ranks."""
-    import shutil
+def launch_held(label, tasks, device, p):
+    """A phase's two rank processes started ahead of it: each comes up
+    (torch, the group) and waits at the gate ``<label>_go`` before any
+    work on the card.  -> (work, procs, gates, ranks)."""
     import tempfile
 
-    work = Path(tempfile.mkdtemp(prefix="dk_mp_phase17_"))
+    work = Path(tempfile.mkdtemp(prefix=f"dk_mp_{label}_"))
     procs = MPProcs(work)
     gates = Gates(work)
+    ranks = procs.launch(label, tasks, device, p, hold=f"{label}_go")
+    gates.procs = ranks
+    return work, procs, gates, ranks
+
+
+def open_held(started):
+    """Lets :func:`launch_held`'s ranks go; -> ``started``."""
+    work, procs, gates, ranks = started
+    gates.open(f"{ranks[0].label.rsplit('_', 1)[0]}_go")
+    return started
+
+
+def launch_17(device, p):
+    """17b and 17c's two rank processes, started during 17a (they wait at
+    a gate, off the card, until 17a is done)."""
+    return launch_held("p17", ["ep", "ring_sp"], device, p)
+
+
+def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p, started=None):
+    """17b and 17c: two rank processes (``--mp-role``) sharing the card
+    under gloo (``started``: :func:`launch_17`'s, else launched here).
+    -> the K1-K3 launches of their main paths (the EP and the SP steps),
+    summed over the ranks."""
+    import shutil
+
+    work, procs, gates, ranks = open_held(started or launch_17(device, p))
     launches = {}
     try:
-        ranks = procs.launch("p17", ["ep", "ring_sp"], device, p)
-        gates.procs = ranks
         print("phase 17b: make_moe_ep_train_step over 2 ranks (4 experts "
               "each) sharing the card under gloo")
         gates.open("ep")
@@ -6831,11 +7109,16 @@ def moe_and_sequence(fa, fu, da, gpu, device="cuda", sizes=None):
 
     p = {**PHASE17, **(sizes or {})}
     t0 = time.perf_counter()
-    print("phase 17a: the MoE transformer at full width on one card")
-    bf16 = moe_one_card(fa, fu, da, gpu, torch.device(device), p)
+    started = launch_17(device, p)
+    try:
+        print("phase 17a: the MoE transformer at full width on one card")
+        bf16 = moe_one_card(fa, fu, da, gpu, torch.device(device), p)
+    except BaseException:
+        started[1].close()
+        raise
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    f32 = moe_and_sp_across_ranks(fa, fu, da, gpu, device, p)
+    f32 = moe_and_sp_across_ranks(fa, fu, da, gpu, device, p, started)
     if torch.device(device).type == "cuda":
         for label, got in (("17a", bf16), ("17b + 17c", f32)):
             require(all(got[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
@@ -7218,10 +7501,13 @@ def layer_order(blocks, p, v):
 
 
 def mp_task_pp(cfg, gates, rank):
-    """18c: the pipeline over the ranks (one stage a rank), 1F1B, then
-    interleaved at v=2: loss, grads and the params after the sgd steps
-    against the one-card step (rank 0), the stash peak, tokens/s split
-    against one process, the point-to-point traffic."""
+    """18c: the pipeline over the ranks (one stage a rank): GPipe's loss
+    against the one-card step; 1F1B, then interleaved at v=2: loss, grads
+    and the params after the sgd steps against the one-card step (rank
+    0), the stash peak, tokens/s split against one process, the
+    point-to-point traffic.  Each schedule's first run records its
+    point-to-point ops (``collectives.record_p2p``) for NCCL's pair
+    rule."""
     import torch
 
     from dist_keras_tpu_torch import comm
@@ -7229,8 +7515,14 @@ def mp_task_pp(cfg, gates, rank):
     from dist_keras_tpu_torch.ops import flash_attention as fa
     from dist_keras_tpu_torch.ops import fused_bwd_experimental as fu
     from dist_keras_tpu_torch.ops.optimizers import sgd
+    from dist_keras_tpu_torch.parallel import collectives
     from dist_keras_tpu_torch.parallel import pipeline as pp
     from dist_keras_tpu_torch.parallel.transformer_tp import loss_and_grads
+    from dist_keras_tpu_torch.utils.pytree import (
+        tree_leaves,
+        tree_map,
+        tree_unflatten,
+    )
 
     p = cfg["sizes"]
     dev = torch.device(cfg["device"])
@@ -7250,6 +7542,26 @@ def mp_task_pp(cfg, gates, rank):
         ref = {"losses": olosses,
                "tokens_s": p["batch"] * scfg["seq_len"] * p["timed"] / one_s}
         del ostep, oopt
+    # GPipe: the forward, then autograd's backward through the messages
+    blocks = pp.split_stage_blocks(pp.stack_blocks(full["blocks"]), mesh)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in tree_leaves(rest)]
+    blocks = tree_map(lambda t: t.requires_grad_(), blocks)
+    comm.barrier("pp_gpipe")
+    zero_kernel_counts(fa, fu, da)
+    collectives.record_p2p()
+    logits = pp.pp_transformer_apply(tree_unflatten(rest, leaves), blocks,
+                                     x, scfg, m, causal=True, axis=mesh)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    gloss = -logp.gather(1, y.long()[:, None]).mean()
+    gloss.backward()
+    p2p = {"gpipe": collectives.p2p_log()}
+    collectives.record_p2p(False)
+    gpipe = {"launches": kernel_counts(fa, fu, da)}
+    if rank == 0:
+        gpipe["loss_err"] = abs(float(gloss) - float(oloss)) / abs(
+            float(oloss))
+    del leaves, blocks, logits, logp, gloss
     runs = {}
     for v in (1, 2):
         stacked = (pp.stack_blocks_interleaved(full["blocks"], nst, v)
@@ -7266,8 +7578,11 @@ def mp_task_pp(cfg, gates, rank):
             torch.cuda.synchronize()
         zero_kernel_counts(fa, fu, da)
         split_stats(("p2p", "all_reduce"))
+        collectives.record_p2p()
         loss, aux, rg, bg = pp.pp_transformer_1f1b_grads(
             rest, blocks, x, y, scfg, m, causal=True, axis=mesh, virtual=v)
+        p2p[f"1f1b_{v}"] = collectives.p2p_log()
+        collectives.record_p2p(False)
         peak = pp.stash_peak()
         r, b, o1, o2 = rest, blocks, ro, bo
         losses = []
@@ -7310,7 +7625,8 @@ def mp_task_pp(cfg, gates, rank):
         del ograds, oparams
     comm.barrier("pp_done")
     gates.answer("pp", rank, {"runs": runs, "ref": ref, "stages": nst,
-                              "microbatches": m})
+                              "microbatches": m, "gpipe": gpipe,
+                              "p2p": p2p})
 
 
 def print_launches(label, ans):
@@ -7321,22 +7637,31 @@ def print_launches(label, ans):
               f"{a['launches']['flash_bwd_dkv']}")
 
 
-def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None):
+def launch_18(device, sizes=None):
+    """Phase 18's two rank processes, started ahead of it (they come up
+    and wait at a gate, off the card)."""
+    return launch_held("p18", ["tp", "fsdp", "pp"], device,
+                       {**PHASE18, **(sizes or {})})
+
+
+def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None,
+                             started=None):
     """Phase 18: 18a the TP step at tp=2, 18b FSDP over 2 ranks, 18c the
-    pipeline over 2 stages (1F1B, then interleaved at v=2), in two rank
-    processes (``--mp-role``) sharing the card under gloo, each split run
-    against one process in the same call.  -> the K1-K3 launches of the
-    ranks' main paths, summed over the ranks."""
+    pipeline over 2 stages (GPipe; 1F1B, then interleaved at v=2), in two
+    rank processes (``--mp-role``; ``started``: :func:`launch_18`'s)
+    sharing the card under gloo, each split run against one process in
+    the same call.  -> the K1-K3 launches of the ranks' main paths,
+    summed over the ranks."""
     import shutil
-    import tempfile
 
     import torch
 
+    from dist_keras_tpu_torch.parallel.collectives import check_mirror
+
     p = {**PHASE18, **(sizes or {})}
     t0 = time.perf_counter()
-    work = Path(tempfile.mkdtemp(prefix="dk_mp_phase18_"))
-    procs = MPProcs(work)
-    gates = Gates(work)
+    work, procs, gates, ranks = open_held(started
+                                          or launch_18(device, sizes))
     launches = {}
 
     def add(ans):
@@ -7345,8 +7670,6 @@ def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None):
                 launches[k] = launches.get(k, 0) + v
 
     try:
-        ranks = procs.launch("p18", ["tp", "fsdp", "pp"], device, p)
-        gates.procs = ranks
         t = p["model"]["seq_len"]
         print(f"phase 18a: the TP step at tp=2 ({p['model']['n_heads'] // 2}"
               f" heads a rank), B={p['batch']}, T={t}, f32, sgd({p['lr']}), "
@@ -7436,6 +7759,16 @@ def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None):
         gates.open("pp")
         ans = gates.answers("pp")
         ref = ans[0]["ref"]
+        g_err = ans[0]["gpipe"]["loss_err"]
+        print(f"  GPipe (autograd through the messages): loss against the "
+              f"one-card step {g_err:.3e} relative (tol {SPLIT_TOL:g}); K1 "
+              f"/ K2 / K3 a rank " + ", ".join(
+                  "{flash_fwd} / {flash_bwd_dq} / {flash_bwd_dkv}".format(
+                      **a["gpipe"]["launches"]) for a in ans))
+        require(g_err <= SPLIT_TOL, "18c: GPipe disagrees with one card")
+        for a in ans:
+            for k, n in a["gpipe"]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
         for v in ("1", "2"):
             r0 = ans[0]["runs"][v]
             kind = "1F1B" if v == "1" else "interleaved 1F1B at v=2"
@@ -7464,6 +7797,16 @@ def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None):
                   f"on {gpu}")
             require(max(r0["loss_err"], r0["grad_err"], r0["param_err"])
                     <= SPLIT_TOL, f"18c: {kind} disagrees with one card")
+        for key, kind in (("gpipe", "GPipe"), ("1f1b_1", "1F1B"),
+                          ("1f1b_2", "interleaved 1F1B at v=2")):
+            res = check_mirror({r: a["p2p"][key] for r, a in enumerate(ans)})
+            print(f"  NCCL's pair rule over the ops the ranks posted, "
+                  f"{kind}: {res['ops']} ops ({res['batches']} batched) "
+                  f"over {res['pairs']} (group, pair) streams: "
+                  + ("holds" if not res["problems"] else
+                     "broken: " + "; ".join(res["problems"][:3])))
+            require(not res["problems"] and res["ops"] > 0,
+                    f"18c: {kind} breaks NCCL's pair rule: {res}")
         for q in ranks:
             procs.finish(q)
             require(q.returncode == 0, f"{q.label} exited {q.returncode}: "
@@ -7491,6 +7834,7 @@ MP_TASKS.update(tp=mp_task_tp, fsdp=mp_task_fsdp, pp=mp_task_pp)
 # 19d two traced steps of phase 7's bf16 transformer step
 PHASE19 = dict(relaunch_batch=32, relaunch_windows=4, elastic_n=1 << 16,
                trace_steps=2)
+TRACE_SKEW_US = 1000.0     # 19d: a kernel's device interval outside its span
 ELASTIC_UNITS = 8          # the gate's TOTAL: saves at units 1, 3, 5, 7
 LAUNCH_TIMEOUT_S = 240     # the longest one supervise_run may poll
 SUPERVISE = {"max_restarts": 3, "budget_window_s": 600.0,
@@ -7939,32 +8283,46 @@ def sim_env():
     return env
 
 
+SIM_REPLAY_CODE = ("import json, sys\n"
+                   "from dist_keras_tpu_torch.sim import run_scenario\n"
+                   "out = {n: run_scenario(n, seed=0)\n"
+                   "       for n in json.loads(sys.argv[1])}\n"
+                   "out['jax loaded'] = 'jax' in sys.modules\n"
+                   "print(json.dumps(out))\n")
+
+
 def start_sim(work):
     """19c's first half: ``python -m dist_keras_tpu_torch.sim --scenario
-    all --seed 0`` started in a fresh process (it runs beside 19a and
-    19b: it needs no card); -> (the process, its start time)."""
-    log = open(work / "sim.log", "w")
-    err = open(work / "sim.err", "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "dist_keras_tpu_torch.sim", "--scenario",
-         "all", "--seed", "0"], stdout=log, stderr=err, env=sim_env(),
-        cwd=str(ROOT))
-    log.close()
-    err.close()
-    return proc, time.perf_counter()
+    all --seed 0`` and the replay of five scenarios, each started in a
+    fresh process (they run beside 19a and 19b: they need no card); ->
+    (the CLI's process, the replay's, their start time)."""
+    procs = []
+    for name, cmd in (("sim", ["-m", "dist_keras_tpu_torch.sim",
+                               "--scenario", "all", "--seed", "0"]),
+                      ("replay", ["-c", SIM_REPLAY_CODE,
+                                  json.dumps(SIM_REPLAY)])):
+        with open(work / f"{name}.log", "w") as log, \
+                open(work / f"{name}.err", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, *cmd], stdout=log, stderr=err,
+                env=sim_env(), cwd=str(ROOT)))
+    return (*procs, time.perf_counter())
 
 
-def finish_sim(gpu, work, proc, t0):
+def finish_sim(gpu, work, proc, replay, t0):
     """19c's second half: every scenario green; five of them again in
     another process, the same digests."""
     import importlib.util
 
-    try:
-        proc.wait(timeout=300)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-        raise SmokeFailure("19c: the sim CLI hung (killed at 300 s)")
+    for p, what in ((proc, "the sim CLI"), (replay, "the replay")):
+        try:
+            p.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            replay.kill()
+            proc.wait()
+            replay.wait()
+            raise SmokeFailure(f"19c: {what} hung (killed at 300 s)")
     wall = time.perf_counter() - t0
     write_record(f"phase 19c: the simulator on the card's host (jax "
                  f"importable: {importlib.util.find_spec('jax') is not None}"
@@ -7986,20 +8344,11 @@ def finish_sim(gpu, work, proc, t0):
             f"19c: not every scenario is green: {doc}")
     require(runs["ps_churn"]["wall_s"] < 60.0,
             f"19c: ps_churn took {runs['ps_churn']['wall_s']} s of wall")
-    code = ("import json, sys\n"
-            "from dist_keras_tpu_torch.sim import run_scenario\n"
-            "out = {n: run_scenario(n, seed=0)\n"
-            "       for n in json.loads(sys.argv[1])}\n"
-            "out['jax loaded'] = 'jax' in sys.modules\n"
-            "print(json.dumps(out))\n")
-    again = subprocess.run(
-        [sys.executable, "-c", code, json.dumps(SIM_REPLAY)],
-        capture_output=True, text=True, timeout=300, env=sim_env(),
-        cwd=str(ROOT))
-    require(again.returncode == 0,
-            f"19c: the replay exited {again.returncode}: "
-            f"{again.stderr[-800:]}")
-    rep = json.loads(again.stdout.strip().splitlines()[-1])
+    require(replay.returncode == 0,
+            f"19c: the replay exited {replay.returncode}: "
+            f"{(work / 'replay.err').read_text()[-800:]}")
+    rep = json.loads((work / "replay.log").read_text().strip()
+                     .splitlines()[-1])
     same = {n: rep[n]["digest"] == runs[n]["digest"]
             and rep[n].get("stream_digest") == runs[n].get("stream_digest")
             for n in SIM_REPLAY}
@@ -8090,20 +8439,53 @@ def profiled_steps(fa, fu, da, gpu, dev, p):
             f"19d: {len(ranges)} train.step and {len(bodies)} "
             f"train.step.body ranges in the trace, wanted {n}")
     kernels = [e for e in evs if e.get("cat") == "kernel"]
-    inside = {}
+    # a kernel belongs to the span whose range holds its launch (the
+    # runtime or driver call with its correlation id, on the host's
+    # clock); its device interval, converted from the card's clock, must
+    # lie in that range too, within TRACE_SKEW_US of conversion skew (a
+    # kernel that really ran outside its step lies a step's tens of ms
+    # off)
+    launched = {e["args"]["correlation"]: e["ts"] for e in evs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+
+    def holding(t):
+        return next((r for r in ranges
+                     if r["ts"] <= t <= r["ts"] + r["dur"]), None)
+
+    inside, on_device, worst = {}, {}, {}
     per_step = n * TRAIN_MODEL["n_layers"]
     for k in ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
               "flash_bwd_dkv_bf16_kernel"):
-        inside[k] = sum(1 for e in kernels if k in e["name"] and any(
-            r["ts"] <= e["ts"] and e["ts"] + e.get("dur", 0)
-            <= r["ts"] + r["dur"] for r in ranges))
+        inside[k] = on_device[k] = 0
+        worst[k] = 0.0
+        for e in kernels:
+            if k not in e["name"]:
+                continue
+            t = launched.get(e.get("args", {}).get("correlation"))
+            r = holding(t) if t is not None else None
+            if r is None:
+                continue
+            inside[k] += 1
+            # how far (us) the device interval reaches outside the range
+            off = max(r["ts"] - e["ts"],
+                      e["ts"] + e.get("dur", 0) - r["ts"] - r["dur"], 0.0)
+            worst[k] = max(worst[k], float(off))
+            on_device[k] += off <= TRACE_SKEW_US
     write_record(f"  trace: {size} bytes, {len(evs)} events, {len(kernels)} "
-                 f"kernel events; inside the train.step ranges: {inside}; "
-                 f"StepTimer(name='train.step') count {summ['count']}, mean "
-                 f"{summ['mean_s'] * 1e3:.3f} ms; launches {launches}")
+                 f"kernel events; launched inside the train.step ranges: "
+                 f"{inside}, their device intervals inside them within "
+                 f"{TRACE_SKEW_US:g} us: {on_device} (the farthest outside, "
+                 f"us: {worst}); StepTimer(name='train.step') count "
+                 f"{summ['count']}, mean {summ['mean_s'] * 1e3:.3f} ms; "
+                 f"launches {launches}")
     require(all(v == per_step for v in inside.values()),
-            f"19d: kernel events of K1-K3 inside the span {inside}, wanted "
-            f"{per_step} each")
+            f"19d: kernel events of K1-K3 launched inside the span {inside}, "
+            f"wanted {per_step} each")
+    require(all(v == per_step for v in on_device.values()),
+            f"19d: kernel events of K1-K3 run inside the span (within "
+            f"{TRACE_SKEW_US:g} us) {on_device}, wanted {per_step} each; "
+            f"the farthest outside, us: {worst}")
     require(launches["flash_fwd"] == launches["flash_bwd_dq"]
             == launches["flash_bwd_dkv"] == per_step,
             f"19d: launches {launches}")
@@ -8148,7 +8530,7 @@ def launcher_and_sim(fa, fu, da, gpu, device="cuda", sizes=None):
     work = Path(tempfile.mkdtemp(prefix="dk_phase19_"))
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(RoleProcs.ENV_DROP)}
-    elastic = None
+    elastic = sim = replay = None
     try:
         zero_kernel_counts(fa, fu, da)
         cfg = {"work": str(work / "elastic"), "device": device, "gpu": gpu,
@@ -8158,7 +8540,7 @@ def launcher_and_sim(fa, fu, da, gpu, device="cuda", sizes=None):
                 [sys.executable, str(Path(__file__).resolve()),
                  "--elastic-role", json.dumps(cfg)], stdout=log,
                 stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
-        sim, t_sim = start_sim(work)
+        sim, replay, t_sim = start_sim(work)
         supervised_relaunch(gpu, device, p, work / "relaunch")
         counts = kernel_counts(fa, fu, da)
         require(not any(counts.values()),
@@ -8175,15 +8557,16 @@ def launcher_and_sim(fa, fu, da, gpu, device="cuda", sizes=None):
                 write_record(line)
         require(elastic.returncode == 0 and "ELASTIC_OK" in out,
                 f"19b failed (exit {elastic.returncode}): {out[-1500:]}")
-        finish_sim(gpu, work, sim, t_sim)
+        finish_sim(gpu, work, sim, replay, t_sim)
         launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
         if torch.device(device).type == "cuda":
             launches = profiled_steps(fa, fu, da, gpu, torch.device(device),
                                       p)
     finally:
-        if elastic is not None and elastic.poll() is None:
-            elastic.kill()
-            elastic.wait()
+        for q in (elastic, sim, replay):
+            if q is not None and q.poll() is None:
+                q.kill()
+                q.wait()
         kill_pods(work / "relaunch")
         kill_pods(work / "elastic")
         shutil.rmtree(work, ignore_errors=True)
@@ -8388,6 +8771,12 @@ def main(argv=None):
                     help="run only phase 1 (the card) and phase 10 (the "
                          "windowed trainers, the bench at full length); "
                          "no kernel is built")
+    ap.add_argument("--phase11", action="store_true",
+                    help="run only phase 1 (the card) and phase 11 (the "
+                         "rest of serving; 11a serves an untrained "
+                         "mnist_cnn and, on a host with several cards, "
+                         "shards its predictor over all of them); builds "
+                         "K1 and K5 only")
     ap.add_argument("--phase12", action="store_true",
                     help="run only phase 1 (the card) and phase 12 "
                          "(checkpoints and resume); no kernel is built")
@@ -8429,10 +8818,14 @@ def main(argv=None):
     ap.add_argument("--elastic-role", metavar="JSON",
                     help="(phase 19b's own process) drive the elastic "
                          "resize, configured by JSON")
+    ap.add_argument("--csv-role", metavar="JSON",
+                    help="(phase 15a's writer, started with phase 2) write "
+                         "the CSV sets, configured by JSON")
     ap.add_argument("--mp-role", metavar="JSON",
                     help="(phase 16's own processes) run one rank of the "
                          "phase, configured by JSON")
     a = ap.parse_args(argv)
+    subprocess.Popen = CountedPopen
     if a.ps_role:
         return ps_role(json.loads(a.ps_role))
     if a.serve_role:
@@ -8441,6 +8834,8 @@ def main(argv=None):
         return mp_role(json.loads(a.mp_role))
     if a.elastic_role:
         return elastic_role(json.loads(a.elastic_role))
+    if a.csv_role:
+        return csv_role(json.loads(a.csv_role))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -8490,6 +8885,18 @@ def main(argv=None):
         print("phase 20: the Keras adapter and the port's dklint")
         keras_and_dklint(fa, fu, da, gpu)
         return 0
+    if a.phase11:
+        from dist_keras_tpu_torch.models import mnist_cnn
+
+        print("phase 11: the rest of serving on the card")
+        built = _build.build(["flash_fwd", "paged_decode"])
+        print(f"  built {sorted(built)} before the phase")
+        print("phase 11a: /predict on an untrained MNIST CNN")
+        serve_predict(mnist_cnn(), mnist_sets()[1], fa, fu, da, gpu)
+        print("phase 11b: decode survivability at phase 5's widths")
+        decode_survivability(np.random.default_rng(5), fa, fu, da, gpu,
+                             torch.device("cuda"))
+        return 0
     if a.phase12:
         print("phase 12: checkpoints and resume on the card")
         checkpoints_and_resume(fa, fu, da, gpu)
@@ -8532,6 +8939,18 @@ def main(argv=None):
 
     clock = PhaseClock()
     clock.start("2: build the kernels")
+    # 15a's CSV files are written by a process of their own meanwhile, and
+    # the CPU's half of phase 10's card-against-CPU check (no card) runs on
+    # a thread of its own while phases 2-9 keep the card busy
+    writer = start_csv_writer(PHASE15["csv_rows"])
+    from concurrent.futures import ThreadPoolExecutor
+
+    cpu_pool = ThreadPoolExecutor(1)
+    cpu_half = cpu_pool.submit(lambda: adag_cpu_side(mnist_sets()[0]))
+    cpu_pool.shutdown(wait=False)
+    clock.watch("15a's CSV writer (a process)", writer[0].wait)
+    clock.watch("phase 10's CPU half (a thread of this process)",
+                lambda: cpu_half.exception())
     t0 = time.perf_counter()
     libs = ["flash_fwd", "flash_bwd", "fused_bwd", "paged_decode"]
     built = _build.build(libs)
@@ -8640,7 +9059,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     clock.start("10: the windowed trainers (DistributedTrainer, W workers "
           "stacked on one card)")
-    adag, test = train_windowed(fa, fu, da, gpu, bench=PROOF_BENCH)
+    adag, test = train_windowed(fa, fu, da, gpu, bench=PROOF_BENCH,
+                                cpu_half=cpu_half)
+    del cpu_half
     torch.cuda.empty_cache()
     clock.start("11: the rest of serving on the card")
     t11 = time.perf_counter()
@@ -8651,23 +9072,30 @@ def main(argv=None):
     decode_survivability(np.random.default_rng(5), fa, fu, da, gpu, dev)
     print(f"  phase 11 wall {time.perf_counter() - t11:.1f} s on {gpu}")
     clock.start("12: checkpoints and resume on the card")
-    checkpoints_and_resume(fa, fu, da, gpu)
+    checkpoints_and_resume(fa, fu, da, gpu, turns=PROOF12_TURNS)
     torch.cuda.empty_cache()
     clock.start("13: parameter-server mode on the card")
     ps_mode(fa, fu, da, gpu, epochs=PROOF13_EPOCHS)
     torch.cuda.empty_cache()
     clock.start("14: the serving fabric on the card")
-    fabric_launches = serving_fabric(fa, fu, da, gpu)
+    fabric_launches = serving_fabric(fa, fu, da, gpu,
+                                     timing_passes=PROOF14_PASSES)
     print(f"  launches on the fabric's backends: {fabric_launches}")
     torch.cuda.empty_cache()
     clock.start("15: the data path on the card")
-    data_path(fa, fu, da, gpu, sizes=PROOF15)
+    data_path(fa, fu, da, gpu, sizes=PROOF15, writer=writer)
     torch.cuda.empty_cache()
     clock.start("16: the workers across processes on the card")
     workers_across_processes(fa, fu, da, gpu, sizes=PROOF16)
     torch.cuda.empty_cache()
     clock.start("17: the MoE transformer, expert and sequence parallelism")
-    bf16, f32 = moe_and_sequence(fa, fu, da, gpu)
+    # phase 18's ranks come up during 17a too, and wait off the card
+    pre18 = launch_18("cuda")
+    try:
+        bf16, f32 = moe_and_sequence(fa, fu, da, gpu)
+    except BaseException:
+        pre18[1].close()
+        raise
     phase17 = {"flash_fwd_bf16": bf16["flash_fwd"],
                "flash_bwd_dq": bf16["flash_bwd_dq"],
                "flash_bwd_dkv": bf16["flash_bwd_dkv"],
@@ -8678,7 +9106,7 @@ def main(argv=None):
         r["launches"] += phase17.get(r["name"], 0)
     torch.cuda.empty_cache()
     clock.start("18: the transformer across ranks (TP, FSDP, the pipeline)")
-    f32 = transformer_across_ranks(fa, fu, da, gpu)
+    f32 = transformer_across_ranks(fa, fu, da, gpu, started=pre18)
     phase18 = {"flash_fwd": f32["flash_fwd"],
                "flash_bwd_dq_f32": f32["flash_bwd_dq"],
                "flash_bwd_dkv_f32": f32["flash_bwd_dkv"]}

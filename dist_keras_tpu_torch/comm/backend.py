@@ -25,6 +25,12 @@ hosts.  Here the same roles ride a ``torch.distributed`` process group:
   slots) over the processes; :func:`barrier` a real cross-process
   barrier under the JAX package's deadline and poisoning;
   :func:`fetch_global` the all-gather of each leaf along dim 0.
+- Several cards on one host: a JAX process sees every device of its
+  host, a rank here holds one card.  ``launch.Job`` keeps the JAX
+  package's one process per host; a host with several cards runs the
+  trainers one rank per card through ``torchrun`` (``LOCAL_RANK`` /
+  ``LOCAL_WORLD_SIZE``).  A single process lists every visible card in
+  :func:`local_devices` (``ModelPredictor`` shards over them).
 """
 
 from __future__ import annotations
@@ -250,12 +256,15 @@ def is_multi_host():
 
 
 def local_devices():
-    """This process's devices: the rank's one device (the card, or the
-    CPU when no card is found)."""
+    """This process's devices, as ``jax.local_devices()``: under a
+    process group the rank's one device; single-process every visible
+    card, or the CPU alone on a host without one."""
     if _group is not None:
         return [_group.device]
-    return [torch.device("cuda", 0) if torch.cuda.is_available()
-            else torch.device("cpu")]
+    if torch.cuda.is_available():
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
 
 
 def global_devices():

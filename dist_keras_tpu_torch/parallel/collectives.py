@@ -79,7 +79,24 @@ pinned host buffer (:func:`_staged` decides, from the backend and the
 tensor's device).  That staging is the transport, not a fallback.
 ``reduce_stats(op=...)`` counts each kind apart (``"all_reduce"``,
 ``"all_to_all"``, ``"ring"``, ``"all_gather"``, ``"reduce_scatter"``,
-``"broadcast"``, ``"p2p"``).
+``"broadcast"``, ``"p2p"``).  Under NCCL the seconds of a call that
+returns a ``Work`` (every one here) time the enqueue only: NCCL runs
+the collective on its own stream, and ``wait()`` makes the caller's
+stream wait without blocking the host.
+
+The point-to-point recorder (:func:`record_p2p`, off by default) logs
+each message as it is posted: :func:`isend`, :func:`recv`, and the
+ring's shift as one batched unit (``batch_isend_irecv``), each entry
+with its global peer, shape, dtype, tag and group.  :func:`check_mirror`
+holds every rank's log to NCCL's pair rule: PyTorch's NCCL group runs
+every send and receive between two ranks on one communicator and one
+stream, in posting order, whatever the tag, and each completes only
+when the peer's matching op runs.  So, group by group, rank a's ops
+towards b and b's towards a must pair up in posting order (a send with
+a receive of the same shape, dtype and tag; a batch with a batch that
+mirrors it), or NCCL hangs (two sends crossing, above its staging
+buffer) or hands one message to another's receive.  gloo buffers
+sends and matches by tag, so it runs either order.
 """
 
 from __future__ import annotations
@@ -115,6 +132,152 @@ def reduce_stats(reset=False, op="all_reduce"):
     if reset:
         stats.update(calls=0, bytes=0, seconds=0.0)
     return out
+
+
+_P2P_LOG = None       # the recorder's entries while it is on
+
+
+def record_p2p(on=True):
+    """Turn the point-to-point recorder on (with an empty log) or off."""
+    global _P2P_LOG
+    _P2P_LOG = [] if on else None
+
+
+def p2p_log():
+    """-> this process's recorded entries, in posting order (empty while
+    the recorder is off).  An entry is ``{"op": "send" | "recv", "peer",
+    "shape", "dtype", "tag", "group", "ranks"}``, or a batch ``{"op":
+    "batch", "ops": [...], "group", "ranks"}``; ``peer`` is a global
+    rank, ``group`` the process group's name and ``ranks`` its global
+    ranks (picklable, so that the ranks' logs can be gathered)."""
+    return list(_P2P_LOG or [])
+
+
+def _record(ops, group, batch=False):
+    """Log posted ops ``[(op, global peer, tensor, tag)]`` on ``group``."""
+    if _P2P_LOG is None:
+        return
+    import torch.distributed as dist
+
+    pg = dist.group.WORLD if group is None else group
+    where = {"group": str(pg.group_name),
+             "ranks": tuple(dist.get_process_group_ranks(pg))}
+    ops = [{"op": op, "peer": int(peer), "shape": tuple(t.shape),
+            "dtype": str(t.dtype).replace("torch.", ""), "tag": int(tag)}
+           for op, peer, t, tag in ops]
+    _P2P_LOG.append({"op": "batch", "ops": ops, **where} if batch
+                    else {**ops[0], **where})
+
+
+_MIRROR = {"send": "recv", "recv": "send"}
+
+
+def _towards(entries, peer):
+    """``entries`` projected onto ``peer``: -> {group: [unit]}, a unit
+    ``("op", (op, shape, dtype, tag))`` or ``("batch", ops)``."""
+    out = {}
+    for e in entries:
+        if e["op"] == "batch":
+            ops = tuple((o["op"], o["shape"], o["dtype"], o["tag"])
+                        for o in e["ops"] if o["peer"] == peer)
+            if ops:
+                out.setdefault(e["group"], []).append(("batch", ops))
+        elif e["peer"] == peer:
+            out.setdefault(e["group"], []).append(
+                ("op", (e["op"], e["shape"], e["dtype"], e["tag"])))
+    return out
+
+
+def _unit_text(unit):
+    kind, body = unit
+    if kind == "batch":
+        return "batch [" + ", ".join(
+            f"{op} {list(shape)} {dtype} tag {tag}"
+            for op, shape, dtype, tag in body) + "]"
+    op, shape, dtype, tag = body
+    return f"{op} {list(shape)} {dtype} tag {tag}"
+
+
+def _mirrors(u, v):
+    """True when unit ``u`` on one side meets unit ``v`` on the other."""
+    if u[0] != v[0]:
+        return False
+    if u[0] == "op":
+        return _MIRROR[u[1][0]] == v[1][0] and u[1][1:] == v[1][1:]
+
+    def side(ops, kind):
+        return [o[1:] for o in ops if o[0] == kind]
+
+    return (side(u[1], "send") == side(v[1], "recv")
+            and side(u[1], "recv") == side(v[1], "send"))
+
+
+def check_mirror(logs):
+    """Hold the ranks' recorded logs (``{global rank: p2p_log()}``, or a
+    list indexed by rank) to NCCL's pair rule: group by group, for every
+    pair of ranks (a, b), a's ops towards b and b's towards a pair up in
+    posting order, a send with a receive of the same shape, dtype and
+    tag, a batch with a batch that mirrors it; and a group whose first
+    unit is a batch has it on every one of its ranks (NCCL's first
+    ``batch_isend_irecv`` on a group must involve them all).  -> ``{"pairs",
+    "ops", "batches", "problems"}``: the (group, pair)s checked, the ops
+    and batches logged, and one line per broken pair naming the group,
+    the two ranks and the first index where they part."""
+    if not isinstance(logs, dict):
+        logs = dict(enumerate(logs))
+    problems, pairs = [], 0
+    ops = sum(len(e["ops"]) if e["op"] == "batch" else 1
+              for es in logs.values() for e in es)
+    batches = sum(e["op"] == "batch" for es in logs.values() for e in es)
+    peers = {}
+    for a, es in logs.items():
+        for e in es:
+            for o in (e["ops"] if e["op"] == "batch" else [e]):
+                peers.setdefault(a, set()).add(o["peer"])
+                peers.setdefault(o["peer"], set()).add(a)
+    for a in sorted(peers):
+        for b in sorted(p for p in peers[a] if p > a):
+            mine = _towards(logs.get(a, []), b)
+            theirs = _towards(logs.get(b, []), a)
+            for g in sorted(set(mine) | set(theirs)):
+                pairs += 1
+                u, v = mine.get(g, []), theirs.get(g, [])
+                for k in range(max(len(u), len(v))):
+                    if k >= len(u) or k >= len(v):
+                        problems.append(
+                            f"group {g}, ranks {a} <-> {b}: rank {a} posts "
+                            f"{len(u)} units towards {b}, rank {b} {len(v)} "
+                            f"towards {a}; unit {k} is unmatched")
+                        break
+                    if not _mirrors(u[k], v[k]):
+                        same = (u[k][0] == v[k][0] == "op"
+                                and u[k][1][0] == v[k][1][0])
+                        what = (f"two {u[k][1][0]}s cross" if same
+                                else "the units do not mirror")
+                        problems.append(
+                            f"group {g}, ranks {a} <-> {b}, unit {k}: {what}"
+                            f": rank {a} {_unit_text(u[k])}, rank {b} "
+                            f"{_unit_text(v[k])}")
+                        break
+    firsts = {}
+    for a, es in logs.items():
+        seen = set()
+        for e in es:
+            if e["group"] not in seen:
+                seen.add(e["group"])
+                firsts.setdefault(e["group"], {})[a] = e
+    for g, by_rank in sorted(firsts.items()):
+        if any(e["op"] == "batch" for e in by_rank.values()):
+            ranks = next(iter(by_rank.values()))["ranks"]
+            missing = [r for r in ranks if r not in by_rank
+                       or by_rank[r]["op"] != "batch"]
+            if missing:
+                problems.append(
+                    f"group {g}: its first unit is a batch on some ranks "
+                    f"but not on {missing} (NCCL's first batch_isend_irecv "
+                    f"on a group must involve every rank of it)")
+    return {"pairs": pairs, "ops": ops, "batches": batches,
+            "problems": problems}
 
 
 def _count(op, nbytes, t0):
@@ -413,11 +576,12 @@ def _shift(x, axis, offset):
     staged = _staged(x)
     send = _to_host(x) if staged else x
     recv = torch.empty_like(send)
+    to, frm = _peer(axis, (i + offset) % n), _peer(axis, (i - offset) % n)
+    _record([("send", to, send, 0), ("recv", frm, recv, 0)], axis.group,
+            batch=True)
     works = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send, _peer(axis, (i + offset) % n),
-                   axis.group),
-        dist.P2POp(dist.irecv, recv, _peer(axis, (i - offset) % n),
-                   axis.group)])
+        dist.P2POp(dist.isend, send, to, axis.group),
+        dist.P2POp(dist.irecv, recv, frm, axis.group)])
     for work in works:
         # dklint: ignore[unbounded-wait] a torch.distributed Work, bounded by
         # its process group's timeout (comm/backend.py passes
@@ -608,16 +772,20 @@ class SendWork:
         self._buf = None
 
 
-def isend(x, axis, to, tag=0):
+def isend(x, axis, to, tag=0, group=None):
     """Post ``x`` to rank ``to`` (its index on ``axis``) with ``tag``;
-    -> its :class:`SendWork`.  A CUDA tensor under gloo is copied to a
-    pinned host buffer first."""
+    -> its :class:`SendWork`.  ``group``: the group the message travels
+    on, one that holds both ranks (default: the axis's).  A CUDA tensor
+    under gloo is copied to a pinned host buffer first."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
     x = x.contiguous()
     buf = _to_host(x) if _staged(x) else x
-    work = dist.isend(buf, _peer(axis, to), group=axis.group, tag=int(tag))
+    group = axis.group if group is None else group
+    peer = _peer(axis, to)
+    _record([("send", peer, buf, tag)], group)
+    work = dist.isend(buf, peer, group=group, tag=int(tag))
     stats = _STATS["p2p"]
     stats["calls"] += 1
     stats["bytes"] += buf.numel() * buf.element_size()
@@ -625,9 +793,10 @@ def isend(x, axis, to, tag=0):
     return SendWork(work, buf)
 
 
-def recv(shape, dtype, device, axis, frm, tag=0):
+def recv(shape, dtype, device, axis, frm, tag=0, group=None):
     """-> the tensor rank ``frm`` (its index on ``axis``) sent with
-    ``tag``, on ``device``; blocks until it arrives."""
+    ``tag``, on ``device``; blocks until it arrives.  ``group`` as
+    :func:`isend`'s."""
     import torch.distributed as dist
 
     t0 = time.perf_counter()
@@ -636,11 +805,14 @@ def recv(shape, dtype, device, axis, frm, tag=0):
     buf = torch.empty(tuple(shape), dtype=dtype,
                       device="cpu" if staged else device,
                       pin_memory=staged)
+    group = axis.group if group is None else group
+    peer = _peer(axis, frm)
+    _record([("recv", peer, buf, tag)], group)
     # dklint: ignore[unbounded-wait] a torch.distributed Work, bounded by its
     # process group's timeout (comm/backend.py passes DK_COORD_TIMEOUT_S to
     # init_process_group): it raises on a lost peer rather than hang; not a
     # thread/event wait
-    dist.irecv(buf, _peer(axis, frm), group=axis.group, tag=int(tag)).wait()
+    dist.irecv(buf, peer, group=group, tag=int(tag)).wait()
     if staged:
         buf = buf.to(device, non_blocking=True)
     _STATS["p2p"]["seconds"] += time.perf_counter() - t0

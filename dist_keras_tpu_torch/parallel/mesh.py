@@ -40,7 +40,7 @@ dimension is split over or None (``P()``: replicated).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -48,6 +48,7 @@ WORKER_AXIS = "workers"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "experts"
+PIPE_AXIS = "stages"
 
 
 @dataclass(frozen=True)
@@ -109,21 +110,28 @@ def worker_mesh(num_workers, device, rank=None, world=None):
 class RankAxis:
     """A mesh axis of ``size`` ranks; this process is ``index`` on it.
     ``group`` is the ``torch.distributed`` group of those ranks (None:
-    the default group, rank ``index``).  Size 1 runs no collective."""
+    the default group, rank ``index``).  Size 1 runs no collective.
+    ``links`` (the ``stages`` axis of more than one rank, made with it by
+    :func:`grid_mesh`): ``{(i, j): group}``, a two-rank group for each
+    direction i -> j between neighbouring indices, the ring's wrap from
+    the last to the first included; the pipeline's messages travel on
+    them."""
 
     name: str
     size: int = 1
     index: int = 0
     group: object = None
+    links: dict = field(default=None, compare=False, repr=False)
 
 
 def rank_axis(name, group=None):
     """-> the :class:`RankAxis` ``name`` over ``group``'s ranks (None:
-    every rank of the process group; size 1 single-process)."""
+    every rank of the process group, :func:`grid_mesh`'s one axis; size
+    1 single-process)."""
     from dist_keras_tpu_torch.comm import backend as comm
 
     if group is None:
-        return RankAxis(name, comm.num_processes(), comm.process_index())
+        return grid_mesh({name: comm.num_processes()}).axis(name)
     import torch.distributed as dist
 
     return RankAxis(name, dist.get_world_size(group),
@@ -240,7 +248,8 @@ def grid_mesh(axis_sizes):
     fixed order, the first time a grid is asked for (``new_group`` must
     be called by every rank of the default group), and the grid is
     cached, so asking again creates none.  An axis spanning every rank
-    uses the default group."""
+    uses the default group.  The ``stages`` axis also gets its
+    per-direction links (:class:`RankAxis`), created the same way."""
     from dist_keras_tpu_torch.comm import backend as comm
 
     names = tuple(axis_sizes)
@@ -264,19 +273,41 @@ def grid_mesh(axis_sizes):
     where = [int(i) for i in np.unravel_index(rank, sizes)]
     axes = []
     for d, (name, size) in enumerate(zip(names, sizes)):
-        group = None
+        group = links = None
+        lines = np.moveaxis(grid, d, -1).reshape(-1, size)
         if 1 < size < world:
             import torch.distributed as dist
 
-            lines = np.moveaxis(grid, d, -1).reshape(-1, size)
             for line in lines:       # every rank creates every group
                 g = dist.new_group([int(r) for r in line])
                 if rank in line:
                     group = g
-        axes.append(RankAxis(name, size, where[d], group))
+        if name == PIPE_AXIS and size > 1:
+            links = _direction_links(lines, rank)
+        axes.append(RankAxis(name, size, where[d], group, links))
     mesh = GridMesh(tuple(axes))
     _MESH_CACHE[key] = mesh
     return mesh
+
+
+def _direction_links(lines, rank):
+    """A two-rank group for each direction i -> j between neighbouring
+    indices of each line of ranks (j = i +- 1 around the ring), created
+    on every rank in one order -> ``{(i, j): group}`` of ``rank``'s
+    line.  Under NCCL the sends and receives between two ranks of one
+    group share one stream in posting order, so a group a direction
+    lets two neighbouring stages send to each other at once."""
+    import torch.distributed as dist
+
+    links = {}
+    for line in lines:
+        p = len(line)
+        for i in range(p):
+            for j in sorted({(i + 1) % p, (i - 1) % p} - {i}):
+                g = dist.new_group([int(line[i]), int(line[j])])
+                if rank in line:
+                    links[(i, j)] = g
+    return links
 
 
 def make_tp_mesh(dp=1, tp=1, sp=None):

@@ -10,8 +10,24 @@ device.  Here each rank runs its own schedule, a list of forward (F)
 and backward (B) actions, and messages only its neighbours: an
 activation goes to the next stage and a cotangent to the previous one
 (``collectives.isend`` / ``recv``; each message tagged with its kind,
-chunk and microbatch, the sends posted without waiting, so no order of
-two neighbours' actions can deadlock them).
+chunk and microbatch, the sends posted without waiting).  Each
+direction between two neighbouring stages travels on a two-rank group
+of its own (``RankAxis.links``, created with the mesh by
+``mesh.grid_mesh``).  Under NCCL every send and receive between
+two ranks of one group shares one stream, in posting order, whatever
+the tag: on one group, 1F1B's stage s posting its next activation
+while stage s + 1 posts a cotangent would cross two sends and hang
+above NCCL's staging buffer.  With a group a direction, each stream
+carries one direction, and the two ends post it in one order (the
+schedules' tick order; autograd's reverse order in GPipe's backward),
+which ``collectives.check_mirror`` holds on the recorded ops.  This
+design, not Megatron's batching of a crossing send and receive into one
+``batch_isend_irecv``, because it leaves every schedule as it is (GPipe's
+backward is autograd's order, which no step could batch) for two more
+communicators per pair of neighbours.  No ``batch_isend_irecv`` is used,
+so NCCL's rule that a group's first batch involve all of its ranks does
+not arise.  gloo matches by tag and ran either way; the results are the
+same bits.
 
 - :func:`gpipe_apply` — GPipe: every stage forwards its microbatches in
   order (fill, then drain), and the backward is autograd through the
@@ -63,6 +79,7 @@ from dist_keras_tpu_torch.models.transformer import (
 from dist_keras_tpu_torch.ops.optimizers import adam, apply_updates
 from dist_keras_tpu_torch.parallel import collectives
 from dist_keras_tpu_torch.parallel.mesh import (
+    PIPE_AXIS,
     WORKER_AXIS,
     P,
     RankAxis,
@@ -76,7 +93,6 @@ from dist_keras_tpu_torch.utils.pytree import (
     tree_unflatten,
 )
 
-PIPE_AXIS = "stages"
 
 __all__ = ["PIPE_AXIS", "bubble_fraction", "gather_stage_blocks",
            "gpipe_apply", "interleaved_1f1b_stash_entries",
@@ -126,13 +142,28 @@ def _flush():
     del _PENDING[:]
 
 
+def _links(axis):
+    """-> ``axis.links``, the two-rank group of each direction between
+    neighbouring stages, made with the axis by ``mesh.grid_mesh``: a
+    mesh's when it is built (``make_pp_mesh``); the whole group's
+    (``axis=None``, every rank a stage) when it is first asked for."""
+    if axis.links is None:
+        raise ValueError(
+            f"the {axis.name!r} axis of {axis.size} ranks carries no "
+            f"per-direction links: build it with make_pp_mesh or "
+            f"rank_axis({PIPE_AXIS!r})")
+    return axis.links
+
+
 def _send(leaves, axis, to, tag):
-    _post([collectives.isend(x, axis, to, tag) for x in leaves])
+    link = _links(axis)[(axis.index, to)]
+    _post([collectives.isend(x, axis, to, tag, group=link) for x in leaves])
 
 
 def _recv(likes, axis, frm, tag):
-    return [collectives.recv(x.shape, x.dtype, x.device, axis, frm, tag)
-            for x in likes]
+    link = _links(axis)[(frm, axis.index)]
+    return [collectives.recv(x.shape, x.dtype, x.device, axis, frm, tag,
+                             group=link) for x in likes]
 
 
 def _split(tree, m):
@@ -281,6 +312,7 @@ def _gpipe(stage_fn, chunks, x, m, axis, collect_fn, shared=()):
                 xm = stage_fn(chunks[c], xm)
             outs.append(collect(xm))
         return _stack_outs(outs, collect_fn)
+    _links(axis)     # none: raise before any message is posted
     like = [_Like(t) for t in tree_leaves(xs[0])]
     dev = like[0].device
     anchor = torch.empty(0, device=dev, requires_grad=True)
@@ -505,6 +537,8 @@ def _1f1b(stage_fn, chunks, h, m, order, last_fn, axis, aux_ct, first_fn,
     extras_acc = fextras_acc = None
     peak = 0
     mailbox = {}     # one stage: its chunks hand over in place
+    if p > 1:
+        _links(axis)     # none: raise before any message is posted
 
     def send(t, to, tag):
         if p == 1:

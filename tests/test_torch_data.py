@@ -107,18 +107,104 @@ def test_model_predictor_matches_jax():
     assert empty["prediction"].shape == (0, 2)
 
 
-def test_model_predictor_refuses_to_shard_over_several_cards(monkeypatch):
-    """Where the JAX package would shard the batch (``sharded`` with
-    more than one device), the port raises instead of running on one."""
+def _higgs_predictor_inputs(n):
+    jm = jzoo.higgs_mlp(seed=1)
+    tm = tser.deserialize_model(tser.serialize_model(jm))
+    ds = jsyn.synthetic_higgs(64, seed=2)
+    cols = {c: ds[c][:n] for c in ds.columns}
+    return jm, tm, jds.Dataset(cols), tds.Dataset(cols)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 37, 64])
+def test_sharded_model_predictor_matches_the_jax_sharded_one(monkeypatch, n):
+    """Sharded over four CPU shards through the predictor's device seam,
+    the port's rows equal the JAX predictor's sharded over the 8 virtual
+    devices (1e-5 of the largest output), for row counts of none, fewer
+    than the shards, ragged and whole batches."""
+    import jax
+    import torch
+
+    assert len(jax.devices()) == 8
+    jm, tm, jdata, tdata = _higgs_predictor_inputs(n)
+    want = jpr.ModelPredictor(jm, batch_size=16).predict(jdata)["prediction"]
+    cpus = [torch.device("cpu")] * 4
+    monkeypatch.setattr(tpr, "_shard_devices", lambda: cpus)
+    p = tpr.ModelPredictor(tm, batch_size=16)
+    assert p.devices == cpus
+    got = p.predict(tdata)["prediction"]
+    assert got.shape == want.shape == (n, 2)
+    assert got.dtype == want.dtype == np.float32
+    if n:
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    # a batch_size under the shard count still gives each shard a row
+    few = tpr.ModelPredictor(tm, batch_size=3).predict(tdata)["prediction"]
+    assert few.shape == (n, 2)
+    if n:
+        assert np.abs(few - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_model_predictor_plans_a_shard_per_card(monkeypatch):
+    """The default construction on a host with two cards plans one shard
+    a card; ``sharded=False`` and an explicit device take one device."""
     import torch
 
     tm = tser.deserialize_model(tser.serialize_model(jzoo.higgs_mlp(seed=1)))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpr.ModelPredictor(tm)
-    assert tpr.ModelPredictor(tm, sharded=False).device.type == "cuda"
-    assert tpr.ModelPredictor(tm, device="cpu").device.type == "cpu"
+    p = tpr.ModelPredictor(tm)
+    assert p.devices == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert p.device == torch.device("cuda", 0)
+    one = tpr.ModelPredictor(tm, sharded=False)
+    assert one.devices == [one.device] and one.device.type == "cuda"
+    cpu = tpr.ModelPredictor(tm, device="cpu")
+    assert cpu.devices == [torch.device("cpu")]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert tpr.ModelPredictor(tm).devices == [torch.device("cuda")]
+
+
+def test_model_predictor_under_a_process_group_uses_the_ranks_card(
+        monkeypatch):
+    """Under a process group the predictor takes the rank's own card and
+    never the other ranks' (nor asks the seam for the host's cards)."""
+    import torch
+
+    from dist_keras_tpu_torch.comm import backend as comm
+
+    tm = tser.deserialize_model(tser.serialize_model(jzoo.higgs_mlp(seed=1)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    monkeypatch.setattr(comm, "_group", comm._Group(
+        1, 4, 1, 4, "nccl", cards[1], None, cards))
+
+    def seam():
+        raise AssertionError("the seam was asked for the host's cards")
+
+    monkeypatch.setattr(tpr, "_shard_devices", seam)
+    p = tpr.ModelPredictor(tm)
+    assert p.devices == [cards[1]] and p.device == cards[1]
+
+
+def test_local_devices_single_process_and_under_a_group(monkeypatch):
+    """``local_devices()`` is ``jax.local_devices()``: every visible card
+    of a single process (the CPU alone without one), the rank's one
+    device under a group; ``global_devices()`` follows."""
+    import torch
+
+    from dist_keras_tpu_torch.comm import backend as comm
+
+    assert comm.group_info() is None
+    if not torch.cuda.is_available():
+        assert comm.local_devices() == [torch.device("cpu")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    cards = [torch.device("cuda", i) for i in range(3)]
+    assert comm.local_devices() == cards
+    assert comm.global_devices() == cards
+    monkeypatch.setattr(comm, "_group", comm._Group(
+        2, 3, 2, 3, "nccl", cards[2], None, cards))
+    assert comm.local_devices() == [cards[2]]
+    assert comm.global_devices() == cards
 
 
 def test_evaluators_match_jax():

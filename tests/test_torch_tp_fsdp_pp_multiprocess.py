@@ -111,6 +111,7 @@ from dist_keras_tpu_torch.checkpoint import Checkpointer
 from dist_keras_tpu_torch.models.transformer import transformer_apply
 from dist_keras_tpu_torch.ops.attention import attention
 from dist_keras_tpu_torch.ops.optimizers import Optimizer, sgd
+from dist_keras_tpu_torch.parallel import collectives
 from dist_keras_tpu_torch.parallel import fsdp
 from dist_keras_tpu_torch.parallel import mesh as tmesh
 from dist_keras_tpu_torch.parallel import pipeline as pp
@@ -244,6 +245,7 @@ if world == 2:
             leaves = [t.requires_grad_() for t in tree_leaves(rest)]
             r = tree_unflatten(rest, leaves)
             bl = tree_map(lambda t: t.clone().requires_grad_(), blocks)
+            collectives.record_p2p()
             if v > 1:
                 out = pp.pp_transformer_interleaved_apply(
                     r, bl, x, cfg, inp["pp_m"], v, causal=True, axis=axis,
@@ -256,6 +258,7 @@ if world == 2:
             loss = nll_of(logits, y) + inp["aux_w"] * aux
             loss.backward()
             res[f"gpipe_{name}_{v}"] = dict(
+                p2p=collectives.p2p_log(),
                 logits=logits.detach().numpy(), aux=float(aux),
                 rest=params_to_numpy(tree_unflatten(
                     rest, [t.grad for t in leaves])),
@@ -267,10 +270,12 @@ if world == 2:
             stacked = (pp.stack_blocks_interleaved(full["blocks"], 2, v)
                        if v > 1 else pp.stack_blocks(full["blocks"]))
             blocks = pp.split_stage_blocks(stacked, axis, v)
+            collectives.record_p2p()
             loss, aux, rg, bg = pp.pp_transformer_1f1b_grads(
                 rest, blocks, x, y, cfg, inp["pp_m"], causal=True,
                 axis=axis, aux_weight=inp["aux_w"], virtual=v)
             res[f"1f1b_{name}_{v}"] = dict(
+                p2p=collectives.p2p_log(),
                 loss=float(loss), aux=float(aux), rest=params_to_numpy(rg),
                 blocks=params_to_numpy(pp.gather_stage_blocks(bg, axis, v)),
                 peak=pp.stash_peak())
@@ -294,13 +299,15 @@ for stages, dp, v in inp["pp_steps"]:
     w = mesh.workers.index
     xb, yb = T(inp["pp_x"][w * n:(w + 1) * n]), T(inp["pp_y"][w * n:(w + 1) * n])
     losses = []
+    collectives.record_p2p()
     for _ in range(3):
         rest, blocks, ro, bo, l, a = step(rest, blocks, ro, bo, xb, yb)
         losses.append(float(l))
     res[f"pp_step_{stages}_{dp}_{v}"] = dict(
-        losses=losses, rest=params_to_numpy(rest),
+        p2p=collectives.p2p_log(), losses=losses, rest=params_to_numpy(rest),
         blocks=params_to_numpy(pp.gather_stage_blocks(blocks, mesh, v)))
 
+collectives.record_p2p(False)
 with open(os.path.join(job["out"], f"rank_{rank}.pkl"), "wb") as f:
     pickle.dump(res, f)
 print("DONE", rank, flush=True)
@@ -728,3 +735,32 @@ def test_the_pp_train_step_matches_the_reference(tmp_path_factory, n, cell):
         for a, b in zip(jax.tree.leaves(res[key]["rest"]),
                         jax.tree.leaves(got[0][key]["rest"])):
             np.testing.assert_array_equal(a, b)
+
+
+PIPE_RUNS = ([(2, k) for k in ("gpipe_dense_1", "gpipe_dense_2",
+                               "gpipe_moe_1", "1f1b_dense_1",
+                               "1f1b_dense_2", "1f1b_dense_4",
+                               "1f1b_moe_1")]
+             + [(n, "pp_step_{}_{}_{}".format(*c)) for n in (2, 4)
+                for c in PP_STEPS[n]])
+
+
+@pytest.mark.parametrize("n,key", PIPE_RUNS, ids=lambda v: str(v))
+def test_the_pipeline_keeps_the_nccl_pair_rule(tmp_path_factory, n, key):
+    """The messages every rank posted (``collectives.record_p2p``) pair up
+    in posting order between each two ranks of each group, as NCCL needs:
+    GPipe (dense at v=1 and 2, MoE), 1F1B and interleaved 1F1B at world
+    2, and ``make_pp_train_step`` at stages=2 and 4 and stages=2 x
+    dp=2."""
+    from dist_keras_tpu_torch.parallel.collectives import check_mirror
+
+    _, got, _ = _launched(n, tmp_path_factory)
+    res = check_mirror({r: g[key]["p2p"] for r, g in enumerate(got)})
+    assert res["problems"] == []
+    assert res["ops"] > 0 and res["batches"] == 0
+    # one link a direction between the neighbouring stages of each pipe,
+    # the interleaved ring's wrap included
+    v = int(key[-1])
+    stages = int(key.split("_")[2]) if key.startswith("pp_step") else 2
+    links = 2 * (stages - 1) if v == 1 or stages == 2 else 2 * stages
+    assert res["pairs"] == n // stages * links
