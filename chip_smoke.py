@@ -319,6 +319,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    shipped empty baseline, no jax imported; its per-pass seconds.  The
    phase prints its wall against its 20 s budget.  No kernel launches.
 
+Phases 16-18 and 19a run at the host's card count.  On one card (the
+full run's host) they run as described above: two ranks sharing the
+card under gloo, 19a one rank a "host".  On a host of 2 or more cards
+(``mp_ranks``: 2 or 4) they run one rank a card under NCCL, rank r on
+``cuda:r``, and fail if a rank lands elsewhere or the group is not
+NCCL: 16 at 4 ranks x 1 worker against the ``1 + 1 + 1 + 1`` witness;
+17b with 2 experts a rank and 17c at sp=4, started by ``python -m
+torch.distributed.run --nproc-per-node 4``, the ring's batches held to
+NCCL's pair rule; 18a at tp=2 x dp=2, 18b FSDP over 4, 18c GPipe and
+1F1B at 4 stages of one layer and interleaved v=2 at 2 stages x dp=2;
+19a two "hosts" of two cards each (``CUDA_VISIBLE_DEVICES`` 0,1 |
+2,3), world 4, its witness an unkilled run of the same pod.  Every
+header of phases 16-18 names the backend and the cards the rule chose,
+and every collective line prints ``reduce_stats``' host-blocked and
+device milliseconds.
+
 Each phase's seconds are printed as the next one starts, and all of them
 after phase 20.  The full run cuts 15b's repeats and run lengths
 (``PROOF15``: one resident and one streamed MLP run of one epoch, a
@@ -5735,7 +5751,8 @@ def data_path(fa, fu, da, gpu, device="cuda", sizes=None, writer=None):
 
 
 # -- phase 16: the workers across processes ---------------------------------
-MP_RANKS = 2
+MP_RANKS = 2            # phases 16-18's ranks on one card, sharing it
+MP_MAX_RANKS = 4        # on a host of several cards: a rank a card, at most
 MP_TIMEOUT_S = 300      # the longest any one rank process may run
 PARITY_TOL = 1e-5       # 16a: of the largest center weight
 # 16a's runs (optimizer, compute dtype, whether the split is held to the
@@ -5748,19 +5765,96 @@ PARITY_TOL = 1e-5       # 16a: of the largest center weight
 # gaps: the witness's own 2 + 2 against 4 reading shows how far
 PARITY_RUNS = (("sgd", "float64", True), ("sgd", None, False),
                ("adam", None, False))
+
+
+def parity_runs(world):
+    """16a's runs at ``world`` ranks: ``(optimizer, compute, held to the
+    4-worker run, windows)``.  Each of :data:`PARITY_RUNS` over 2
+    windows; past two ranks also the f32 ones over 1 window.  A sum of
+    two deltas is one sum in any order, of more the collective's order
+    (NCCL's, not the witness's rank order) rounds otherwise by an ulp
+    of the center, which f32 compute grows over the next window (f64
+    compute shows the ulp alone): there the one-window runs are held to
+    the witness, the two-window f32 ones printed."""
+    runs = [(opt, compute, held, 2) for opt, compute, held in PARITY_RUNS]
+    if world > MP_RANKS:
+        runs += [(opt, compute, held, 1) for opt, compute, held
+                 in PARITY_RUNS if compute is None]
+    return runs
+
+
+def parity_set(p, windows):
+    """16a's rows for ``windows`` windows: the same in every process."""
+    return mp_data(ADAG_WORKERS * windows * ADAG_WINDOW * p["parity_batch"],
+                   1)
 # the full run cuts 16b's turns to one run of ~1 s each (``--phase16``
 # keeps PHASE16); every check stays
 PROOF16 = dict(bench_seconds=1.0, bench_runs=1)
 # and 13b's two runs to 3 epochs each (``--phase13`` keeps GATE_EPOCHS)
 PROOF13_EPOCHS = 3
 PHASE16 = dict(
-    parity_batch=32, parity_steps=24,          # 2 windows of 12, f32
+    parity_batch=32,                           # 2 windows of 12, f32
     bench_batch=ADAG_BENCH_BATCH, bench_steps=ADAG_BENCH_STEPS,
     bench_seconds=6.0, bench_runs=BENCH_RUNS,
     gate_rows=GATE_ROWS, gate_test_rows=GATE_TEST_ROWS,
     gate_epochs=GATE_EPOCHS, gate_acc=GATE_ACC,
     det_rows=4096, det_epochs=4, det_kill_epoch=2, det_batch=64,
     det_window=4)
+
+
+def mp_ranks(device="cuda"):
+    """Phases 16-18's rank count: on a host of 2 or more cards one rank a
+    card (NCCL), at most :data:`MP_MAX_RANKS` and a power of two (the
+    meshes of phase 18 split by 2); else :data:`MP_RANKS` ranks sharing
+    the one card (gloo), as on the CPU."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return MP_RANKS
+    n = min(torch.cuda.device_count(), MP_MAX_RANKS)
+    return 1 << (n.bit_length() - 1) if n >= 2 else MP_RANKS
+
+
+def mp_splits(world):
+    """The ranks' worker ranges of 16a's ADAG: ``world`` contiguous
+    stacks of :data:`ADAG_WORKERS` // ``world``."""
+    k = ADAG_WORKERS // world
+    return [(r * k, (r + 1) * k) for r in range(world)]
+
+
+def splits_label(splits):
+    return " + ".join(str(hi - lo) for lo, hi in splits)
+
+
+def rank_placement(procs, ranks, device):
+    """-> (``"<backend> on <devices>"``, the ranks' ``MP_INIT`` records):
+    the backend and the cards the rule chose, required to be NCCL with
+    rank r on ``cuda:r`` on a host of several cards, and gloo with every
+    rank on ``cuda:0`` (on the CPU: ``cpu``) otherwise.  A rank that
+    could not form its NCCL group, or landed on another card, fails the
+    run: nothing carries on under gloo."""
+    import torch
+
+    inits = [procs.init(q) for q in ranks]
+    backends = sorted({i["backend"] for i in inits})
+    devices = [i["device"] for i in inits]
+    on_card = torch.device(device).type == "cuda"
+    if on_card and torch.cuda.device_count() >= 2:
+        want = ("nccl", [f"cuda:{r}" for r in range(len(ranks))])
+    else:
+        want = ("gloo", ["cuda:0" if on_card else "cpu"] * len(ranks))
+    require(backends == [want[0]] and devices == want[1],
+            f"the ranks' backends {backends} on {devices}; the rule wants "
+            f"{want[0]} on {want[1]}")
+    require(all(i["world"] == len(ranks) for i in inits),
+            f"the ranks' worlds {[i['world'] for i in inits]}")
+    return f"{backends[0]} on {', '.join(devices)}", inits
+
+
+def stat_ms(stats, n=1):
+    """``reduce_stats``' host-blocked and device ms over ``n``, as text."""
+    return (f"{stats['seconds'] / n * 1e3:.3f} ms blocked on the host, "
+            f"{stats['device_seconds'] / n * 1e3:.3f} ms on the device")
 
 
 def mp_data(n, seed, shape=(28, 28, 1), classes=10):
@@ -5791,8 +5885,8 @@ def mp_parity_trainer(p, device, optimizer, compute, **kw):
                 compute_dtype=compute and getattr(torch, compute), **kw)
 
 
-def parity_label(opt, compute):
-    return f"{opt}_{compute or 'float32'}"
+def parity_label(opt, compute, windows=2):
+    return f"{opt}_{compute or 'float32'}" + ("_1w" if windows == 1 else "")
 
 
 def parity_by_hand(p, device, ds, opt, compute, splits):
@@ -5905,8 +5999,9 @@ class Gates:
     opens ``<name>.go`` (with a JSON body), each rank answers
     ``<name>.<rank>.json``."""
 
-    def __init__(self, work, procs=()):
+    def __init__(self, work, procs=(), world=MP_RANKS):
         self.work, self.procs = Path(work), list(procs)
+        self.world = world
 
     def _wait(self, path, what):
         t0 = time.perf_counter()
@@ -5933,9 +6028,9 @@ class Gates:
         tmp.write_text(json.dumps(body))
         os.replace(tmp, self.work / f"{name}.{rank}.json")
 
-    def answers(self, name, world=MP_RANKS):
+    def answers(self, name, world=None):
         out = []
-        for r in range(world):
+        for r in range(world or self.world):
             path = self.work / f"{name}.{r}.json"
             self._wait(path, f"{name} from rank {r}")
             out.append(json.loads(path.read_text()))
@@ -5943,19 +6038,29 @@ class Gates:
 
 
 def mp_role(cfg):
-    """A rank of phase 16, started fresh by :func:`workers_across_processes`
-    (``--mp-role JSON``): joins the group through the ``file://``
-    rendezvous ``cfg["rdv"]`` (``JAX_*`` variables, as ``launch.Job``
-    exports them), prints ``MP_INIT`` (its backend and device), runs
-    ``cfg["tasks"]`` and prints its K1-K5 counters, zeroed at its start,
-    as ``MP_KERNELS {json}`` however it ends."""
+    """A rank of phases 16-18, started fresh by :class:`MPProcs` (``--mp-role
+    JSON``): joins the group through the ``file://`` rendezvous
+    ``cfg["rdv"]`` (``JAX_*`` variables, as ``launch.Job`` exports them)
+    or, started by ``torch.distributed.run`` (``cfg["torchrun"]``), from
+    the variables it exports, its output then in
+    ``<work>/<label>_<RANK>.log``; prints ``MP_INIT`` (its backend and
+    device), runs ``cfg["tasks"]`` and prints its K1-K5 counters, zeroed
+    at its start, as ``MP_KERNELS {json}`` however it ends."""
+    if cfg.get("torchrun"):
+        cfg = dict(cfg, rank=int(os.environ["RANK"]))
+        fd = os.open(Path(cfg["work"]) / f"{cfg['label']}_{cfg['rank']}.log",
+                     os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+        os.close(fd)
     for k, v in cfg.get("env", {}).items():
         os.environ[k] = v
     if "DK_COORD_DIR" in os.environ:
         os.environ["DK_COORD_RANK"] = str(cfg["rank"])
-    os.environ["JAX_COORDINATOR_ADDRESS"] = "file://" + cfg["rdv"]
-    os.environ["JAX_NUM_PROCESSES"] = str(cfg["world"])
-    os.environ["JAX_PROCESS_ID"] = str(cfg["rank"])
+    if not cfg.get("torchrun"):
+        os.environ["JAX_COORDINATOR_ADDRESS"] = "file://" + cfg["rdv"]
+        os.environ["JAX_NUM_PROCESSES"] = str(cfg["world"])
+        os.environ["JAX_PROCESS_ID"] = str(cfg["rank"])
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -5989,19 +6094,18 @@ def mp_role(cfg):
 
 
 def mp_task_parity(cfg, gates, rank):
-    """16a's split runs (:data:`PARITY_RUNS`): rank r stacks workers
-    [2r, 2r+2)."""
+    """16a's split runs (:func:`parity_runs`): rank r stacks its range
+    of the 4 workers (:func:`mp_splits`)."""
     import torch
 
     from dist_keras_tpu_torch.utils.bridge import params_to_numpy
 
     p = cfg["sizes"]
-    ds = mp_data(ADAG_WORKERS * p["parity_steps"] * p["parity_batch"], 1)
     torch.backends.cudnn.deterministic = True
-    for opt, compute, _ in PARITY_RUNS:
+    for opt, compute, _, windows in parity_runs(cfg["world"]):
         t = mp_parity_trainer(p, cfg["device"], opt, compute)
-        m = t.train(ds)
-        label = parity_label(opt, compute)
+        m = t.train(parity_set(p, windows))
+        label = parity_label(opt, compute, windows)
         save_leaves(Path(cfg["work"]) / f"parity_{label}_{rank}.npz",
                     [v for layer in params_to_numpy(m.params)
                      for v in layer.values()])
@@ -6163,9 +6267,9 @@ def mp_task_det(cfg, gates, rank):
 
 def mp_task_solo(cfg, gates, rank):
     """16b's control, after every task that needs the group: the rank
-    leaves the group and, at the parent's gate, trains its 2 workers on
-    its half of the bench's rows alone (world 1, no collective) while
-    the other rank does the same, the two processes sharing the card."""
+    leaves the group and, at the parent's gate, trains its workers on its
+    share of the bench's rows alone (world 1, no collective) while the
+    other ranks do the same (on one card, the processes sharing it)."""
     from dist_keras_tpu_torch import comm
     from dist_keras_tpu_torch.resilience import coordination
 
@@ -6177,7 +6281,7 @@ def mp_task_solo(cfg, gates, rank):
     comm.shutdown()
     deterministic(False)
     p = cfg["sizes"]
-    workers = ADAG_WORKERS // MP_RANKS
+    workers = ADAG_WORKERS // cfg["world"]
     ds = mp_data(p["bench_batch"] * p["bench_steps"] * workers
                  // ADAG_WORKERS, 0)
     for k in ("solo_warm", "solo"):
@@ -6191,54 +6295,113 @@ MP_TASKS = {"parity": mp_task_parity, "bench": mp_task_bench,
             "gate": mp_task_gate, "det": mp_task_det, "solo": mp_task_solo}
 
 
+class RankView:
+    """One rank of a ``torch.distributed.run`` launch, as :class:`RoleProcs`
+    reads a process: its own log (``<label>.log``), and the launch's
+    process (the agent, in a session of its own) for its exit."""
+
+    def __init__(self, agent, label):
+        self.agent, self.label = agent, label
+
+    @property
+    def returncode(self):
+        return self.agent.returncode
+
+    def poll(self):
+        return self.agent.poll()
+
+    def wait(self, timeout=None):
+        return self.agent.wait(timeout=timeout)
+
+    def kill(self):
+        import signal
+
+        try:
+            os.killpg(self.agent.pid, signal.SIGKILL)
+        except OSError:
+            pass
+
+
 class MPProcs(RoleProcs):
-    """Phase 16's rank processes (``--mp-role``)."""
+    """Phases 16-18's rank processes (``--mp-role``)."""
 
     def __init__(self, work):
         super().__init__(work, "--mp-role", "MP_KERNELS", MP_TIMEOUT_S)
 
-    def launch(self, label, tasks, device, sizes, **extra):
-        """``MP_RANKS`` ranks of one group (a ``file://`` rendezvous of
-        their own) running ``tasks``."""
+    def launch(self, label, tasks, device, sizes, torchrun=False, **extra):
+        """:func:`mp_ranks` ranks of one group running ``tasks``: each
+        started here and met at a ``file://`` rendezvous of their own, or
+        (``torchrun``) all started by ``python -m torch.distributed.run
+        --standalone --nproc-per-node N``, as a user of one host of
+        several cards starts them."""
+        world = mp_ranks(device)
         rdv = self.work / f"{label}.rdv"
-        return [self.spawn(f"{label}_{r}", {
-            "rank": r, "world": MP_RANKS, "rdv": str(rdv), "tasks": tasks,
-            "work": str(self.work), "device": device, "sizes": sizes,
-            **extra}) for r in range(MP_RANKS)]
+        cfg = {"world": world, "rdv": str(rdv), "tasks": tasks,
+               "work": str(self.work), "device": device, "sizes": sizes,
+               "label": label, **extra}
+        if not torchrun:
+            return [self.spawn(f"{label}_{r}", dict(cfg, rank=r))
+                    for r in range(world)]
+        log = open(self.work / f"{label}_agent.log", "w")
+        agent = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(world), str(Path(__file__).resolve()),
+             self.flag, json.dumps(dict(cfg, torchrun=True))],
+            stdout=log, stderr=subprocess.STDOUT, env=self.env,
+            cwd=str(ROOT), start_new_session=True)
+        log.close()
+        agent.label = f"{label}_agent"
+        self.procs.append(agent)
+        return [RankView(agent, f"{label}_{r}") for r in range(world)]
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                if p.label.endswith("_agent"):   # and its ranks, its session
+                    RankView(p, p.label).kill()
+                else:
+                    p.kill()
+                p.wait()
 
     def init(self, p):
-        out = self.output(p)
+        path = self.work / f"{p.label}.log"
+        out = path.read_text() if path.exists() else ""
         m = re.search(r"^MP_INIT (.*)$", out, re.M)
         require(m, f"{p.label}: no MP_INIT line: {out[-400:]}")
         return json.loads(m.group(1))
 
 
 def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
-    """Phase 16: the windowed trainers split over two rank processes on
-    the card (gloo: the ranks share it): 16a parity with the one-process
-    run, 16b samples/s beside it in turns, 16c the ADAG gate, 16d
-    coordinated preemption and a bit-equal resume; no hand-written
-    kernel launched in any process."""
+    """Phase 16: the windowed trainers split over :func:`mp_ranks` rank
+    processes (one card: two sharing it under gloo; several cards: one
+    rank and one ADAG worker a card under NCCL, the JAX package's
+    ``worker_mesh(4)``): 16a parity with the one-process run, 16b
+    samples/s beside it in turns, 16c the ADAG gate, 16d coordinated
+    preemption and a bit-equal resume; no hand-written kernel launched
+    in any process."""
     import shutil
     import tempfile
 
     import torch
 
-    from dist_keras_tpu_torch import comm
     from dist_keras_tpu_torch.utils.bridge import params_to_numpy
 
     p = {**PHASE16, **(sizes or {})}
     t0 = time.perf_counter()
     zero_kernel_counts(fa, fu, da)
+    world = mp_ranks(device)
+    per = ADAG_WORKERS // world
+    splits = mp_splits(world)
+    stacked = splits_label(splits)
     work = Path(tempfile.mkdtemp(prefix="dk_mp_phase16_"))
     procs = MPProcs(work)
-    gates = Gates(work)
+    gates = Gates(work, world=world)
     obs = {m: str(work / f"obs_{m}") for m in ("full", "preempt", "resume")}
 
     def det_env(mode):
         # DK_COORD_RANK is each rank's own (mp_role sets it)
         return {"DK_COORD_DIR": str(work / "coord"),
-                "DK_COORD_WORLD": str(MP_RANKS),
+                "DK_COORD_WORLD": str(world),
                 "DK_COORD_SESSION": mode, "DK_OBS_DIR": obs[mode],
                 "DK_COORD_TIMEOUT_S": "120"}
 
@@ -6253,65 +6416,73 @@ def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
                  train_le=train["le"], test_fi=test["fi"],
                  test_label=test["label"])
         del train, test
-        print("phase 16a: ADAG split over 2 ranks x 2 workers against the "
-              "one-process run")
-        ds = mp_data(ADAG_WORKERS * p["parity_steps"] * p["parity_batch"], 1)
         if torch.device(device).type == "cuda":
             torch.backends.cudnn.deterministic = True
-        want = {parity_label(opt, compute): [
+        runs = parity_runs(world)
+        want = {parity_label(opt, compute, w): [
             v for layer in params_to_numpy(mp_parity_trainer(
-                p, device, opt, compute).train(ds).params)
-            for v in layer.values()] for opt, compute, _ in PARITY_RUNS}
-        # the witness: the same runs merged by hand, stacked 4 and 2 + 2
-        by_hand = {parity_label(opt, compute): {
-            k: parity_by_hand(p, device, ds, opt, compute, splits)
-            for k, splits in (("4", [(0, 4)]), ("2+2", [(0, 2), (2, 4)]))}
-            for opt, compute, _ in PARITY_RUNS}
+                p, device, opt, compute).train(parity_set(p, w)).params)
+            for v in layer.values()] for opt, compute, _, w in runs}
+        # the witness: the same runs merged by hand, stacked 4 and as the
+        # ranks stack them
+        by_hand = {parity_label(opt, compute, w): {
+            k: parity_by_hand(p, device, parity_set(p, w), opt, compute,
+                              sp)
+            for k, sp in (("4", [(0, 4)]), (stacked, splits))}
+            for opt, compute, _, w in runs}
         torch.backends.cudnn.deterministic = False
         ans = gates.answers("parity")
-        for r, q in enumerate(main):
-            init = procs.init(q)
+        placed, inits = rank_placement(procs, main, device)
+        print(f"phase 16a: ADAG split over {world} ranks x {per} worker(s) "
+              f"against the one-process run ({placed})")
+        for r, init in enumerate(inits):
             print(f"  rank {r}: backend {init['backend']} on "
                   f"{init['device']} (world {init['world']}, "
                   f"{init['local_world']} on this host), group up in "
                   f"{init['init_s']:.2f} s")
-            want_backend = comm.select_backend(
-                MP_RANKS, torch.cuda.device_count(),
-                torch.device(device).type == "cpu")
-            require(init["backend"] == want_backend,
-                    f"rank {r}: backend {init['backend']}, the rule says "
-                    f"{want_backend}")
         print(f"  ADAG mnist_cnn (dropout 0), 4 workers, window 12, f32 "
-              f"params, batch {p['parity_batch']}, 2 windows: ranks' slots "
+              f"params, batch {p['parity_batch']}, 2 windows"
+              + (" (and the f32 runs over 1)" if world > MP_RANKS else "")
+              + f": ranks' slots "
               f"{[(a['lo'], a['hi']) for a in ans]}, history "
               f"{ans[0]['history']}")
-        for opt, compute, held in PARITY_RUNS:
-            label = parity_label(opt, compute)
+        for opt, compute, held, windows in runs:
+            label = parity_label(opt, compute, windows)
+            # past two ranks the two-window f32 runs are printed: the
+            # one-window runs hold the merge (parity_runs)
+            to_hand = (world <= MP_RANKS or compute is not None
+                       or windows == 1)
             leaves = want[label]
             hand = by_hand[label]
             centers = [load_leaves(work / f"parity_{label}_{r}.npz")
-                       for r in range(MP_RANKS)]
+                       for r in range(world)]
             err = leaves_err(centers[0], leaves)
-            err_hand = leaves_err(centers[0], hand["2+2"])
-            shape = leaves_err(hand["2+2"], hand["4"])
+            err_hand = leaves_err(centers[0], hand[stacked])
+            shape = leaves_err(hand[stacked], hand["4"])
             control = leaves_err(hand["4"], leaves)
-            same = all(np.array_equal(a, b) for a, b in zip(*centers))
-            print(f"  {opt}, {compute or 'float32'} compute (max abs err of "
-                  f"the largest weight): the split center against the "
-                  f"witness merged by hand 2 + 2 {err_hand:.3e} (held to "
-                  f"{PARITY_TOL:g}), against the one-process run {err:.3e} ("
+            same = all(all(np.array_equal(a, b) for a, b in zip(
+                centers[0], other)) for other in centers[1:])
+            print(f"  {opt}, {compute or 'float32'} compute, {windows} "
+                  f"window(s) (max abs err of the largest weight): the "
+                  f"split center against the witness merged by hand "
+                  f"{stacked} {err_hand:.3e} ("
+                  + (f"held to {PARITY_TOL:g}" if to_hand else
+                     "printed: the collective's order against the "
+                     "witness's, grown by f32 compute")
+                  + f"), against the one-process run {err:.3e} ("
                   + (f"held to {PARITY_TOL:g}" if held else "printed")
-                  + f"); the witness 2 + 2 against 4 {shape:.3e}, the "
+                  + f"); the witness {stacked} against 4 {shape:.3e}, the "
                   f"witness 4 against the one-process run (control) "
-                  f"{control:.3e}; the two ranks' centers bit-equal: {same} "
-                  f"on {gpu}")
-            require(same and err_hand <= PARITY_TOL
+                  f"{control:.3e}; the {world} ranks' centers bit-equal: "
+                  f"{same} on {gpu}")
+            require(same and (err_hand <= PARITY_TOL or not to_hand)
                     and (err <= PARITY_TOL or not held),
                     f"16a {label}: split center err {err} (against the "
                     f"witness {err_hand}), ranks equal {same}")
 
-        print("phase 16b: samples/s at bench_adag_mnist_cnn's shape, 2 "
-              "ranks x 2 workers beside one process x 4 workers, in turns")
+        print(f"phase 16b: samples/s at bench_adag_mnist_cnn's shape, "
+              f"{world} ranks x {per} worker(s) beside one process x 4 "
+              f"workers, in turns ({placed})")
         bench = mp_data(p["bench_batch"] * p["bench_steps"], 0)
         warm, _ = mp_bench_run(bench, 2, p, device)
         n = p["bench_batch"] * p["bench_steps"]
@@ -6330,25 +6501,26 @@ def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
         print(f"  one process x 4 workers: {s_one:.1f} samples/s (median of "
               f"{len(one)} runs of {epochs} epochs: "
               f"{', '.join(f'{v:.1f}' for v in one)}; warm-up {warm:.1f})")
-        print(f"  2 ranks x 2 workers: {s_split:.1f} samples/s (median of "
-              f"{len(split)}; rank 0 / rank 1 per run: " + "; ".join(
-                  f"{a[0]['sps']:.1f} / {a[1]['sps']:.1f}" for a in split)
+        print(f"  {world} ranks x {per} worker(s): {s_split:.1f} samples/s "
+              f"(median of {len(split)}; ranks 0-{world - 1} per run: "
+              + "; ".join(" / ".join(f"{b['sps']:.1f}" for b in a)
+                          for a in split)
               + f"; warm-up {split_warm[0]['sps']:.1f}) = "
               f"{s_split / s_one:.3f} of the one-process rate on {gpu}")
         red = split[-1][0]["reduce"]
         w = split[-1][0]["windows"]
-        print(f"  the merge's all-reduce ({init['backend']}, tensors on "
-              f"{init['device']}), rank 0: "
+        print(f"  the merge's all-reduce ({inits[0]['backend']}, tensors on "
+              f"{inits[0]['device']}), rank 0: "
               f"{red['calls'] / w:.0f} collective(s) and "
               f"{red['bytes'] / w / 1e6:.3f} MB a window, "
-              f"{red['seconds'] / w * 1e3:.3f} ms a window blocked "
+              f"{stat_ms(red, w)} a window "
               f"(perf.phase.comm_blocked "
               f"{split[-1][0]['blocked_ms'] / w:.3f} ms) of "
               f"{split[-1][0]['seconds'] / w * 1e3:.3f} ms a window")
         print(f"  the same all-reduce alone (one {red['bytes'] / w / 1e6:.3f} "
               f"MB bucket, the card idle, after a barrier): "
               + " / ".join(f"{a['allreduce_ms']:.3f}" for a in extra)
-              + f" ms on rank 0 / rank 1 (median of 20) on {gpu}")
+              + f" ms on ranks 0-{world - 1} (median of 20) on {gpu}")
         for r, a in enumerate(extra):
             ov = a["overlap"]
             ph = ov["phases"]
@@ -6359,13 +6531,15 @@ def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
                   f"comm_overlap {ph['comm_overlap']['total_ms']:.3f} ms "
                   f"over {ph['comm_overlap']['count']} submits, comm_blocked "
                   f"{ph['comm_blocked']['total_ms']:.3f} ms over "
-                  f"{ph['comm_blocked']['count']} waits; under "
+                  f"{ph['comm_blocked']['count']} waits, the all-reduces "
+                  f"{stat_ms(ov['reduce'])}; under "
                   f"torch.profiler (2 epochs): device busy "
                   f"{a['busy_ms']:.3f} ms in {a['ops']} operations of "
                   f"{a['train_ms']:.3f} ms training: idle "
                   f"{max(0.0, 1 - a['busy_ms'] / a['train_ms']):.1%} on {gpu}")
 
-        print("phase 16c: phase 10's ADAG gate split over 2 ranks")
+        print(f"phase 16c: phase 10's ADAG gate split over {world} ranks "
+              f"({placed})")
         # 16d's later incarnations start now, and wait at their gates
         pre = procs.launch("preempt", ["det"], device, p, mode="preempt",
                            env=det_env("preempt"))
@@ -6380,8 +6554,9 @@ def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
             require(a["finite"] and a["acc"] >= p["gate_acc"],
                     f"16c rank {r}: accuracy {a['acc']}")
 
-        print("phase 16d: coordinated preemption and a bit-equal resume "
-              "(SingleTrainer, then ADAG 2 x 2; DK_COORD_DIR)")
+        print(f"phase 16d: coordinated preemption and a bit-equal resume "
+              f"(SingleTrainer, then ADAG {world} x {per}; DK_COORD_DIR; "
+              f"{placed})")
         gates.answers("det_full")
         # 16b's control: the ranks out of the group, training alone at once
         gates.open("solo_warm", {"epochs": 2})
@@ -6389,9 +6564,9 @@ def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
         gates.open("solo", {"epochs": epochs})
         solo = gates.answers("solo")
         s_solo = sum(a["sps"] for a in solo)
-        print(f"  16b's control: the two ranks out of the group (world "
-              f"{[a['world'] for a in solo]}), each training its 2 workers "
-              f"on half the rows alone, at once: "
+        print(f"  16b's control: the {world} ranks out of the group (world "
+              f"{[a['world'] for a in solo]}), each training its {per} "
+              f"worker(s) on 1/{world} of the rows alone, at once: "
               + " + ".join(f"{a['sps']:.1f}" for a in solo)
               + f" = {s_solo:.1f} samples/s = {s_solo / s_one:.3f} of the "
               f"one-process rate, {s_solo / s_split:.3f} of the split's "
@@ -6415,7 +6590,7 @@ def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
         for name in ("single", "adag"):
             got = gates.answers(f"{name}_preempt")
             steps = Checkpointer(str(work / f"ck_{name}"), rank=0,
-                                 world=MP_RANKS).all_steps()
+                                 world=world).all_steps()
             agreed = p["det_kill_epoch"] * spe[name]
             print(f"  {name}: Preempted codes {[a['code'] for a in got]}, "
                   f"saved steps {[a['saved'] for a in got]}, committed "
@@ -6426,7 +6601,7 @@ def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
         dumps = sorted(Path(obs["preempt"]).glob("flightrec-*-preempt.json"))
         by_rank = sorted({d.name.split("-")[1] for d in dumps})
         print(f"  preempt flight dumps: {len(dumps)} ({by_rank})")
-        require(by_rank == [f"rank_{r}" for r in range(MP_RANKS)],
+        require(by_rank == sorted(f"rank_{r}" for r in range(world)),
                 f"16d: preempt dumps {[d.name for d in dumps]}")
         gates.procs = res
         gates.open("resume")
@@ -6439,7 +6614,7 @@ def workers_across_processes(fa, fu, da, gpu, device="cuda", sizes=None):
                 all(np.array_equal(a, b) for a, b in zip(
                     load_leaves(work / f"{name}_full_{r}.npz"),
                     load_leaves(work / f"{name}_resume_{r}.npz")))
-                for r in range(MP_RANKS))
+                for r in range(world))
             print(f"  {name}: each rank's resumed weights bit-equal to its "
                   f"uninterrupted run: {equal} on {gpu}")
             require(equal, f"16d {name}: the resume differs")
@@ -6811,11 +6986,13 @@ def mp_task_ep(cfg, gates, rank):
     # samples/s over the ranks, then one process alone (rank 0, the other
     # rank waiting at the barrier)
     comm.barrier("ep_timed")
+    collectives.reduce_stats(reset=True, op="all_to_all")
     t0 = time.perf_counter()
     for _ in range(p["ep_timed"]):
         params, opt, m = step(params, opt, x, y)
     float(m["loss"])
     split_s = time.perf_counter() - t0
+    timed_exchange = collectives.reduce_stats(op="all_to_all")
     comm.barrier("ep_alone")
     alone_s = None
     if rank == 0:
@@ -6833,6 +7010,7 @@ def mp_task_ep(cfg, gates, rank):
     comm.barrier("ep_done")
     gates.answer("ep", rank, {
         "metrics": metrics, "launches": launches, "exchange": exchange,
+        "timed_exchange": timed_exchange,
         "reduce": reduce, "err": err, "digest": digest.hexdigest(),
         "split_sps": axis.size * b * p["ep_timed"] / split_s,
         "alone_sps": (axis.size * b * p["ep_timed"] / alone_s
@@ -6912,9 +7090,12 @@ def mp_task_ring_sp(cfg, gates, rank):
     for op in ("ring", "all_reduce"):
         collectives.reduce_stats(reset=True, op=op)
     losses = []
+    collectives.record_p2p()
     for _ in range(p["sp_steps"]):
         params, opt, lv = step(params, opt, xb, y)
         losses.append(float(lv))
+    p2p = collectives.p2p_log()
+    collectives.record_p2p(False)
     launches = kernel_counts(fa, fu, da)
     shifts = collectives.reduce_stats(op="ring")
     reduce = collectives.reduce_stats(op="all_reduce")
@@ -6963,21 +7144,22 @@ def mp_task_ring_sp(cfg, gates, rank):
         "shifts": shifts, "reduce": reduce, "digest": digest.hexdigest(),
         "ref": ref, "tokens_s": p["sp_batch"] * t * p["sp_timed"] / sp_s,
         "ring_ms": timed_ring["seconds"] / p["sp_timed"] * 1e3,
+        "ring_device_ms": timed_ring["device_seconds"] / p["sp_timed"] * 1e3,
         "ring_mb": timed_ring["bytes"] / p["sp_timed"] / 1e6,
-        "ranks": n})
+        "ranks": n, "p2p": p2p})
 
 
-def launch_held(label, tasks, device, p):
-    """A phase's two rank processes started ahead of it: each comes up
-    (torch, the group) and waits at the gate ``<label>_go`` before any
-    work on the card.  -> (work, procs, gates, ranks)."""
+def launch_held(label, tasks, device, p, torchrun=False):
+    """A phase's :func:`mp_ranks` rank processes started ahead of it: each
+    comes up (torch, the group) and waits at the gate ``<label>_go``
+    before any work on the card.  -> (work, procs, gates, ranks)."""
     import tempfile
 
     work = Path(tempfile.mkdtemp(prefix=f"dk_mp_{label}_"))
     procs = MPProcs(work)
-    gates = Gates(work)
-    ranks = procs.launch(label, tasks, device, p, hold=f"{label}_go")
-    gates.procs = ranks
+    ranks = procs.launch(label, tasks, device, p, hold=f"{label}_go",
+                         torchrun=torchrun)
+    gates = Gates(work, ranks, world=len(ranks))
     return work, procs, gates, ranks
 
 
@@ -6989,27 +7171,36 @@ def open_held(started):
 
 
 def launch_17(device, p):
-    """17b and 17c's two rank processes, started during 17a (they wait at
-    a gate, off the card, until 17a is done)."""
-    return launch_held("p17", ["ep", "ring_sp"], device, p)
+    """17b and 17c's rank processes, started during 17a (they wait at a
+    gate, off the card, until 17a is done).  On a host of several cards
+    ``torch.distributed.run`` starts them, one a card, as the README
+    tells a user of such a host to."""
+    return launch_held("p17", ["ep", "ring_sp"], device, p,
+                       torchrun=mp_ranks(device) > MP_RANKS)
 
 
 def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p, started=None):
-    """17b and 17c: two rank processes (``--mp-role``) sharing the card
-    under gloo (``started``: :func:`launch_17`'s, else launched here).
-    -> the K1-K3 launches of their main paths (the EP and the SP steps),
-    summed over the ranks."""
+    """17b and 17c: :func:`mp_ranks` rank processes (``--mp-role``; one
+    card: two sharing it under gloo; several: one a card under NCCL,
+    started by ``torch.distributed.run``) (``started``:
+    :func:`launch_17`'s, else launched here).  -> the K1-K3 launches of
+    their main paths (the EP and the SP steps), summed over the ranks."""
     import shutil
+
+    from dist_keras_tpu_torch.parallel.collectives import check_mirror
 
     work, procs, gates, ranks = open_held(started or launch_17(device, p))
     launches = {}
+    n = len(ranks)
     try:
-        print("phase 17b: make_moe_ep_train_step over 2 ranks (4 experts "
-              "each) sharing the card under gloo")
         gates.open("ep")
         ans = gates.answers("ep")
-        for r, q in enumerate(ranks):
-            init = procs.init(q)
+        placed, inits = rank_placement(procs, ranks, device)
+        print(f"phase 17b: make_moe_ep_train_step over {n} ranks "
+              f"({MOE['moe_experts'] // n} experts each), {placed}"
+              + (", started by torch.distributed.run --nproc-per-node "
+                 f"{n}" if ranks[0].__class__ is RankView else ""))
+        for r, init in enumerate(inits):
             print(f"  rank {r}: backend {init['backend']} on "
                   f"{init['device']}, group up in {init['init_s']:.2f} s")
         a0 = ans[0]
@@ -7020,7 +7211,7 @@ def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p, started=None):
               f"{a0['steps']} steps: losses "
               + " / ".join(str([round(m["loss"], 6) for m in a["metrics"]])
                            for a in ans)
-              + " (rank 0 / rank 1)")
+              + f" (ranks 0-{n - 1})")
         for r, a in enumerate(ans):
             print(f"  rank {r}: params against the witness (every rank's "
                   f"block through the dense mixture in one process, grads "
@@ -7028,16 +7219,20 @@ def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p, started=None):
                   f"{EP_TOL:g}); launches {a['launches']}")
         same = len({a["digest"] for a in ans}) == 1
         print(f"  the ranks' replicated leaves bit-equal: {same}")
-        print(f"  the exchange (all_to_all, staged through pinned host "
-              f"buffers under gloo), rank 0: {per_step['calls']:.0f} calls, "
-              f"{per_step['bytes'] / 1e6:.3f} MB and "
-              f"{per_step['seconds'] * 1e3:.3f} ms blocked a step; the "
+        print(f"  the exchange (all_to_all; under gloo staged through "
+              f"pinned host buffers), rank 0: {per_step['calls']:.0f} "
+              f"calls, {per_step['bytes'] / 1e6:.3f} MB and "
+              f"{stat_ms(a0['exchange'], a0['steps'])} a step over the "
+              f"{a0['steps']} checked steps (the group's first "
+              f"collectives' set-up included), "
+              f"{stat_ms(a0['timed_exchange'], p['ep_timed'])} a step over "
+              f"the {p['ep_timed']} timed ones; the "
               f"replicated grads' packed all-reduce "
               f"{a0['reduce']['bytes'] / a0['steps'] / 1e6:.3f} MB and "
-              f"{a0['reduce']['seconds'] / a0['steps'] * 1e3:.3f} ms a step")
+              f"{stat_ms(a0['reduce'], a0['steps'])} a step")
         split = " / ".join(f"{a['split_sps']:.2f}" for a in ans)
-        print(f"  samples/s: 2 ranks {split} "
-              f"(rank 0 / rank 1, {p['ep_timed']} steps); one process alone "
+        print(f"  samples/s: {n} ranks {split} "
+              f"(ranks 0-{n - 1}, {p['ep_timed']} steps); one process alone "
               f"on the whole batch {a0['alone_sps']:.2f} (recorded, not "
               f"gated) on {gpu}")
         require(same and all(a["err"] <= EP_TOL for a in ans)
@@ -7050,8 +7245,8 @@ def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p, started=None):
             for k, v in a["launches"].items():
                 launches[k] = launches.get(k, 0) + v
 
-        print("phase 17c: ring attention and the sequence-parallel step over "
-              "2 ranks sharing the card under gloo")
+        print(f"phase 17c: ring attention and the sequence-parallel step "
+              f"over {n} ranks, {placed}")
         gates.open("ring_sp")
         ans = gates.answers("ring_sp")
         t = p["model"]["seq_len"]
@@ -7069,7 +7264,8 @@ def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p, started=None):
                         f"17c rank {r}: ring_attention {dt} disagrees")
         ref = ans[0]["ref"]
         same = len({a["digest"] for a in ans}) == 1
-        print(f"  the SP step [sp=2, B={p['sp_batch']}, f32, sgd({p['lr']})] "
+        print(f"  the SP step [sp={n}, B={p['sp_batch']}, f32, "
+              f"sgd({p['lr']})] "
               f"against the one-card step: loss relative "
               f"{ref['loss_err']:.3e}, largest per-leaf relative norm error "
               f"of the grads {ref['grad_err']:.3e} (tol {STEP_F32_TOL:g}), "
@@ -7079,13 +7275,23 @@ def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p, started=None):
         require(ref["grad_err"] <= STEP_F32_TOL and ref["loss_err"]
                 <= STEP_F32_TOL and ref["param_err"] <= STEP_F32_TOL
                 and same, "17c: the SP step disagrees with the one-card step")
-        sp2 = " / ".join(f"{a['tokens_s']:.1f}" for a in ans)
-        print(f"  tokens/s: sp=2 {sp2} "
-              f"(rank 0 / rank 1), sp=1 (rank 0 alone) {ref['tokens_s']:.1f}: "
+        spn = " / ".join(f"{a['tokens_s']:.1f}" for a in ans)
+        print(f"  tokens/s: sp={n} {spn} "
+              f"(ranks 0-{n - 1}), sp=1 (rank 0 alone) "
+              f"{ref['tokens_s']:.1f}: "
               f"{ans[0]['tokens_s'] / ref['tokens_s']:.3f} of one card; the "
-              f"ring's shifts {ans[0]['ring_mb']:.1f} MB and "
-              f"{ans[0]['ring_ms']:.3f} ms blocked a step on rank 0 "
-              f"(recorded, not gated) on {gpu}")
+              f"ring's shifts {ans[0]['ring_mb']:.1f} MB, "
+              f"{ans[0]['ring_ms']:.3f} ms blocked on the host and "
+              f"{ans[0]['ring_device_ms']:.3f} ms on the device a step on "
+              f"rank 0 (recorded, not gated) on {gpu}")
+        res = check_mirror({r: a["p2p"] for r, a in enumerate(ans)})
+        print(f"  NCCL's pair rule over the ring's batches the ranks posted "
+              f"in the SP steps: {res['ops']} ops ({res['batches']} batched) "
+              f"over {res['pairs']} (group, pair) streams: "
+              + ("holds" if not res["problems"] else
+                 "broken: " + "; ".join(res["problems"][:3])))
+        require(not res["problems"] and res["batches"] > 0,
+                f"17c: the ring breaks NCCL's pair rule: {res}")
         for r, a in enumerate(ans):
             print(f"  rank {r}: launches of the SP step ({p['sp_steps']} "
                   f"steps) {a['launches']}")
@@ -7103,7 +7309,8 @@ def moe_and_sp_across_ranks(fa, fu, da, gpu, device, p, started=None):
 
 def moe_and_sequence(fa, fu, da, gpu, device="cuda", sizes=None):
     """Phase 17: 17a the MoE transformer on one card, 17b expert
-    parallelism and 17c ring attention and the SP step over two ranks.
+    parallelism and 17c ring attention and the SP step over
+    :func:`mp_ranks` ranks.
     -> ({kernel: launches} of 17a's bf16 path, of 17b/c's f32 paths)."""
     import torch
 
@@ -7124,8 +7331,8 @@ def moe_and_sequence(fa, fu, da, gpu, device="cuda", sizes=None):
             require(all(got[k] > 0 for k in ("flash_fwd", "flash_bwd_dq",
                                              "flash_bwd_dkv")),
                     f"{label}: a kernel of the path never launched: {got}")
-    print(f"  phase 17 launches: 17a (bf16) {bf16}; 17b + 17c (f32, both "
-          f"ranks) {f32}")
+    print(f"  phase 17 launches: 17a (bf16) {bf16}; 17b + 17c (f32, every "
+          f"rank) {f32}")
     print(f"  phase 17 wall {time.perf_counter() - t0:.1f} s on {gpu}")
     return bf16, f32
 
@@ -7235,10 +7442,11 @@ def timed_steps(step, state, data, n):
 
 
 def mp_task_tp(cfg, gates, rank):
-    """18a: the TP step at tp=2 (3 heads and half the FFN a rank), f32,
+    """18a: the TP step at tp=2 (3 heads and half the FFN a rank) x dp =
+    the ranks / 2 (each ``workers`` index its block of the batch), f32,
     sgd: its grads and params after the steps against the one-card step
     (rank 0 holds both), then one bf16 step against plain attention,
-    tokens/s split against one process, the model axis's all-reduces."""
+    tokens/s split against one process, the all-reduces."""
     import torch
 
     from dist_keras_tpu_torch import comm
@@ -7249,6 +7457,7 @@ def mp_task_tp(cfg, gates, rank):
     from dist_keras_tpu_torch.parallel import make_tp_mesh
     from dist_keras_tpu_torch.parallel.transformer_tp import (
         gather_tp_params,
+        local_block,
         loss_and_grads,
         make_tp_train_step,
         param_specs,
@@ -7257,8 +7466,10 @@ def mp_task_tp(cfg, gates, rank):
 
     p = cfg["sizes"]
     dev = torch.device(cfg["device"])
-    mesh = make_tp_mesh(tp=comm.num_processes())
+    world = comm.num_processes()
+    mesh = make_tp_mesh(dp=world // 2, tp=2)
     scfg, x, y = phase18_data(p, dev, 181)
+    xb, yb = local_block(x, mesh), local_block(y, mesh)
     full = full_params(scfg, dev)
     params = split_tp_params(full, mesh)
     tx = sgd(p["lr"])
@@ -7271,10 +7482,11 @@ def mp_task_tp(cfg, gates, rank):
         torch.cuda.synchronize()
     zero_kernel_counts(fa, fu, da)
     split_stats(("all_reduce", "all_gather"))
-    loss, grads = loss_and_grads(params, x, y, scfg, causal=True, mesh=mesh)
+    loss, grads = loss_and_grads(params, xb, yb, scfg, causal=True,
+                                 mesh=mesh)
     losses = []
     for _ in range(p["steps"]):
-        params, opt, lv = step(params, opt, x, y)
+        params, opt, lv = step(params, opt, xb, yb)
         losses.append(float(lv))
     launches = kernel_counts(fa, fu, da)
     stats = split_stats(("all_reduce",))
@@ -7299,11 +7511,11 @@ def mp_task_tp(cfg, gates, rank):
     del grads, whole
     comm.barrier("tp_timed")
     split_stats(("all_reduce",))
-    split_s = timed_steps(step, (params, opt), (x, y), p["timed"])
+    split_s = timed_steps(step, (params, opt), (xb, yb), p["timed"])
     timed = split_stats(("all_reduce",))["all_reduce"]
     # one bf16 step, the kernels on each rank's heads, against one process
     # with plain attention
-    _, bgrads = loss_and_grads(split_tp_params(full, mesh), x, y, scfg,
+    _, bgrads = loss_and_grads(split_tp_params(full, mesh), xb, yb, scfg,
                                causal=True, compute_dtype=torch.bfloat16,
                                mesh=mesh)
     bgrads = gather_tp_params(bgrads, mesh)
@@ -7323,9 +7535,10 @@ def mp_task_tp(cfg, gates, rank):
         "digest": digest, "ref": ref,
         "tokens_s": p["batch"] * scfg["seq_len"] * p["timed"] / split_s,
         "ar_ms": timed["seconds"] / p["timed"] * 1e3,
+        "ar_device_ms": timed["device_seconds"] / p["timed"] * 1e3,
         "ar_mb": timed["bytes"] / p["timed"] / 1e6,
         "ar_calls": timed["calls"] / p["timed"], "steps": p["steps"],
-        "ranks": mesh.model.size})
+        "ranks": mesh.model.size, "dp": mesh.workers.size})
 
 
 def mp_task_fsdp(cfg, gates, rank):
@@ -7501,13 +7714,15 @@ def layer_order(blocks, p, v):
 
 
 def mp_task_pp(cfg, gates, rank):
-    """18c: the pipeline over the ranks (one stage a rank): GPipe's loss
-    against the one-card step; 1F1B, then interleaved at v=2: loss, grads
-    and the params after the sgd steps against the one-card step (rank
-    0), the stash peak, tokens/s split against one process, the
-    point-to-point traffic.  Each schedule's first run records its
-    point-to-point ops (``collectives.record_p2p``) for NCCL's pair
-    rule."""
+    """18c: the pipeline over the ranks: GPipe's loss (one stage a rank)
+    against the one-card step; 1F1B (one stage a rank), then interleaved
+    at v=2 (one stage a rank where the layers divide into stages x 2
+    chunks, else 2 stages x dp = the ranks / 2, each ``workers`` index
+    its rows and the grads averaged over them): loss, grads and the
+    params after the sgd steps against the one-card step (rank 0), the
+    stash peak, tokens/s split against one process, the point-to-point
+    traffic.  Each schedule's first run records its point-to-point ops
+    (``collectives.record_p2p``) for NCCL's pair rule."""
     import torch
 
     from dist_keras_tpu_torch import comm
@@ -7564,13 +7779,18 @@ def mp_task_pp(cfg, gates, rank):
     del leaves, blocks, logits, logp, gloss
     runs = {}
     for v in (1, 2):
-        stacked = (pp.stack_blocks_interleaved(full["blocks"], nst, v)
+        stages = nst if v == 1 or scfg["n_layers"] % (nst * v) == 0 else 2
+        vmesh = pp.make_pp_mesh(stages, nst // stages)
+        dp, w = vmesh.workers.size, vmesh.workers.index
+        rows = p["batch"] // dp
+        xv, yv = x[w * rows:(w + 1) * rows], y[w * rows:(w + 1) * rows]
+        stacked = (pp.stack_blocks_interleaved(full["blocks"], stages, v)
                    if v > 1 else pp.stack_blocks(full["blocks"]))
-        blocks = pp.split_stage_blocks(stacked, mesh, v)
+        blocks = pp.split_stage_blocks(stacked, vmesh, v)
         del stacked
-        factory, _ = pp.make_pp_train_step(mesh, scfg, m, optimizer=tx,
-                                           causal=True, virtual=v,
-                                           device=dev)
+        factory, _ = pp.make_pp_train_step(vmesh, scfg, m // dp,
+                                           optimizer=tx, causal=True,
+                                           virtual=v, device=dev)
         ro, bo = tx.init(rest), tx.init(blocks)
         step = factory(rest, blocks, ro, bo)
         comm.barrier(f"pp_{v}")
@@ -7580,23 +7800,35 @@ def mp_task_pp(cfg, gates, rank):
         split_stats(("p2p", "all_reduce"))
         collectives.record_p2p()
         loss, aux, rg, bg = pp.pp_transformer_1f1b_grads(
-            rest, blocks, x, y, scfg, m, causal=True, axis=mesh, virtual=v)
+            rest, blocks, xv, yv, scfg, m // dp, causal=True,
+            axis=vmesh.stages, virtual=v)
         p2p[f"1f1b_{v}"] = collectives.p2p_log()
         collectives.record_p2p(False)
         peak = pp.stash_peak()
+        if dp > 1:   # the workers' grads and loss averaged, as the step does
+            flat = [loss] + tree_leaves(rg) + tree_leaves(bg)
+            flat = [t / dp for t in
+                    collectives.cross_rank_sum(flat, vmesh.workers)]
+            k = 1 + len(tree_leaves(rg))
+            loss = flat[0]
+            rg = tree_unflatten(rg, flat[1:k])
+            bg = tree_unflatten(bg, flat[k:])
         r, b, o1, o2 = rest, blocks, ro, bo
         losses = []
         for _ in range(p["steps"]):
-            r, b, o1, o2, lv, _ = step(r, b, o1, o2, x, y)
+            r, b, o1, o2, lv, _ = step(r, b, o1, o2, xv, yv)
             losses.append(float(lv))
         launches = kernel_counts(fa, fu, da)
         stats = split_stats(("p2p", "all_reduce"))
-        bg = layer_order(pp.gather_stage_blocks(bg, mesh, v), nst, v)
-        b_whole = layer_order(pp.gather_stage_blocks(b, mesh, v), nst, v)
+        bg = layer_order(pp.gather_stage_blocks(bg, vmesh, v), stages, v)
+        b_whole = layer_order(pp.gather_stage_blocks(b, vmesh, v), stages,
+                              v)
         res = {"losses": losses, "launches": launches, "stats": stats,
-               "peak": peak, "bound": (min(m, 2 * nst - 1) if v == 1 else
+               "stages": stages, "dp": dp, "microbatches": m // dp,
+               "peak": peak, "bound": (min(m // dp, 2 * stages - 1)
+                                       if v == 1 else
                                        pp.interleaved_1f1b_stash_entries(
-                                           nst, v, m))}
+                                           stages, v, m // dp))}
         if rank == 0:
             want_b = pp.stack_blocks(ograds["blocks"])
             want_r = {k: ograds[k] for k in rg}
@@ -7611,10 +7843,11 @@ def mp_task_pp(cfg, gates, rank):
         del bg, b_whole, rg
         comm.barrier(f"pp_timed_{v}")
         split_stats(("p2p",))
-        split_s = timed_steps(step, (r, b, o1, o2), (x, y), p["timed"])
+        split_s = timed_steps(step, (r, b, o1, o2), (xv, yv), p["timed"])
         timed = split_stats(("p2p",))["p2p"]
         res.update(tokens_s=p["batch"] * scfg["seq_len"] * p["timed"]
                    / split_s, p2p_ms=timed["seconds"] / p["timed"] * 1e3,
+                   p2p_device_ms=timed["device_seconds"] / p["timed"] * 1e3,
                    p2p_mb=timed["bytes"] / p["timed"] / 1e6,
                    p2p_calls=timed["calls"] / p["timed"])
         runs[v] = res
@@ -7638,20 +7871,21 @@ def print_launches(label, ans):
 
 
 def launch_18(device, sizes=None):
-    """Phase 18's two rank processes, started ahead of it (they come up
-    and wait at a gate, off the card)."""
+    """Phase 18's :func:`mp_ranks` rank processes, started ahead of it
+    (they come up and wait at a gate, off the card)."""
     return launch_held("p18", ["tp", "fsdp", "pp"], device,
                        {**PHASE18, **(sizes or {})})
 
 
 def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None,
                              started=None):
-    """Phase 18: 18a the TP step at tp=2, 18b FSDP over 2 ranks, 18c the
-    pipeline over 2 stages (GPipe; 1F1B, then interleaved at v=2), in two
-    rank processes (``--mp-role``; ``started``: :func:`launch_18`'s)
-    sharing the card under gloo, each split run against one process in
-    the same call.  -> the K1-K3 launches of the ranks' main paths,
-    summed over the ranks."""
+    """Phase 18: 18a the TP step at tp=2 x dp, 18b FSDP over the ranks,
+    18c the pipeline (GPipe, 1F1B: a stage a rank; interleaved at v=2) in
+    :func:`mp_ranks` rank processes (``--mp-role``; ``started``:
+    :func:`launch_18`'s; one card: two sharing it under gloo; several: a
+    rank a card under NCCL), each split run against one process in the
+    same call.  -> the K1-K3 launches of the ranks' main paths, summed
+    over the ranks."""
     import shutil
 
     import torch
@@ -7669,15 +7903,16 @@ def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None,
             for k, v in a["launches"].items():
                 launches[k] = launches.get(k, 0) + v
 
+    n = len(ranks)
     try:
         t = p["model"]["seq_len"]
-        print(f"phase 18a: the TP step at tp=2 ({p['model']['n_heads'] // 2}"
-              f" heads a rank), B={p['batch']}, T={t}, f32, sgd({p['lr']}), "
-              f"two ranks sharing the card under gloo")
         gates.open("tp")
         ans = gates.answers("tp")
-        for r, q in enumerate(ranks):
-            init = procs.init(q)
+        placed, inits = rank_placement(procs, ranks, device)
+        print(f"phase 18a: the TP step at tp=2 ({p['model']['n_heads'] // 2}"
+              f" heads a rank) x dp={ans[0]['dp']}, B={p['batch']}, T={t}, "
+              f"f32, sgd({p['lr']}), {n} ranks, {placed}")
+        for r, init in enumerate(inits):
             print(f"  rank {r}: backend {init['backend']} on "
                   f"{init['device']}, group up in {init['init_s']:.2f} s")
         ref = ans[0]["ref"]
@@ -7697,18 +7932,20 @@ def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None,
         a0 = ans[0]
         st = a0["stats"]["all_reduce"]
         split = " / ".join(f"{a['tokens_s']:.1f}" for a in ans)
-        print(f"  tokens/s: tp=2 {split} "
-              f"(rank 0 / rank 1), one process {ref['tokens_s']:.1f}: "
+        print(f"  tokens/s: tp=2 x dp={a0['dp']} {split} "
+              f"(ranks 0-{n - 1}), one process {ref['tokens_s']:.1f}: "
               f"{a0['tokens_s'] / ref['tokens_s']:.3f} of one card; the "
-              f"model axis's all-reduces {a0['ar_calls']:.0f} calls, "
-              f"{a0['ar_mb']:.1f} MB and {a0['ar_ms']:.1f} ms blocked a "
+              f"all-reduces {a0['ar_calls']:.0f} calls, "
+              f"{a0['ar_mb']:.1f} MB, {a0['ar_ms']:.1f} ms blocked on the "
+              f"host and {a0['ar_device_ms']:.1f} ms on the device a "
               f"step on rank 0 ({st['calls']} calls, "
               f"{st['bytes'] / 1e6:.1f} MB in the parity run) on {gpu}")
         print_launches("the TP step (its grads and steps)", ans)
         add(ans)
 
-        print(f"phase 18b: FSDP over 2 ranks, B={p['batch']} "
-              f"({p['batch'] // 2} a rank), adam({p['adam_lr']}), f32")
+        print(f"phase 18b: FSDP over {n} ranks, B={p['batch']} "
+              f"({p['batch'] // n} a rank), adam({p['adam_lr']}), f32, "
+              f"{placed}")
         gates.open("fsdp")
         ans = gates.answers("fsdp")
         ref = ans[0]["ref"]
@@ -7728,36 +7965,50 @@ def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None,
               f"params against the whole batch {ref['adam_param_err']:.3e}, "
               f"that process's own {ref['order_err']:.3e} (the summation "
               f"order alone)")
+        # at two ranks the ranks' sum is one order; at more, the
+        # collective's order is not rank order, and adam's +-lr steps turn
+        # its ulps into params as far apart as one process summing the
+        # same rows in two orders: held within that spread there
+        order_tol = (None if n <= MP_RANKS
+                     else max(SPLIT_TOL, ref["order_err"]))
+        if order_tol is not None:
+            print(f"  at {n} ranks adam's params held to the whole batch "
+                  f"within {order_tol:.3e} (one process's own spread from "
+                  f"the summation order)")
         require(max(ref["loss_err"], ref["moment_err"], ref["param_err"],
-                    ref["same_order_err"]) <= SPLIT_TOL and same,
+                    ref["same_order_err"] if order_tol is None else 0.0)
+                <= SPLIT_TOL and same
+                and (order_tol is None
+                     or ref["adam_param_err"] <= order_tol),
                 "18b: FSDP disagrees with one process")
         for r, a in enumerate(ans):
             print(f"  rank {r}: persistent bytes (params + adam state) "
                   f"{a['bytes'] / 1e6:.1f} MB against one process's "
                   f"{ref['bytes'] / 1e6:.1f} MB "
-                  f"({a['bytes'] / ref['bytes']:.3f}; bound: 1/2 of the "
+                  f"({a['bytes'] / ref['bytes']:.3f}; bound: 1/{n} of the "
                   f"sharded leaves and the replicated ones, "
                   f"{a['bound'] / 1e6:.1f} MB)")
         require(all(a["bytes"] <= a["bound"] for a in ans),
                 "18b: a rank's persistent state is not sharded")
         tm = ans[0]["timed"]
         split = " / ".join(f"{a['sps']:.2f}" for a in ans)
-        print(f"  samples/s: 2 ranks {split} "
-              f"(rank 0 / rank 1), one process {ref['sps']:.2f}: "
+        print(f"  samples/s: {n} ranks {split} "
+              f"(ranks 0-{n - 1}), one process {ref['sps']:.2f}: "
               f"{ans[0]['sps'] / ref['sps']:.3f}; a step on rank 0: "
               + ", ".join(f"{op} {v['calls'] / p['timed']:.0f} calls "
                           f"{v['bytes'] / p['timed'] / 1e6:.1f} MB "
-                          f"{v['seconds'] / p['timed'] * 1e3:.1f} ms"
+                          f"{stat_ms(v, p['timed'])}"
                           for op, v in tm.items()) + f" on {gpu}")
         print_launches("the FSDP steps", ans)
         add(ans)
 
-        print(f"phase 18c: the pipeline over 2 stages "
-              f"({p['model']['n_layers'] // 2} layers a stage), "
-              f"M={p['microbatches']} microbatches of "
-              f"{p['batch'] // p['microbatches']}, f32, sgd({p['lr']})")
         gates.open("pp")
         ans = gates.answers("pp")
+        print(f"phase 18c: the pipeline over {n} stages "
+              f"({p['model']['n_layers'] // n} layer(s) a stage), "
+              f"M={p['microbatches']} microbatches of "
+              f"{p['batch'] // p['microbatches']}, f32, sgd({p['lr']}), "
+              f"{placed}")
         ref = ans[0]["ref"]
         g_err = ans[0]["gpipe"]["loss_err"]
         print(f"  GPipe (autograd through the messages): loss against the "
@@ -7771,7 +8022,9 @@ def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None,
                 launches[k] = launches.get(k, 0) + n
         for v in ("1", "2"):
             r0 = ans[0]["runs"][v]
-            kind = "1F1B" if v == "1" else "interleaved 1F1B at v=2"
+            kind = ("1F1B" if v == "1" else "interleaved 1F1B at v=2") + (
+                f" over {r0['stages']} stages x dp={r0['dp']} "
+                f"(M={r0['microbatches']} a pipe)")
             print(f"  {kind}: against the one-card step: loss relative "
                   f"{r0['loss_err']:.3e}, grads {r0['grad_err']:.3e} of "
                   f"each leaf's largest |grad|, params after {p['steps']} "
@@ -7779,12 +8032,13 @@ def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None,
                   f"{r0['losses']} against {ref['losses']}")
             for r, a in enumerate(ans):
                 run = a["runs"][v]
-                print(f"  rank {r} (stage {r}): stash peak {run['peak']} "
-                      f"microbatch inputs (bound {run['bound']}); "
-                      f"{run['tokens_s']:.1f} tokens/s; point-to-point "
-                      f"{run['p2p_calls']:.0f} messages, "
+                print(f"  rank {r} (stage {r % run['stages']}): stash peak "
+                      f"{run['peak']} microbatch inputs (bound "
+                      f"{run['bound']}); {run['tokens_s']:.1f} tokens/s; "
+                      f"point-to-point {run['p2p_calls']:.0f} messages, "
                       f"{run['p2p_mb']:.1f} MB sent, {run['p2p_ms']:.1f} ms "
-                      f"blocked a step; K1 / K2 / K3 "
+                      f"blocked on the host and {run['p2p_device_ms']:.1f} "
+                      f"ms on the device a step; K1 / K2 / K3 "
                       f"{run['launches']['flash_fwd']} / "
                       f"{run['launches']['flash_bwd_dq']} / "
                       f"{run['launches']['flash_bwd_dkv']}")
@@ -7818,7 +8072,7 @@ def transformer_across_ranks(fa, fu, da, gpu, device="cuda", sizes=None,
         require(all(launches.get(k, 0) > 0 for k in (
             "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
             f"18: a kernel of the path never launched: {launches}")
-    print(f"  phase 18 launches (f32, both ranks): {launches}")
+    print(f"  phase 18 launches (f32, every rank): {launches}")
     print(f"  phase 18 wall {time.perf_counter() - t0:.1f} s on {gpu}")
     return launches
 
@@ -7874,14 +8128,16 @@ def relaunch_data(p):
 
 
 def relaunch_entry(cfg, coord):
-    """19a on one host: ``comm.initialize()`` from the exported ``JAX_*``
-    variables, then 19a's ADAG with a checkpoint every window and
-    ``resume=True`` under deterministic algorithms.  Rank 1 SIGKILLs
-    itself once, at the first boundary vote after a promoted save (rank
-    0 then waits in the same vote, on the shared directory, not in a
-    collective), leaving ``killed.json``.  Each incarnation's boundary
-    times go to ``progress_<session>_<rank>.json``, the final center to
-    ``relaunch_<session>_<rank>.npz``."""
+    """19a on one rank of a host (the per-card fan-out starts one a
+    card): ``comm.initialize()`` from the exported ``JAX_*`` and
+    ``LOCAL_*`` variables, then 19a's ADAG with a checkpoint every
+    window and ``resume=True`` under deterministic algorithms.  The last
+    rank (host 1's last) SIGKILLs itself once, at the first boundary
+    vote after a promoted save (the others then wait in the same vote,
+    on the shared directory, not in a collective), leaving
+    ``killed.json``.  Each incarnation's group (backend, device) and
+    boundary times go to ``progress_<session>_<rank>.json``, the final
+    center to ``relaunch_<session>_<rank>.npz``."""
     import signal
 
     import torch
@@ -7890,7 +8146,6 @@ def relaunch_entry(cfg, coord):
     from dist_keras_tpu_torch.utils.bridge import params_to_numpy
 
     work, p = Path(cfg["work"]), cfg["sizes"]
-    rank = int(os.environ["JAX_PROCESS_ID"])
     session = os.environ.get("DK_COORD_SESSION", "0")
     # f32 means f32, as in this script's own process (phase 1)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7898,7 +8153,11 @@ def relaunch_entry(cfg, coord):
     deterministic(True)
     t0 = time.time()
     comm.initialize(device=cfg["device"])
-    prog = {"init_s": time.time() - t0, "boundaries": []}
+    g = comm.group_info()
+    rank, last = g.rank, g.world - 1
+    prog = {"init_s": time.time() - t0, "boundaries": [],
+            "backend": g.backend, "device": str(g.device), "world": g.world,
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
     prog_path = work / f"progress_{session}_{rank}.json"
     ds = relaunch_data(p)
     t = relaunch_trainer(p, cfg["device"],
@@ -7907,11 +8166,12 @@ def relaunch_entry(cfg, coord):
                          resume=True)
     marker = work / "killed.json"
     vote = coord.any_flag
+    kill = cfg.get("kill", True)
 
     def any_flag(flag, timeout_s=None):
         prog["boundaries"].append(time.time())
         prog_path.write_text(json.dumps(prog))
-        if rank == 1 and not marker.exists():
+        if kill and rank == last and not marker.exists():
             step = t._checkpointer_or_none().latest_step()
             if step is not None:
                 tmp = work / "killed.json.tmp"
@@ -8000,9 +8260,10 @@ def elastic_entry(cfg):
     return 0
 
 
-def local_job(work, env):
+def local_job(work, env, host_env=None):
     """A ``launch.Job`` whose transport is local: host X's "remote"
-    filesystem is ``work/hosts/X``, ssh becomes ``sh -c`` with that cwd,
+    filesystem is ``work/hosts/X``, ssh becomes ``sh -c`` with that cwd
+    and ``env`` (with ``host_env[X]`` over it: a host's own cards),
     rsync a local copy (the JAX elastic gate's ``LocalJob``): every other
     line of the Job under test is the port's module.  ``launched`` keeps
     (time, host, session) of each launch."""
@@ -8032,7 +8293,8 @@ def local_job(work, env):
                 self.launched.append((time.time(), host,
                                       int(m.group(1)) if m else 0))
             return subprocess.call(["sh", "-c", shell], cwd=str(hostdir),
-                                   env=env)
+                                   env={**env, **(host_env or {}).get(
+                                       host, {})})
 
     return LocalJob
 
@@ -8105,10 +8367,17 @@ class ObsPlane:
         return False
 
 
-def supervised_relaunch(gpu, device, p, work):
-    """19a: ``Job.supervise_run`` over two local hosts running
-    :func:`relaunch_entry`; -> None (every check is a ``require``)."""
-    from dist_keras_tpu_torch.observability import report
+def relaunch_pod(device, p, work, kill=True):
+    """One supervised run of 19a's pod under ``work``: ``launch.Job`` over
+    two local hosts, each running the per-card fan-out (``python -m
+    dist_keras_tpu_torch.launch.local``) of :func:`relaunch_entry`; one
+    rank a host sharing the one card under gloo, or on a host of several
+    cards each "host" its half of them (``CUDA_VISIBLE_DEVICES``), a
+    rank a card under NCCL.  ``kill``: the last rank SIGKILLs itself
+    once.  -> (job, waves, the send's and the end's time, the pod's
+    facts)."""
+    import torch
+
     from dist_keras_tpu_torch.resilience.supervisor import CrashLoop
 
     work.mkdir(parents=True)
@@ -8116,23 +8385,26 @@ def supervised_relaunch(gpu, device, p, work):
     jobdir.mkdir()
     (jobdir / "main.py").write_text(LAUNCH_ENTRY)
     cfg = {"task": "relaunch", "work": str(work), "device": device,
-           "sizes": p}
-    Job = local_job(work, launch_env(work, cfg))
+           "sizes": p, "kill": kill}
+    world = mp_ranks(device)
+    per_host = world // 2
+    several = torch.device(device).type == "cuda" and world > 1 and \
+        torch.cuda.device_count() >= 2
+    cards = ({h: {"CUDA_VISIBLE_DEVICES": ",".join(
+        str(c) for c in range(i * per_host, (i + 1) * per_host))}
+        for i, h in enumerate(("127.0.0.1", "127.0.0.2"))}
+        if several else None)
+    Job = local_job(work, launch_env(work, cfg, PYTHONPATH=str(ROOT)), cards)
     port = free_port()
-    obs = work / "obs"
     job = Job("s", "job", str(jobdir), hosts=["127.0.0.1", "127.0.0.2"],
               coordinator_port=port, remote_root="jobs",
-              python=sys.executable, coord_dir=str(work / "coord"),
-              coord_timeout_s=60.0, obs_dir=str(obs),
-              supervise=dict(SUPERVISE))
-    windows = p["relaunch_windows"]
-    write_record(f"phase 19a: a supervised relaunch of ADAG (mnist_cnn, "
-                 f"dropout 0, 4 workers split 2 + 2 over two hosts, window "
-                 f"{ADAG_WINDOW}, sgd, f32, batch {p['relaunch_batch']}, "
-                 f"{windows} windows, a save every window, resume=True) "
-                 f"under launch.Job on 127.0.0.1 / 127.0.0.2, rendezvous "
-                 f"port {port}, ranks on {device}")
-    with ObsPlane(obs):
+              python=f"{sys.executable} -m dist_keras_tpu_torch.launch.local"
+              + ("" if several else f" --nproc-per-host {per_host}"),
+              coord_dir=str(work / "coord"), coord_timeout_s=60.0,
+              obs_dir=str(work / "obs"), supervise=dict(SUPERVISE))
+    facts = dict(world=world, per_host=per_host, several=several,
+                 cards=cards, port=port)
+    with ObsPlane(work / "obs"):
         t_send = time.time()
         rc = job.send()
         require(rc == 0, f"19a: the first launch returned rc={rc}")
@@ -8144,6 +8416,33 @@ def supervised_relaunch(gpu, device, p, work):
         except CrashLoop as e:
             raise SmokeFailure(f"19a: CrashLoop: {e}") from e
         t_end = time.time()
+    return job, waves, t_send, t_end, facts
+
+
+def supervised_relaunch(gpu, device, p, work):
+    """19a: :func:`relaunch_pod` with its last rank killed once: the pod
+    relaunched once, the resumed center bit-equal to its witness — the
+    ADAG merged by hand in this process at two ranks (a sum of two is
+    the same in any order), an unkilled run of the same pod at more (the
+    by-hand center's distance then printed); -> None (every check is a
+    ``require``)."""
+    from dist_keras_tpu_torch.observability import report
+
+    world, windows = mp_ranks(device), p["relaunch_windows"]
+    splits = mp_splits(world)
+    per_host = world // 2
+    write_record(f"phase 19a: a supervised relaunch of ADAG (mnist_cnn, "
+                 f"dropout 0, 4 workers split {splits_label(splits)} over "
+                 f"two hosts of {per_host} rank(s) each, started by the "
+                 f"per-card fan-out, window {ADAG_WINDOW}, sgd, f32, batch "
+                 f"{p['relaunch_batch']}, {windows} windows, a save every "
+                 f"window, resume=True) under launch.Job on 127.0.0.1 / "
+                 f"127.0.0.2, ranks on {device}")
+    job, waves, t_send, t_end, facts = relaunch_pod(device, p, work)
+    several, cards, obs = facts["several"], facts["cards"], work / "obs"
+    if cards:
+        write_record("  the hosts' cards " + " | ".join(
+            c["CUDA_VISIBLE_DEVICES"] for c in cards.values()))
     rcs = job.host_rcs(session=1)
     write_record(f"  waves {waves}; session 1 rcs {rcs}")
     require(waves == [((1,), 1)],
@@ -8161,7 +8460,8 @@ def supervised_relaunch(gpu, device, p, work):
                      f"{prog[s]['init_s']:.2f} s, {len(b)} windows at "
                      f"{rate:.1f} samples/s (from train() to its last "
                      f"boundary) on {gpu}")
-    write_record(f"  rank 1 SIGKILLed itself at session {killed['session']}"
+    write_record(f"  rank {world - 1} (host 1) SIGKILLed itself at session "
+                 f"{killed['session']}"
                  f" after step {killed['step']} was promoted; the relaunch "
                  f"came {relaunch_t - killed['t']:.3f} s later; wave walls: "
                  f"session 0 {relaunch_t - t_send:.2f} s (send to "
@@ -8169,21 +8469,47 @@ def supervised_relaunch(gpu, device, p, work):
                  f"(relaunch to the last rc 0)")
     require(prog[1].get("resumed_from") is not None,
             "19a: the relaunch did not resume")
-    # the witness: 16a's ADAG merged by hand in this process, stacked
-    # 2 + 2 as the ranks stack them, under the same algorithms
+    placed = [json.loads((work / f"progress_1_{r}.json").read_text())
+              for r in range(world)]
+    write_record("  incarnation 1's ranks: " + "; ".join(
+        f"rank {r} {q['backend']} on {q['device']} (visible "
+        f"{q['visible']}, world {q['world']})" for r, q in enumerate(placed)))
+    want_backend = "nccl" if several else "gloo"
+    require(all(q["backend"] == want_backend and q["world"] == world
+                for q in placed)
+            and (not several or [q["device"] for q in placed]
+                 == [f"cuda:{r % per_host}" for r in range(world)]),
+            f"19a: the ranks' groups {placed}; wanted {want_backend}, a "
+            f"world of {world}")
+    # the witness: 16a's ADAG merged by hand in this process, stacked as
+    # the ranks stack them, under the same algorithms
     deterministic(True)
     try:
         want = parity_by_hand({"parity_batch": p["relaunch_batch"]}, device,
-                              relaunch_data(p), "sgd", None,
-                              [(0, 2), (2, 4)])
+                              relaunch_data(p), "sgd", None, splits)
     finally:
         deterministic(False)
-    got = [load_leaves(work / f"relaunch_1_{r}.npz") for r in range(2)]
-    ranks_equal = all(np.array_equal(a, b) for a, b in zip(*got))
+    got = [load_leaves(work / f"relaunch_1_{r}.npz") for r in range(world)]
+    ranks_equal = all(all(np.array_equal(a, b) for a, b in zip(got[0], o))
+                      for o in got[1:])
+    by_hand = leaves_err(got[0], want)
+    if world > MP_RANKS:
+        # a sum of more than two deltas rounds by the collective's order:
+        # the bit-equal witness is the same pod, unkilled
+        _, uwaves, _, _, _ = relaunch_pod(device, p, work.parent / "unkilled",
+                                          kill=False)
+        require(uwaves == [], f"19a: the unkilled pod relaunched: {uwaves}")
+        want = load_leaves(work.parent / "unkilled" / "relaunch_0_0.npz")
+        write_record(f"  against the ADAG merged by hand "
+                     f"({splits_label(splits)}, its own summation order): "
+                     f"{by_hand:.3e} of the largest weight (printed)")
     bits = all(np.array_equal(a, b) for a, b in zip(got[0], want))
+    witness = ("an unkilled run of the same pod" if world > MP_RANKS else
+               f"16a's ADAG merged by hand in one process, "
+               f"{splits_label(splits)}")
     write_record(f"  final center: the ranks bit-equal {ranks_equal}; "
-                 f"bit-equal to the unkilled witness (16a's ADAG merged by "
-                 f"hand in one process, 2 + 2) {bits} (max abs err "
+                 f"bit-equal to the unkilled witness ({witness}) {bits} (max "
+                 f"abs err "
                  f"{leaves_err(got[0], want):.3e} of the largest weight)")
     require(ranks_equal and bits,
             "19a: the relaunched run's center is not bit-equal to the "
@@ -8196,7 +8522,7 @@ def supervised_relaunch(gpu, device, p, work):
                  f"{[(e.get('session'), e.get('ranks')) for e in restarts]}"
                  f"; resume steps {[e.get('step') for e in resumes]}")
     require([(e.get("session"), e.get("ranks")) for e in restarts]
-            == [(1, [1])] and len(resumes) == 2
+            == [(1, [1])] and len(resumes) == world
             and "supervisor_restart" in text,
             "19a: the merged report does not name the relaunch")
 
@@ -8568,6 +8894,7 @@ def launcher_and_sim(fa, fu, da, gpu, device="cuda", sizes=None):
                 q.kill()
                 q.wait()
         kill_pods(work / "relaunch")
+        kill_pods(work / "unkilled")
         kill_pods(work / "elastic")
         shutil.rmtree(work, ignore_errors=True)
     write_record(f"  phase 19 wall {time.perf_counter() - t0:.1f} s on {gpu}")

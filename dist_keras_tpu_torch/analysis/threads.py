@@ -73,6 +73,8 @@ KNOWN_THREAD_ROOTS = {
     "preempt.signal_handler": "resilience/preemption.py:_handler",
     "preempt.watcher": "resilience/preemption.py:on_request._watch",
     "preempt.restore": "external",
+    # the per-card fan-out's TERM / INT forwarding
+    "launch.fan_out_signal": "launch/local.py:run.forward",
     # telemetry plane (round 11)
     "obs.sampler": "observability/timeseries.py:MetricsSampler._loop",
     "obs.exporter": "~observability/prometheus.py:_Handler.*",

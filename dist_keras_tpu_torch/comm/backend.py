@@ -13,24 +13,37 @@ hosts.  Here the same roles ride a ``torch.distributed`` process group:
   / ``LOCAL_RANK``), and is a no-op with neither, as the JAX one is.
   The group's timeout is ``coordination.default_timeout_s()``
   (``DK_COORD_TIMEOUT_S``), so a dead peer raises instead of hanging.
-- The backend is a rule (:func:`select_backend`): NCCL when every rank
-  on this host has a card of its own, gloo on the CPU and when ranks
-  share a card (NCCL refuses two ranks on one device).  Under gloo the
-  device collectives are ``all_reduce`` and ``broadcast`` only (gloo
-  reduces CUDA tensors for those two); host-side gathers
-  (:func:`fetch_global`, the coordinator's votes, :func:`barrier`) run
-  over a CPU gloo side group.  The choice is a ``coord`` event with
-  ``op="comm.init"``.
+- A host's identity composes with its cards': with the ``JAX_*``
+  variables and ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` both exported (the
+  per-card fan-out ``launch/local.py`` under ``launch.Job``), the world
+  is ``JAX_NUM_PROCESSES * LOCAL_WORLD_SIZE`` and the rank
+  ``JAX_PROCESS_ID * LOCAL_WORLD_SIZE + LOCAL_RANK``, met at the Job's
+  coordinator.  Every host must run the same number of ranks: the
+  hosts' counts cross the rendezvous store first, and a mismatch is a
+  ``ValueError`` naming the hosts, never a hang.
+- The backend is a rule (:func:`select_backend`): NCCL when no two
+  ranks of the group would share a physical card (each rank's card
+  UUID and host name cross the rendezvous store), gloo on the CPU and
+  when ranks share a card (NCCL refuses two ranks on one device; two
+  emulated hosts on one card each see a local world of 1, so the count
+  of cards on a host cannot decide it).  Under gloo the device
+  collectives are ``all_reduce`` and ``broadcast`` only (gloo reduces
+  CUDA tensors for those two); host-side gathers (:func:`fetch_global`,
+  the coordinator's votes, :func:`barrier`) run over a CPU gloo side
+  group.  The choice is a ``coord`` event with ``op="comm.init"``.
 - :func:`local_data_slice` is the contiguous deal of rows (or worker
   slots) over the processes; :func:`barrier` a real cross-process
   barrier under the JAX package's deadline and poisoning;
   :func:`fetch_global` the all-gather of each leaf along dim 0.
 - Several cards on one host: a JAX process sees every device of its
-  host, a rank here holds one card.  ``launch.Job`` keeps the JAX
-  package's one process per host; a host with several cards runs the
-  trainers one rank per card through ``torchrun`` (``LOCAL_RANK`` /
-  ``LOCAL_WORLD_SIZE``).  A single process lists every visible card in
-  :func:`local_devices` (``ModelPredictor`` shards over them).
+  host, a rank here holds one card, so the port trains one rank per
+  card.  Under ``launch.Job`` the host's command is the fan-out
+  (``Job(python="python3 -m dist_keras_tpu_torch.launch.local")``),
+  which starts a rank per card with ``LOCAL_RANK`` /
+  ``LOCAL_WORLD_SIZE`` beside the Job's ``JAX_*`` variables; without
+  it, ``torchrun --nproc-per-node N`` exports the ``torchrun`` set.  A
+  single process lists every visible card in :func:`local_devices`
+  (``ModelPredictor`` shards over them; the trainers use one).
 """
 
 from __future__ import annotations
@@ -68,13 +81,61 @@ class _Group:
         self.devices = devices   # every rank's device, rank-ordered
 
 
-def select_backend(local_world, device_count, on_cpu=False):
-    """The backend rule: ``"nccl"`` when each of the ``local_world``
-    ranks on this host has a card of its own (``device_count >=
-    local_world``), ``"gloo"`` on the CPU and when ranks share a card."""
-    if on_cpu or device_count < 1 or device_count < local_world:
+def select_backend(cards, on_cpu=False):
+    """The backend rule over ``cards``, every rank's physical card
+    (rank-ordered keys, each host name and card UUID; None for a rank
+    without one): ``"nccl"`` when every rank has a card and no two
+    share one, ``"gloo"`` on the CPU and when ranks share a card."""
+    cards = list(cards)
+    if on_cpu or not cards or any(c is None for c in cards) \
+            or len(set(cards)) < len(cards):
         return "gloo"
     return "nccl"
+
+
+def _card_uuid(index):
+    """The UUID of visible card ``index`` (a seam: the tests fake it)."""
+    return str(torch.cuda.get_device_properties(index).uuid)
+
+
+def _card_keys(store, rank, world, index, timeout_s):
+    """-> every rank's card key (``host/uuid``, or None without a card),
+    rank-ordered, through the rendezvous store; ``index`` is the visible
+    card this rank would take, None on the CPU."""
+    mine = ("-" if index is None
+            else f"{socket.gethostname()}/{_card_uuid(index)}")
+    store.set(f"dk_card/{rank}", mine)
+    store.wait([f"dk_card/{r}" for r in range(world)],
+               datetime.timedelta(seconds=timeout_s))
+    keys = [store.get(f"dk_card/{r}").decode() for r in range(world)]
+    return [None if k == "-" else k for k in keys]
+
+
+def _local_slot():
+    """-> (LOCAL_RANK, LOCAL_WORLD_SIZE) when both are exported, else
+    None."""
+    env = os.environ
+    if env.get("LOCAL_RANK") is None or env.get("LOCAL_WORLD_SIZE") is None:
+        return None
+    local_rank, local_world = int(env["LOCAL_RANK"]), \
+        int(env["LOCAL_WORLD_SIZE"])
+    if not 0 <= local_rank < local_world:
+        raise ValueError(f"LOCAL_RANK={local_rank} outside "
+                         f"LOCAL_WORLD_SIZE={local_world}")
+    return local_rank, local_world
+
+
+def _composed():
+    """-> (host id, hosts, local rank, local world) when the ``JAX_*``
+    process variables and ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` are all
+    exported (a rank of the per-card fan-out), else None."""
+    env = os.environ
+    slot = _local_slot()
+    if slot is None or not env.get("JAX_NUM_PROCESSES") \
+            or not env.get("JAX_PROCESS_ID"):
+        return None
+    return (int(env["JAX_PROCESS_ID"]), int(env["JAX_NUM_PROCESSES"]),
+            *slot)
 
 
 def _init_method(address):
@@ -86,8 +147,10 @@ def _init_method(address):
 def _rendezvous_from(coordinator_address, num_processes, process_id):
     """-> (init_method, world, rank), or None when nothing asks for a
     group (arguments, the ``JAX_*`` variables, then the torchrun ones).
-    A world of several processes without the rest of its rendezvous is
-    a ValueError, never a lone process."""
+    The ``JAX_*`` variables beside ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE``
+    compose: world = hosts x local world, rank = host x local world +
+    local rank.  A world of several processes without the rest of its
+    rendezvous is a ValueError, never a lone process."""
     env = os.environ
     if coordinator_address is None:
         coordinator_address = env.get("JAX_COORDINATOR_ADDRESS") or None
@@ -95,6 +158,13 @@ def _rendezvous_from(coordinator_address, num_processes, process_id):
         num_processes = int(env["JAX_NUM_PROCESSES"])
     if process_id is None and env.get("JAX_PROCESS_ID"):
         process_id = int(env["JAX_PROCESS_ID"])
+    composed = _composed()
+    if composed is not None and num_processes == composed[1] \
+            and process_id == composed[0]:
+        # a rank of the per-card fan-out: hosts x cards
+        host, hosts, local_rank, local_world = composed
+        num_processes = hosts * local_world
+        process_id = host * local_world + local_rank
     if coordinator_address is not None or num_processes is not None:
         world = 1 if num_processes is None else int(num_processes)
         if coordinator_address is None:
@@ -168,20 +238,60 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
     init_method, world, rank = rdv
     timeout_s = default_timeout_s() or 1800.0
     t0 = time.perf_counter()
-    store, rank, world = next(dist.rendezvous(
-        init_method, rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=timeout_s)))
+    composed = _composed()
+    if composed is not None and world == composed[1] * composed[3]:
+        store = _fan_out_store(init_method, rank, world, composed,
+                               timeout_s)
+    else:
+        store, rank, world = next(dist.rendezvous(
+            init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout_s)))
     local_rank, local_world = _host_identity(store, rank, world, timeout_s)
     on_cpu = device is not None and torch.device(device).type == "cpu"
     count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    chosen = backend or select_backend(local_world, count, on_cpu)
+    index = None if on_cpu or count < 1 else local_rank % count
+    cards = _card_keys(store, rank, world, index, timeout_s)
+    chosen = backend or select_backend(cards, on_cpu)
     if chosen == "nccl":
-        torch.cuda.set_device(local_rank)
+        torch.cuda.set_device(index)
     dist.init_process_group(
         chosen, store=store, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s), **kw)
     _adopt(dist, backend=chosen, device=device, t0=t0,
            local=(local_rank, local_world))
+
+
+def _fan_out_store(init_method, rank, world, composed, timeout_s):
+    """The rendezvous store of a fan-out rank (``init_method`` a
+    ``tcp://`` or ``file://`` URL; host 0's local rank 0 serves a TCP
+    store), after every host's local world has crossed it: hosts that
+    disagree are a ValueError naming them (a store sized by one host's
+    world would wait for ranks that never come)."""
+    import urllib.parse
+
+    import torch.distributed as dist
+
+    host, hosts, local_rank, local_world = composed
+    timeout = datetime.timedelta(seconds=timeout_s)
+    url = urllib.parse.urlparse(init_method)
+    if url.scheme == "tcp":
+        store = dist.TCPStore(url.hostname, url.port, None,
+                              rank == 0, timeout, wait_for_workers=False)
+    elif url.scheme == "file":
+        store = dist.FileStore(url.path, world)
+    else:
+        raise ValueError(f"rendezvous {init_method!r}: a fan-out rank meets "
+                         "at a tcp:// or file:// address")
+    if local_rank == 0:
+        store.set(f"dk_local_world/{host}", str(local_world))
+    store.wait([f"dk_local_world/{h}" for h in range(hosts)], timeout)
+    counts = [int(store.get(f"dk_local_world/{h}")) for h in range(hosts)]
+    if len(set(counts)) > 1:
+        raise ValueError(
+            "the hosts run different numbers of ranks (LOCAL_WORLD_SIZE): "
+            + ", ".join(f"host {h} {n}" for h, n in enumerate(counts))
+            + "; start the same number on every host (--nproc-per-host)")
+    return store
 
 
 def _adopt(dist, backend, device, t0, local=None):
@@ -200,7 +310,7 @@ def _adopt(dist, backend, device, t0, local=None):
     if device is not None and torch.device(device).type == "cpu":
         dev = torch.device("cpu")
     elif backend == "nccl":
-        dev = torch.device("cuda", local_rank)
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
     elif torch.cuda.is_available():
         # ranks share the cards round-robin (one card: all on cuda:0)
         dev = torch.device("cuda", local_rank % torch.cuda.device_count())

@@ -13,7 +13,13 @@ which brings up its ``torch.distributed`` group through
 ``comm.initialize`` from the exported ``JAX_COORDINATOR_ADDRESS`` /
 ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` (process id = host index,
 coordinator = host 0; the names are the JAX package's, so one job
-descriptor launches either package).  Transport is still rsync+ssh —
+descriptor launches either package).  A JAX host process drives every
+device of its host; a rank of the port holds one card, so a host with
+several cards runs the per-card fan-out as its command
+(``python="python3 -m dist_keras_tpu_torch.launch.local"``,
+``launch/local.py``): one rank per card, ``LOCAL_RANK`` /
+``LOCAL_WORLD_SIZE`` beside these variables, the host's exit code and
+heartbeat kept one per host.  Transport is still rsync+ssh —
 that part of the reference's design is infrastructure-agnostic and
 survives unchanged.
 

@@ -136,9 +136,19 @@ KNOWN_EVENTS = (
 def _default_rank():
     """This host's rank from the environment alone: the coordination
     identity wins, then the launcher's ``JAX_PROCESS_ID`` (the JAX
-    package's order), then torchrun's ``RANK``, then 0."""
-    for v in (knobs.raw("DK_COORD_RANK"), os.environ.get("JAX_PROCESS_ID"),
-              os.environ.get("RANK")):
+    package's order; a rank of the per-card fan-out composes it with
+    ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` as ``comm.initialize`` does),
+    then torchrun's ``RANK``, then 0."""
+    env = os.environ
+    pid = env.get("JAX_PROCESS_ID")
+    if pid is not None and env.get("LOCAL_RANK") is not None \
+            and env.get("LOCAL_WORLD_SIZE") is not None:
+        try:
+            pid = str(int(pid) * int(env["LOCAL_WORLD_SIZE"])
+                      + int(env["LOCAL_RANK"]))
+        except ValueError:
+            pass
+    for v in (knobs.raw("DK_COORD_RANK"), pid, env.get("RANK")):
         if v is not None:
             try:
                 return int(v)

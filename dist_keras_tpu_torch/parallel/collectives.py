@@ -79,10 +79,19 @@ pinned host buffer (:func:`_staged` decides, from the backend and the
 tensor's device).  That staging is the transport, not a fallback.
 ``reduce_stats(op=...)`` counts each kind apart (``"all_reduce"``,
 ``"all_to_all"``, ``"ring"``, ``"all_gather"``, ``"reduce_scatter"``,
-``"broadcast"``, ``"p2p"``).  Under NCCL the seconds of a call that
-returns a ``Work`` (every one here) time the enqueue only: NCCL runs
-the collective on its own stream, and ``wait()`` makes the caller's
-stream wait without blocking the host.
+``"broadcast"``, ``"p2p"``).  Their ``seconds`` are the host's wall
+(blocked, or the staging); under NCCL that times the enqueue only:
+NCCL runs the collective on its own stream, and ``wait()`` makes the
+caller's stream wait without blocking the host.  So each kind also
+counts ``device_seconds``: under NCCL the collectives' own time on the
+card, from a CUDA event recorded on the caller's stream before each
+call and one after it completes (on the caller's stream for a call
+that waits at once, on a side stream made to wait for the ``Work`` of
+one that returns it: the async all-reduce, ``isend``), so a peer that
+arrives late counts and compute queued behind an async call does not;
+the events are read when :func:`reduce_stats` is called.  Under gloo
+and on the CPU ``device_seconds`` is the host's wall of the same calls
+(the staging and the wait), the value ``seconds`` holds.
 
 The point-to-point recorder (:func:`record_p2p`, off by default) logs
 each message as it is posted: :func:`isend`, :func:`recv`, and the
@@ -114,24 +123,87 @@ from dist_keras_tpu_torch.utils.pytree import (
     tree_unflatten,
 )
 
-_STATS = {op: {"calls": 0, "bytes": 0, "seconds": 0.0}
+_STATS = {op: {"calls": 0, "bytes": 0, "seconds": 0.0,
+               "device_seconds": 0.0}
           for op in ("all_reduce", "all_to_all", "ring", "all_gather",
                      "reduce_scatter", "broadcast", "p2p")}
+_PENDING_EVENTS = {op: [] for op in _STATS}   # (start, end) not read yet
+_FOLD_AT = 256          # fold the finished pairs once this many wait
+_SIDE = {}              # card -> the stream that waits for async Works
+
+
+def _fold(op, block):
+    """Adds the finished (all with ``block``) event pairs of ``op`` to
+    its ``device_seconds``."""
+    keep = []
+    for start, end in _PENDING_EVENTS[op]:
+        if block:
+            end.synchronize()
+        elif not end.query():
+            keep.append((start, end))
+            continue
+        _STATS[op]["device_seconds"] += start.elapsed_time(end) / 1e3
+    _PENDING_EVENTS[op] = keep
 
 
 def reduce_stats(reset=False, op="all_reduce"):
-    """-> ``{"calls", "bytes", "seconds"}`` of the cross-rank
-    collectives of kind ``op`` so far: ``"all_reduce"`` (bytes of the
-    packed buffers; seconds of the blocking ones, enqueue to done),
-    ``"all_to_all"``, ``"ring"``, ``"all_gather"``, ``"reduce_scatter"``,
-    ``"broadcast"`` (bytes sent; seconds blocked, the host staging
-    included) or ``"p2p"`` (bytes sent; seconds blocked in the
-    receives, their staging included); ``reset`` zeroes them."""
+    """-> ``{"calls", "bytes", "seconds", "device_seconds"}`` of the
+    cross-rank collectives of kind ``op`` so far: ``"all_reduce"``
+    (bytes of the packed buffers; seconds of the blocking ones, enqueue
+    to done), ``"all_to_all"``, ``"ring"``, ``"all_gather"``,
+    ``"reduce_scatter"``, ``"broadcast"`` (bytes sent; seconds blocked,
+    the host staging included) or ``"p2p"`` (bytes sent; seconds blocked
+    in the receives, their staging included).  ``device_seconds`` is,
+    under NCCL, the calls' time on the card (read from their CUDA
+    events here, which waits for the ones still running); under gloo
+    and on the CPU the host's wall of the calls, as ``seconds``.
+    ``reset`` zeroes them."""
+    _fold(op, block=True)
     stats = _STATS[op]
     out = dict(stats)
     if reset:
-        stats.update(calls=0, bytes=0, seconds=0.0)
+        stats.update(calls=0, bytes=0, seconds=0.0, device_seconds=0.0)
     return out
+
+
+def _timed_start(x):
+    """A timing event recorded on the caller's stream before a
+    collective on ``x`` when it runs under NCCL on a card, else None
+    (the host's wall is then the device time)."""
+    from dist_keras_tpu_torch.comm import backend as comm
+
+    g = comm.group_info()
+    if g is None or g.backend != "nccl" or not x.is_cuda:
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    start.record(torch.cuda.current_stream(x.device))
+    return start
+
+
+def _timed_end(op, start, device, works=()):
+    """Closes ``start``'s interval: after ``works`` (the call's pending
+    ``Work``s) on a side stream, or at once on the caller's stream for
+    a call that has waited.  A no-op for a None ``start``."""
+    if start is None:
+        return
+    end = torch.cuda.Event(enable_timing=True)
+    if works:
+        side = _SIDE.get(device)
+        if side is None:
+            side = _SIDE[device] = torch.cuda.Stream(device=device)
+        with torch.cuda.stream(side):
+            for work in works:
+                # dklint: ignore[unbounded-wait] under NCCL Work.wait only
+                # makes the side stream wait for the collective (the host
+                # does not block); bounded by the group's timeout
+                work.wait()
+            end.record(side)
+    else:
+        end.record(torch.cuda.current_stream(device))
+    pending = _PENDING_EVENTS[op]
+    pending.append((start, end))
+    if len(pending) >= _FOLD_AT:
+        _fold(op, block=False)
 
 
 _P2P_LOG = None       # the recorder's entries while it is on
@@ -280,11 +352,16 @@ def check_mirror(logs):
             "problems": problems}
 
 
-def _count(op, nbytes, t0):
+def _count(op, nbytes, t0, start=None):
+    """One call of ``op``: its bytes and host wall; the wall is its
+    device time too unless ``start`` (a timing event) stands for it."""
     stats = _STATS[op]
+    wall = time.perf_counter() - t0
     stats["calls"] += 1
     stats["bytes"] += nbytes
-    stats["seconds"] += time.perf_counter() - t0
+    stats["seconds"] += wall
+    if start is None:
+        stats["device_seconds"] += wall
 
 
 def _group():
@@ -336,13 +413,16 @@ def _cross(tree, ops, async_op=False, group=None):
     for i, (x, op) in enumerate(zip(leaves, ops)):
         buckets.setdefault((x.dtype, x.device, op), []).append(i)
     t0 = time.perf_counter()
-    jobs = []
-    for (_, _, op), idx in buckets.items():
+    jobs, timed = [], False
+    for (_, device, op), idx in buckets.items():
         flat = torch.cat([leaves[i].reshape(-1) for i in idx])
         stats["calls"] += 1
         stats["bytes"] += flat.numel() * flat.element_size()
-        jobs.append((dist.all_reduce(flat, op=op, group=group,
-                                     async_op=True), flat, idx))
+        start = _timed_start(flat)
+        timed = timed or start is not None
+        work = dist.all_reduce(flat, op=op, group=group, async_op=True)
+        _timed_end("all_reduce", start, device, [work])
+        jobs.append((work, flat, idx))
     pending = PendingReduce(tree, list(leaves), jobs)
     if async_op:
         return pending
@@ -351,7 +431,10 @@ def _cross(tree, ops, async_op=False, group=None):
         # torch.distributed Works, bounded by the process group's timeout
         # (comm/backend.py); not a thread/event wait
         out = pending.wait()
-    stats["seconds"] += time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    stats["seconds"] += wall
+    if not timed:
+        stats["device_seconds"] += wall
     return out
 
 
@@ -560,10 +643,12 @@ def _exchange(x, axis):
     staged = _staged(x)
     src = _to_host(x) if staged else x
     out = torch.empty_like(src)
+    start = _timed_start(src)
     dist.all_to_all_single(out, src, group=axis.group)
+    _timed_end("all_to_all", start, src.device)
     if staged:
         out = out.to(x.device, non_blocking=True)
-    _count("all_to_all", src.numel() * src.element_size(), t0)
+    _count("all_to_all", src.numel() * src.element_size(), t0, start)
     return out
 
 
@@ -579,6 +664,7 @@ def _shift(x, axis, offset):
     to, frm = _peer(axis, (i + offset) % n), _peer(axis, (i - offset) % n)
     _record([("send", to, send, 0), ("recv", frm, recv, 0)], axis.group,
             batch=True)
+    start = _timed_start(send)
     works = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, send, to, axis.group),
         dist.P2POp(dist.irecv, recv, frm, axis.group)])
@@ -588,9 +674,10 @@ def _shift(x, axis, offset):
         # DK_COORD_TIMEOUT_S to init_process_group): it raises on a lost peer
         # rather than hang; not a thread/event wait
         work.wait()
+    _timed_end("ring", start, send.device)
     if staged:
         recv = recv.to(x.device, non_blocking=True)
-    _count("ring", send.numel() * send.element_size(), t0)
+    _count("ring", send.numel() * send.element_size(), t0, start)
     return recv
 
 
@@ -621,8 +708,10 @@ def _all_reduce(x, axis):
 
     t0 = time.perf_counter()
     out = x.clone()
+    start = _timed_start(out)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axis.group)
-    _count("all_reduce", out.numel() * out.element_size(), t0)
+    _timed_end("all_reduce", start, out.device)
+    _count("all_reduce", out.numel() * out.element_size(), t0, start)
     return out
 
 
@@ -706,10 +795,12 @@ def all_gather(x, axis, dim=0):
     staged = _staged(xt)
     src = _to_host(xt) if staged else xt
     out = src.new_empty((axis.size * src.shape[0],) + tuple(src.shape[1:]))
+    start = _timed_start(src)
     dist.all_gather_into_tensor(out, src, group=axis.group)
+    _timed_end("all_gather", start, src.device)
     if staged:
         out = out.to(x.device, non_blocking=True)
-    _count("all_gather", src.numel() * src.element_size(), t0)
+    _count("all_gather", src.numel() * src.element_size(), t0, start)
     return out.movedim(0, dim)
 
 
@@ -730,11 +821,13 @@ def reduce_scatter(x, axis, dim=0):
     staged = _staged(xt)
     src = _to_host(xt) if staged else xt
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    start = _timed_start(src)
     dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
                                group=axis.group)
+    _timed_end("reduce_scatter", start, src.device)
     if staged:
         out = out.to(x.device, non_blocking=True)
-    _count("reduce_scatter", src.numel() * src.element_size(), t0)
+    _count("reduce_scatter", src.numel() * src.element_size(), t0, start)
     return out.movedim(0, dim)
 
 
@@ -748,8 +841,10 @@ def broadcast(x, axis, src):
 
     t0 = time.perf_counter()
     out = x.contiguous().clone()
+    start = _timed_start(out)
     dist.broadcast(out, _peer(axis, src), group=axis.group)
-    _count("broadcast", out.numel() * out.element_size(), t0)
+    _timed_end("broadcast", start, out.device)
+    _count("broadcast", out.numel() * out.element_size(), t0, start)
     return out
 
 
@@ -785,11 +880,10 @@ def isend(x, axis, to, tag=0, group=None):
     group = axis.group if group is None else group
     peer = _peer(axis, to)
     _record([("send", peer, buf, tag)], group)
+    start = _timed_start(buf)
     work = dist.isend(buf, peer, group=group, tag=int(tag))
-    stats = _STATS["p2p"]
-    stats["calls"] += 1
-    stats["bytes"] += buf.numel() * buf.element_size()
-    stats["seconds"] += time.perf_counter() - t0
+    _timed_end("p2p", start, buf.device, [work])
+    _count("p2p", buf.numel() * buf.element_size(), t0, start)
     return SendWork(work, buf)
 
 
@@ -808,12 +902,17 @@ def recv(shape, dtype, device, axis, frm, tag=0, group=None):
     group = axis.group if group is None else group
     peer = _peer(axis, frm)
     _record([("recv", peer, buf, tag)], group)
+    start = _timed_start(buf)
     # dklint: ignore[unbounded-wait] a torch.distributed Work, bounded by its
     # process group's timeout (comm/backend.py passes DK_COORD_TIMEOUT_S to
     # init_process_group): it raises on a lost peer rather than hang; not a
     # thread/event wait
     dist.irecv(buf, peer, group=group, tag=int(tag)).wait()
+    _timed_end("p2p", start, buf.device)
     if staged:
         buf = buf.to(device, non_blocking=True)
-    _STATS["p2p"]["seconds"] += time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    _STATS["p2p"]["seconds"] += wall
+    if start is None:
+        _STATS["p2p"]["device_seconds"] += wall
     return buf

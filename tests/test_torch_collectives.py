@@ -278,8 +278,12 @@ def test_backend_refuses_a_partial_torchrun_environment(monkeypatch, env,
 def test_backend_selection_rule(local_world, cards, on_cpu, want):
     """NCCL only when each rank on the host has a card of its own; gloo
     on the CPU and when ranks share a card (NCCL refuses two ranks on
-    one device)."""
-    assert comm.select_backend(local_world, cards, on_cpu) == want
+    one device).  ``local_world`` ranks take the ``cards`` of one host
+    round-robin, as ``initialize`` deals them; the rule reads the
+    ranks' card keys."""
+    keys = [f"host/card-{r % cards}" if cards else None
+            for r in range(local_world)]
+    assert comm.select_backend(keys, on_cpu) == want
 
 
 @pytest.mark.parametrize("world", [1, 2, 3, 4])

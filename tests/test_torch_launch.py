@@ -611,9 +611,9 @@ from dist_keras_tpu_torch.utils.bridge import params_to_numpy
 
 work = os.environ["DK_TEST_WORK"]
 kill = os.environ["DK_TEST_KILL"] == "1"
-rank = int(os.environ["JAX_PROCESS_ID"])
 session = os.environ.get("DK_COORD_SESSION", "0")
 comm.initialize(device="cpu")
+rank = comm.process_index()
 rng = np.random.default_rng(0)
 x = rng.normal(size=(512, 8)).astype(np.float32)
 y = (x[:, 0] + x[:, 1] > 0).astype(np.int64)
@@ -630,7 +630,8 @@ vote = coord.any_flag
 
 
 def any_flag(flag, timeout_s=None):
-    if kill and rank == 1 and not os.path.exists(marker) \
+    if kill and rank == int(os.environ["DK_TEST_KILL_RANK"]) \
+            and not os.path.exists(marker) \
             and t._checkpointer_or_none().latest_step() is not None:
         with open(marker, "w") as f:
             f.write(session)
@@ -647,9 +648,11 @@ comm.shutdown()
 """
 
 
-def _supervised_run(work, kill):
-    """One supervised job of two CPU ranks -> (waves, rank 0's final
-    leaves, rank 1's), from the session that finished."""
+def _supervised_run(work, kill, per_host=1):
+    """One supervised job of two hosts of ``per_host`` CPU ranks each (more
+    than one: through the per-card fan-out) -> (waves, every rank's final
+    leaves), from the session that finished; the killed rank is host 1's
+    last."""
     import numpy as np
 
     work.mkdir()
@@ -658,11 +661,16 @@ def _supervised_run(work, kill):
     (jd / "main.py").write_text(ENTRY)
     env = {k: v for k, v in os.environ.items() if not k.startswith("DK_")}
     env.update(DK_TEST_ROOT=REPO, DK_TEST_WORK=str(work),
-               DK_TEST_KILL="1" if kill else "0", PYTHONUNBUFFERED="1")
+               DK_TEST_KILL="1" if kill else "0",
+               DK_TEST_KILL_RANK=str(2 * per_host - 1), PYTHONUNBUFFERED="1",
+               PYTHONPATH=REPO)
+    python = sys.executable if per_host == 1 else (
+        f"{sys.executable} -m dist_keras_tpu_torch.launch.local "
+        f"--nproc-per-host {per_host}")
     job = chip_smoke.local_job(work, env)(
         "s", "job", str(jd), hosts=["127.0.0.1", "127.0.0.2"],
         coordinator_port=chip_smoke.free_port(), remote_root="jobs",
-        python=sys.executable, coord_dir=str(work / "coord"),
+        python=python, coord_dir=str(work / "coord"),
         coord_timeout_s=60.0, trace_id=TRACE,
         supervise={"max_restarts": 2, "interval_s": 0.1, "grace_s": 3.0})
     try:
@@ -678,7 +686,7 @@ def _supervised_run(work, kill):
             for p in (work / "hosts").glob("*/jobs/job/job.log*")}
     assert rcs == {0: 0, 1: 0}, (waves, rcs, logs)
     finals = []
-    for r in range(2):
+    for r in range(2 * per_host):
         z = np.load(work / f"final_{session}_{r}.npz")
         finals.append([z[k] for k in sorted(z.files)])
     return waves, finals
@@ -695,3 +703,29 @@ def test_supervised_relaunch_of_split_port_ranks_on_the_cpu(tmp_path):
     assert all(np.array_equal(a, b) for a, b in zip(got0, got1))
     assert len(got0) == len(want)
     assert all(np.array_equal(a, b) for a, b in zip(got0, want))
+
+
+def test_supervised_relaunch_of_two_hosts_of_two_ranks_on_the_cpu(tmp_path):
+    """The Job over two local hosts, each running the per-card fan-out
+    (``python -m dist_keras_tpu_torch.launch.local --nproc-per-host 2``):
+    one group of 4 gloo ranks, 1 ADAG worker each.  Host 1's last rank
+    SIGKILLs itself after a promoted save; its fan-out exits non-zero, the
+    supervisor names host 1 (the Job's liveness stays per host: the
+    fan-outs beat the hosts' files, the ranks their own under
+    ``<coord_dir>/ranks``), relaunches the pod, and the resumed ranks end
+    bit-equal to an unkilled run of the same pod."""
+    import numpy as np
+
+    waves, got = _supervised_run(tmp_path / "killed", kill=True, per_host=2)
+    assert waves == [((1,), 1)]
+    assert (tmp_path / "killed" / "killed").read_text() == "0"
+    coord = tmp_path / "killed" / "coord"
+    assert sorted(p.name for p in (coord / "1" / "hb").glob("rank_?")) == [
+        "rank_0", "rank_1"]
+    assert sorted(p.name for p in (coord / "ranks" / "1" / "hb").glob(
+        "rank_?")) == ["rank_0", "rank_1", "rank_2", "rank_3"]
+    _, want = _supervised_run(tmp_path / "unkilled", kill=False, per_host=2)
+    for leaves in got[1:]:
+        assert all(np.array_equal(a, b) for a, b in zip(got[0], leaves))
+    assert len(got[0]) == len(want[0])
+    assert all(np.array_equal(a, b) for a, b in zip(got[0], want[0]))

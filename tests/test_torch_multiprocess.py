@@ -518,3 +518,59 @@ def test_two_rank_preemption_and_bit_equal_resume(tmp_path, trainer):
         assert set(got.files) == set(want.files)
         for k in want.files:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# one worker a rank: four ranks x 1 worker, the JAX package's worker_mesh(4)
+# ---------------------------------------------------------------------------
+FOUR = {"ADAG": dict(num_workers=4, communication_window=4),
+        "ADAG+overlap": dict(num_workers=4, communication_window=4,
+                             cls="ADAG", comm_overlap=True)}
+
+
+@pytest.fixture(scope="module")
+def four_ranks(reference, tmp_path_factory):
+    """One launch of four ranks x 1 worker training ADAG blocked and
+    overlapped; -> (the launch's directory, its results)."""
+    tmp = tmp_path_factory.mktemp("four_ranks")
+    results = _launch(tmp, "four", 4, dict(
+        trainers=FOUR, weights=reference[0], arch=ARCH, common=COMMON))
+    _ok(results)
+    return tmp / "four", results
+
+
+@pytest.mark.parametrize("name", list(FOUR))
+def test_four_ranks_of_one_worker_match_the_jax_four_device_run(
+        four_ranks, reference, name):
+    """ADAG over 4 gloo ranks, one worker each (the stacked dim is 1 on
+    every rank), against the JAX package's 4-worker run on 4 virtual
+    devices from the same weights (``comm_overlap`` as in the split run:
+    each window's all-reduce in flight until the next boundary), within
+    the JAX test's 1e-5."""
+    import jax
+
+    from dist_keras_tpu import trainers as jt
+    from dist_keras_tpu.models import mnist_mlp as jmlp
+
+    out, results = four_ranks
+    kw = dict(FOUR[name])
+    cls = kw.pop("cls", name)
+    w = np.load(reference[0])
+    layers = sorted({int(k.split("/")[0]) for k in w.files})
+    m = jmlp(**ARCH)
+    m.params = [{k.split("/")[1]: np.array(w[k]) for k in w.files
+                 if int(k.split("/")[0]) == i} for i in layers]
+    t = getattr(jt, cls)(m, **COMMON, **kw)
+    want = _by_key(jax.tree.map(np.asarray, t.train(_jax_blobs()).params),
+                   "m0/")
+    ranks = [np.load(out / f"{name}_{r}.npz") for r in range(4)]
+    for r, (_, o) in enumerate(results):
+        assert f"TRAINED {name} {r} {r + 1}" in o
+    for got in ranks:
+        assert got["history"].shape == np.asarray(t.get_history()).shape
+        for k, v in want.items():
+            assert np.all(np.isfinite(got[k])), k
+            np.testing.assert_allclose(got[k], v, atol=1e-5, err_msg=k)
+    for k in want:
+        for got in ranks[1:]:
+            np.testing.assert_array_equal(ranks[0][k], got[k], err_msg=k)

@@ -115,8 +115,8 @@ def test_collectives_are_the_identity_at_one_rank():
     assert not dist.is_initialized()
     for op in ("all_reduce", "all_to_all", "ring", "all_gather",
                "reduce_scatter", "broadcast", "p2p"):
-        assert set(collectives.reduce_stats(op=op)) == {"calls", "bytes",
-                                                        "seconds"}
+        assert set(collectives.reduce_stats(op=op)) == {
+            "calls", "bytes", "seconds", "device_seconds"}
 
 
 def test_all_to_all_checks_its_leading_dim():
