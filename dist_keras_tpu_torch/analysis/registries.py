@@ -21,7 +21,9 @@ like the real one):
   ``histogram`` name (kind included; dynamic families annotate their
   registered pattern), pairwise collision-freedom of the registered
   names after Prometheus sanitization, and the README metrics table
-  (``<!-- dklint: metrics-table -->``) both ways.
+  (``<!-- dklint: metrics-table -->``) both ways.  The README serves
+  both packages: a row marked :data:`JAX_ONLY` documents a metric that
+  only the JAX package registers, and is no drift here.
 - ``spans.KNOWN_SPANS``  <->  every ``span("name")`` /
   ``span_at("name", ...)`` call site (wildcard entries match via
   fnmatch; dynamic names annotate ``# dklint: spans=<pattern>``) —
@@ -39,6 +41,9 @@ import fnmatch
 import re
 
 from dist_keras_tpu_torch.analysis.core import Finding, rules_table
+
+# the README metrics table's mark on a row of the JAX package's alone
+JAX_ONLY = "(JAX package only)"
 
 _METRIC_KINDS = ("counter", "gauge", "histogram")
 _DK_RE = re.compile(r"DK_[A-Z0-9_]+")
@@ -670,9 +675,11 @@ def _check_readme(project, knob_reg, event_reg, metric_reg,
                         reg_line,
                         f"metric {name!r} has no row in the README "
                         "metrics table", key=f"metric-doc:{name}"))
+            lines = readme.split("\n")
             for tok, lineno in sorted(tokens.items()):
                 if re.fullmatch(r"[a-z0-9_.*]+", tok) \
-                        and tok not in names:
+                        and tok not in names \
+                        and JAX_ONLY not in lines[lineno - 1]:
                     findings.append(Finding(
                         "metric-doc-drift", rel, lineno,
                         f"README metrics table names {tok!r} which is "

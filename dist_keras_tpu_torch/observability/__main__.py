@@ -7,8 +7,8 @@
   python -m dist_keras_tpu_torch.observability /path/to/obs_dir --json
   python -m dist_keras_tpu_torch.observability /path/to/obs_dir --json --raw
 
-  # perf attribution: retraces/dispatches/transfers per rank, the
-  # data/step/comm/ckpt host-wall breakdown, watchdog alerts
+  # perf attribution: dispatches/transfers per rank, each phase's
+  # host-wall (and card) breakdown, watchdog alerts
   python -m dist_keras_tpu_torch.observability /path/to/obs_dir --perf
 
   # SLOs: objective status + burn rates per window at alert time, and
@@ -61,8 +61,8 @@ def main(argv=None):
                          "timeline instead of the summary")
     ap.add_argument("--perf", action="store_true",
                     help="append the perf-attribution section: per-"
-                         "rank retrace/dispatch/transfer totals, the "
-                         "data/step/comm/ckpt host-wall breakdown, "
+                         "rank dispatch/transfer totals, each "
+                         "phase's host-wall (and card) breakdown, "
                          "and every watchdog alert in the timeline "
                          "(with --json: a 'perf' key on the summary)")
     ap.add_argument("--slo", action="store_true",

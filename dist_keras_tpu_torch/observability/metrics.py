@@ -288,12 +288,9 @@ KNOWN_METRICS = {
     "ps.commit_bytes_raw": "counter",
     "ps.commit_bytes_wire": "counter",
     # perf attribution (observability/perf.py)
-    "perf.retraces": "counter",
-    "perf.traces": "counter",
     "perf.dispatches": "counter",
     "perf.h2d_bytes": "counter",
     "perf.d2h_bytes": "counter",
-    "perf.compile_s": "histogram",
     "perf.h2d_s": "histogram",
     "perf.d2h_s": "histogram",
     "perf.phase.*": "histogram",

@@ -263,7 +263,7 @@ def summarize(events):
 
 
 def perf_summary(events):
-    """-> perf-attribution view of a merged timeline: per-rank retrace/
+    """-> perf-attribution view of a merged timeline: per-rank
     dispatch/transfer totals + per-phase host-wall breakdown (from each
     rank's LAST registry snapshot, falling back to its last
     ``perf_sample``), plus every ``watchdog_alert``/``watchdog_clear``
@@ -307,7 +307,6 @@ def perf_summary(events):
                     "mean_s": (round(total / count, 6) if count
                                else None)}
             per_rank[rank] = {
-                "retraces": counters.get("perf.retraces", 0),
                 "dispatches": counters.get("perf.dispatches", 0),
                 "h2d_bytes": counters.get("perf.h2d_bytes", 0),
                 "d2h_bytes": counters.get("perf.d2h_bytes", 0),
@@ -316,7 +315,6 @@ def perf_summary(events):
         else:  # no epoch boundary, or the sampler ran past the last one
             s = last_sample[rank]
             per_rank[rank] = {
-                "retraces": s.get("retraces", 0),
                 "dispatches": s.get("dispatches", 0),
                 "h2d_bytes": s.get("h2d_bytes", 0),
                 "d2h_bytes": s.get("d2h_bytes", 0),
@@ -341,18 +339,18 @@ def render_perf(directory, events=None):
     for rank in sorted(p["per_rank"]):
         row = p["per_rank"][rank]
         lines.append(
-            f"rank {rank}: retraces={row['retraces']} "
-            f"dispatches={row['dispatches']} "
+            f"rank {rank}: dispatches={row['dispatches']} "
             f"h2d={row['h2d_bytes']}B d2h={row['d2h_bytes']}B")
-        for name in ("data", "step", "comm", "ckpt"):
-            ph = row["phases"].get(name)
+        for name, ph in sorted(row["phases"].items()):
             if not ph:
                 continue
             mean = ph.get("mean_s")
+            device = ph.get("device_total_s")
             lines.append(
                 f"  phase {name}: n={ph.get('count', 0)} "
                 f"total={ph.get('total_s', 0.0):.3f}s"
-                + (f" mean={mean * 1e3:.2f}ms" if mean else ""))
+                + (f" mean={mean * 1e3:.2f}ms" if mean else "")
+                + (f" device={device:.3f}s" if device is not None else ""))
     t0 = events[0].get("t", 0.0) if events else 0.0
     if p["watchdog_alerts"]:
         lines.append("watchdog alerts:")

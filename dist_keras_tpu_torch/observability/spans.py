@@ -37,13 +37,13 @@ on another thread *then*) are stamped retroactively with
 :func:`span_at`, which emits a single ``span_end`` record carrying
 explicit ``t0`` + ``duration_s``.
 
-When a **device trace is active** (a caller running ``torch.profiler``
-flips :func:`set_device_trace`), each span additionally opens a
-``torch.profiler.record_function`` range so the same names show up
+While a **device trace is active** (any ``torch.profiler`` recording in
+this process, :func:`device_trace_active`), each span additionally opens
+a ``torch.profiler.record_function`` range so the same names show up
 inside the profiler's timeline — one annotation vocabulary for both the
-host-side event log and the device trace.  Nothing here imports torch
-unless that flag is on, so spans stay usable in processes that never
-touch a device.
+host-side event log and the device trace.  Nothing here imports torch:
+a process that has not loaded it runs no profiler, so spans stay usable
+in processes that never touch a device.
 
 Zero-cost contract: with ``DK_OBS_DIR`` unset and no device trace, a
 span is ONE SHARED no-op context-manager object — no clock read, no id
@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import random
+import sys
 import threading
 import time
 
@@ -91,12 +92,9 @@ KNOWN_SPANS = (
     "route.forward",
     # parameter-server commit apply (ps/server.py)
     "ps.commit",
-    # perf phases under an open device trace (observability/perf.py)
-    "perf.*",
 )
 
 _tls = threading.local()           # per-thread open-span stack + base ctx
-_device_trace_active = False       # toggled by utils.profiling.trace
 
 # id minting: one process-wide RNG; DK_TRACE_SEED makes the id sequence
 # a pure function of the seed (the chaos/gate replay convention)
@@ -158,15 +156,13 @@ class SpanContext:
         return f"SpanContext({self.trace_id!r}, {self.span_id!r})"
 
 
-def set_device_trace(active):
-    """Record whether a ``torch.profiler`` device trace is running —
-    spans forward to ``record_function`` only while it is."""
-    global _device_trace_active
-    _device_trace_active = bool(active)
-
-
 def device_trace_active():
-    return _device_trace_active
+    """Whether a ``torch.profiler`` is recording in this process (any
+    profiler: ``utils.profiling.trace``, a benchmark's, a user's) —
+    spans and ``perf.phase`` forward to ``record_function`` only while
+    one is.  False without torch loaded."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
 
 
 def _prune_stacks_locked():
@@ -232,7 +228,7 @@ def _span_impl(name, fields):
     st.append((str(name), sid, trace))
     path = ".".join(e[0] for e in st)
     ann = None
-    if _device_trace_active:
+    if device_trace_active():
         try:
             import torch.profiler
 
@@ -271,7 +267,7 @@ def span(name, **fields):
     ...     with span("chunk", i=0):
     ...         ...   # events: train.run, train.run.chunk
     """
-    if not events.enabled() and not _device_trace_active:
+    if not events.enabled() and not device_trace_active():
         return _NOOP
     return _span_impl(name, fields)
 
@@ -314,7 +310,7 @@ def capture():
     :func:`resume`.  None when there is nothing to capture (which
     :func:`resume` accepts as a no-op) — so the seam code is one
     unconditional ``capture()`` / ``resume(ctx)`` pair."""
-    if not events.enabled() and not _device_trace_active:
+    if not events.enabled() and not device_trace_active():
         return None
     return current()
 

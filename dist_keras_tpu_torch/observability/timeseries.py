@@ -24,7 +24,7 @@ Design points:
   and — when the event log is enabled — emits one compact
   ``perf_sample`` event carrying the perf-attribution snapshot
   (:func:`~dist_keras_tpu_torch.observability.perf.snapshot`), so the merged
-  report can plot retraces/dispatches/phase walls over time.
+  report can plot dispatches/phase walls over time.
 - **Zero-cost when off.**  :func:`maybe_start_sampler` (called from
   ``Trainer.record_training_start`` and the serving front end) is one
   env read when ``DK_OBS_SAMPLE_S`` is unset — no thread, no series, no

@@ -42,6 +42,12 @@ Every rank runs every collective, forward and backward, in one order:
 the checkpointed block of ``remat=True`` re-runs its forward
 collectives inside the backward on every rank alike.
 
+Each step is the ``perf.phase`` ``tp.step``, timed on the card, and
+tiled by its phases ``tp.forward`` (the casts, the forward and the
+loss), ``tp.backward`` (``torch.autograd.grad``), ``tp.grad_reduce`` (the
+``seq`` and ``workers`` sums, where an axis spans ranks) and
+``tp.optimizer`` (the update and its application).
+
 Three details must match the reference: the pooled mean divides by
 ``cfg["seq_len"]``, not by the input's T; the positions are sliced to
 this block's ``[start, start + T)``; and with ``compute_dtype`` the
@@ -63,6 +69,7 @@ from dist_keras_tpu_torch.models.transformer import (
     layer_norm,
     mlp_half,
 )
+from dist_keras_tpu_torch.observability import perf
 from dist_keras_tpu_torch.ops.attention import ring_attention
 from dist_keras_tpu_torch.ops.flash_attention import flash_attention
 from dist_keras_tpu_torch.ops.optimizers import adam, apply_updates
@@ -218,30 +225,36 @@ def loss_and_grads(params, x, y, cfg, causal=False, compute_dtype=None,
     ranks the loss and every grad are averaged over ``workers`` (one
     packed all-reduce each)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    p = tree_unflatten(params, leaves)
-    if compute_dtype is not None:
-        p = tree_cast(p, compute_dtype)
-        x = x.to(compute_dtype)
-    logits = tp_transformer_forward(p, x, cfg, causal=causal, remat=remat,
-                                    attn_fn=attn_fn, mesh=mesh)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(1, y.long()[:, None]).mean()
-    grads = list(torch.autograd.grad(nll, leaves))
+    with perf.phase("tp.forward", device=x.device):
+        p = tree_unflatten(params, leaves)
+        if compute_dtype is not None:
+            p = tree_cast(p, compute_dtype)
+            x = x.to(compute_dtype)
+        logits = tp_transformer_forward(p, x, cfg, causal=causal,
+                                        remat=remat, attn_fn=attn_fn,
+                                        mesh=mesh)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(1, y.long()[:, None]).mean()
+    with perf.phase("tp.backward", device=x.device):
+        grads = list(torch.autograd.grad(nll, leaves))
     nll = nll.detach()
-    seq = _axis(mesh, SEQ_AXIS)
-    if seq is not None:
-        # the head sits after the pooled sum: its grads are whole on
-        # every rank; every other leaf's are this rank's share
-        head = {id(t) for t in tree_leaves(params["head"])}
-        local = [i for i, t in enumerate(tree_leaves(params))
-                 if id(t) not in head]
-        for i, g in zip(local, collectives.cross_rank_sum(
-                [grads[i] for i in local], seq)):
-            grads[i] = g
-    workers = _axis(mesh, WORKER_AXIS)
-    if workers is not None:
-        *grads, nll = [g / workers.size for g in collectives.cross_rank_sum(
-            grads + [nll], workers)]
+    seq, workers = _axis(mesh, SEQ_AXIS), _axis(mesh, WORKER_AXIS)
+    if seq is None and workers is None:
+        return nll, tree_unflatten(params, grads)
+    with perf.phase("tp.grad_reduce", device=x.device):
+        if seq is not None:
+            # the head sits after the pooled sum: its grads are whole on
+            # every rank; every other leaf's are this rank's share
+            head = {id(t) for t in tree_leaves(params["head"])}
+            local = [i for i, t in enumerate(tree_leaves(params))
+                     if id(t) not in head]
+            for i, g in zip(local, collectives.cross_rank_sum(
+                    [grads[i] for i in local], seq)):
+                grads[i] = g
+        if workers is not None:
+            *grads, nll = [g / workers.size
+                           for g in collectives.cross_rank_sum(
+                               grads + [nll], workers)]
     return nll, tree_unflatten(params, grads)
 
 
@@ -277,13 +290,16 @@ def make_tp_train_step(cfg, optimizer=None, loss="softmax_xent",
     tx = optimizer or adam(1e-3)
 
     def step(params, opt_state, x, y):
-        x = torch.as_tensor(x, device=dev)
-        y = torch.as_tensor(y, device=dev)
-        loss_val, grads = loss_and_grads(params, x, y, cfg, causal=causal,
-                                         compute_dtype=compute_dtype,
-                                         remat=remat, mesh=mesh)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss_val
+        with perf.phase("tp.step", device=dev):
+            x = torch.as_tensor(x, device=dev)
+            y = torch.as_tensor(y, device=dev)
+            loss_val, grads = loss_and_grads(
+                params, x, y, cfg, causal=causal,
+                compute_dtype=compute_dtype, remat=remat, mesh=mesh)
+            with perf.phase("tp.optimizer", device=dev):
+                updates, opt_state = tx.update(grads, opt_state, params)
+                params = apply_updates(params, updates)
+        return params, opt_state, loss_val
 
     def init_fn(seed=0):
         gen = torch.Generator().manual_seed(int(seed))

@@ -44,7 +44,10 @@ then every rank's workers on every rank.
 Telemetry, as the JAX runner's: ``perf.phase`` histograms for ``data``
 (the feed's get and prefetch, the host's staging copy included),
 ``step`` (the dispatch's enqueue, the boundary's wait and each loss
-fetch), ``comm`` (the votes) and ``ckpt``; ``perf.d2h`` per fetch,
+fetch), ``comm`` (the votes) and ``ckpt``, and before the runner starts
+``layout`` (the resident epoch's transpose, its copy to the card and the
+drain; streamed, chunk 0's get and drain), timed on the trainer's card
+too; ``perf.d2h`` per fetch,
 ``perf.count_dispatch`` per chunk; the ``step.loss`` fault point over
 each fetched loss array; a ``train.run`` span rooting the run; and a
 ``chunk`` event per chunk with ``streamed``.
@@ -240,8 +243,9 @@ def run_chunked(trainer, xs, ys, *, total, per_epoch, samples_per_unit,
         # chunk 0's copy and the carry land OUTSIDE the clock, like the
         # resident path's one copy; chunks 1.. copy inside it, under the
         # running dispatch (plan may be empty: resume of a finished run)
-        first = feed.get(0) if plan else ()
-        drain(*carry_leaves, *first)
+        with perf.phase("layout", device=trainer.device):
+            first = feed.get(0) if plan else ()
+            drain(*carry_leaves, *first)
 
         def run_one(i, K, units_done, data):
             off = spans[i][0]
@@ -249,11 +253,12 @@ def run_chunked(trainer, xs, ys, *, total, per_epoch, samples_per_unit,
                             tuple(_Shifted(t, off) for t in data))
         resident = ()
     else:
-        resident = tuple(
-            torch.from_numpy(np.ascontiguousarray(layout(a))).to(
-                trainer.device) for a in (xs, ys))
-        # data AND carry-state copies complete OUTSIDE the clock
-        drain(*resident, *carry_leaves)
+        with perf.phase("layout", device=trainer.device):
+            resident = tuple(
+                torch.from_numpy(np.ascontiguousarray(layout(a))).to(
+                    trainer.device) for a in (xs, ys))
+            # data AND carry-state copies complete OUTSIDE the clock
+            drain(*resident, *carry_leaves)
         run_one = dispatch
     runner = ChunkRunner(trainer, plan=plan, start=start, total=total,
                          per_epoch=per_epoch,
@@ -392,7 +397,6 @@ class ChunkRunner:
         # resolved whatever handle_preemption says: the halt verdict
         # below must be cluster-wide on any multi-host run
         coord = coordination.get_coordinator()
-        perf.install()
         tr.record_training_start()
         t_mark = time.time()
         # the run's root span: every chunk breadcrumb, vote and

@@ -35,7 +35,10 @@ windows per chunk (``trainers/chunking.py``; ``max_resident_bytes``
 turns streaming on when the epoch exceeds it); window ``g`` reads the
 epoch's window ``g % windows_per_epoch``, as the JAX scan does.
 Nothing in the loop reads a value back to the host: the losses are
-fetched once per chunk (``trainers/chunking.py``).
+fetched once per chunk (``trainers/chunking.py``).  Each window's steps
+and its merge are the ``perf.phase`` phases ``window`` and ``merge``,
+and the call's sharding of the rows ``shard``, timed on the trainer's
+card too.
 
 Randomness: one ``torch.Generator`` on the device, seeded with ``seed``,
 feeds every worker's dropout (each worker draws its own mask through
@@ -58,6 +61,7 @@ import warnings
 import torch
 
 from dist_keras_tpu_torch.comm import backend as comm
+from dist_keras_tpu_torch.observability import perf
 from dist_keras_tpu_torch.ops.optimizers import chain, trace
 from dist_keras_tpu_torch.parallel.collectives import (
     AsyncMerge,
@@ -161,25 +165,27 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
             else knobs.get("DK_COMM_OVERLAP"))
         if shuffle:
             dataset = dataset.shuffle(seed=self.seed)
-        xs, ys = self._shards(dataset)  # (workers, steps, batch, ...)
+        with perf.phase("shard", device=self.device):
+            xs, ys = self._shards(dataset)  # (workers, steps, batch, ...)
 
-        W = min(self.communication_window, xs.shape[1])
-        wpe = xs.shape[1] // W  # windows per epoch
-        # whole windows only, cut per epoch (the remainder is dropped
-        # every epoch, like the reference's fixed mini-batching)
-        if W < self.communication_window:
-            warnings.warn(
-                f"communication_window={self.communication_window} > "
-                f"{xs.shape[1]} steps per worker per epoch; effective "
-                f"window shrunk to {W}", stacklevel=2)
-        dropped = xs.shape[1] - wpe * W
-        if dropped:
-            warnings.warn(
-                f"dropping {dropped} trailing step(s) per worker per epoch "
-                f"(not a whole communication window)", stacklevel=2)
-        n = xs.shape[0]
-        xs = xs[:, :wpe * W].reshape(n, wpe, W, *xs.shape[2:])
-        ys = ys[:, :wpe * W].reshape(n, wpe, W, *ys.shape[2:])
+            W = min(self.communication_window, xs.shape[1])
+            wpe = xs.shape[1] // W  # windows per epoch
+            # whole windows only, cut per epoch (the remainder is dropped
+            # every epoch, like the reference's fixed mini-batching)
+            if W < self.communication_window:
+                warnings.warn(
+                    f"communication_window={self.communication_window} > "
+                    f"{xs.shape[1]} steps per worker per epoch; effective "
+                    f"window shrunk to {W}", stacklevel=2)
+            dropped = xs.shape[1] - wpe * W
+            if dropped:
+                warnings.warn(
+                    f"dropping {dropped} trailing step(s) per worker per "
+                    f"epoch (not a whole communication window)",
+                    stacklevel=2)
+            n = xs.shape[0]
+            xs = xs[:, :wpe * W].reshape(n, wpe, W, *xs.shape[2:])
+            ys = ys[:, :wpe * W].reshape(n, wpe, W, *ys.shape[2:])
         # on the card as (wpe, W, workers, batch, ...): run_chunked
         total_w = self.num_epoch * wpe
 
@@ -251,26 +257,29 @@ class AsynchronousDistributedTrainer(DistributedTrainer):
         def window(xw, yw):
             nonlocal center, pending, local, opt_state
             carry, losses = (local, opt_state, generator), []
-            for j in range(W):
-                carry, loss = step(carry, (xw[j], yw[j]))
-                losses.append(loss)
+            with perf.phase("window", device=self.device):
+                for j in range(W):
+                    carry, loss = step(carry, (xw[j], yw[j]))
+                    losses.append(loss)
             local, opt_state, _ = carry
             # integer leaves are RNG state, not weights: exempt from the
             # merge algebra (tree_merge_floats), as in the JAX package
-            if overlap:
-                delta = self.commit(center, local)
-                center = tree_merge_floats(tree_add(center, landed()),
-                                           center)
-                local = tree_merge_floats(
-                    self.absorb(center, local, delta), local)
-                if merger is not None:
-                    merger.submit(delta)
+            with perf.phase("merge", device=self.device):
+                if overlap:
+                    delta = self.commit(center, local)
+                    center = tree_merge_floats(tree_add(center, landed()),
+                                               center)
+                    local = tree_merge_floats(
+                        self.absorb(center, local, delta), local)
+                    if merger is not None:
+                        merger.submit(delta)
+                    else:
+                        pending = tree_merge_floats(tree_psum(delta),
+                                                    pending)
                 else:
-                    pending = tree_merge_floats(tree_psum(delta), pending)
-            else:
-                new_center, new_local = self.merge(center, local)
-                center = tree_merge_floats(new_center, center)
-                local = tree_merge_floats(new_local, local)
+                    new_center, new_local = self.merge(center, local)
+                    center = tree_merge_floats(new_center, center)
+                    local = tree_merge_floats(new_local, local)
             return losses
 
         def dispatch(i, K, windows_done, data):

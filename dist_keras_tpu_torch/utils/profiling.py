@@ -5,9 +5,9 @@ on ``torch.profiler``.
   recording the host's operators, and the card's kernels and copies once
   the process has initialised CUDA.  On exit it writes a Chrome trace
   (``<host>_<pid>.<ns>.pt.trace.json``, TensorBoard's and Perfetto's
-  format) into ``logdir``.  While it is open, ``observability.span``
-  regions forward their names into the trace as ``record_function``
-  ranges.
+  format) into ``logdir``.  While it (or any other ``torch.profiler``)
+  records, ``observability.span`` regions and ``perf.phase`` phases
+  forward their names into the trace as ``record_function`` ranges.
 - ``annotate(name)``: named region that shows up inside the trace (a
   ``record_function`` range, and an NVTX range where CUDA is available).
 - ``StepTimer``: cheap host-side per-call timer with summary stats, for
@@ -24,7 +24,6 @@ import time
 import torch
 
 from dist_keras_tpu_torch.observability import metrics as _metrics
-from dist_keras_tpu_torch.observability import spans as _spans
 
 
 def _activities():
@@ -48,20 +47,18 @@ def trace(logdir):
     """Capture a trace into ``logdir`` (view with TensorBoard or
     Perfetto).
 
-    Also flips the span-forwarding flag so every
-    ``observability.span(...)`` opened inside shows up as a
-    ``record_function`` range in the captured timeline; the flag is
-    cleared again even when the body raises."""
+    Every ``observability.span(...)`` and ``perf.phase(...)`` opened
+    inside shows up as a ``record_function`` range in the captured
+    timeline (they detect the running profiler); the profiler stops,
+    and the trace is written, even when the body raises."""
     prof = torch.profiler.profile(
         activities=_activities(),
         on_trace_ready=torch.profiler.tensorboard_trace_handler(
             str(logdir)))
     prof.start()
-    _spans.set_device_trace(True)
     try:
         yield
     finally:
-        _spans.set_device_trace(False)
         prof.stop()
 
 

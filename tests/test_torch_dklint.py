@@ -8,7 +8,9 @@ package's (``dist_keras_tpu/analysis``).
 - the port's tree: the JAX analyzer finds exactly what the port's does,
   plus one ``untyped-raise`` at ``ops/_build.py`` — F5, the JAX pass's
   substring scope test, which puts ``ops/`` under ``ps/``'s typed-error
-  contract and which the port fixes (pinned on a fixture below);
+  contract and which the port fixes (pinned on a fixture below) — and
+  the README metrics rows marked ``(JAX package only)``: the JAX
+  package's retrace counters, which the port does not register;
 - the port's tree is clean with the shipped, empty baseline, in process
   and through ``python -m dist_keras_tpu_torch.analysis --json``
   (rc 0, no jax loaded);
@@ -37,12 +39,16 @@ from dist_keras_tpu_torch.analysis import (
     run_analysis,
 )
 from dist_keras_tpu_torch.analysis.__main__ import main as dklint_main
+from dist_keras_tpu_torch.analysis.registries import JAX_ONLY
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(REPO, "dist_keras_tpu")
 PORT = os.path.join(REPO, "dist_keras_tpu_torch")
 README = os.path.join(REPO, "README.md")
 BUDGET_S = 20.0   # tests/test_dklint.py::test_analyzer_runtime_budget
+# registered by the JAX package and not by the port (eager PyTorch
+# compiles nothing)
+JAX_ONLY_METRICS = ("perf.compile_s", "perf.retraces", "perf.traces")
 
 
 def write_tree(root, files, readme=None):
@@ -621,6 +627,28 @@ def test_f5_the_typed_error_scope_is_path_components(tmp_path):
     assert [f for f in jax_f if f[1] != "ops/x.py"] == port_f
 
 
+def test_a_row_marked_jax_only_is_no_drift_in_the_port(tmp_path):
+    """A README metrics row marked ``(JAX package only)`` documents a
+    metric that only the JAX package registers: the port's analyzer
+    lets it be, the JAX analyzer still holds it to its registry, and an
+    unmarked ghost row is drift to both."""
+    readme = write_tree(tmp_path, {"metrics.py": METRICS},
+                        METRIC_TABLE.format(extra=(
+                            f"| `ghost.metric` | counter | {JAX_ONLY} |\n"
+                            "    | `q.depth` | gauge |")))
+
+    def metric_rules(found):
+        return [f[0] for f in found if f[0].startswith("metric")]
+
+    jax_f, port_f = both(tmp_path, readme)
+    assert metric_rules(jax_f) == ["metric-doc-drift"]
+    assert metric_rules(port_f) == []
+    write_tree(tmp_path, {}, METRIC_TABLE.format(extra=(
+        "| `ghost.metric` | counter |\n    | `q.depth` | gauge |")))
+    jax_f, port_f = both(tmp_path, readme)
+    assert metric_rules(port_f) == ["metric-doc-drift"] == metric_rules(jax_f)
+
+
 def test_jit_impure_reads_torch_compile(tmp_path):
     write_tree(tmp_path, {"x.py": """
         import random
@@ -694,8 +722,18 @@ def test_on_the_port_tree_the_jax_analyzer_differs_only_by_f5(trees):
     jax_f, port_f = norm(trees["jax_on_port"]), norm(trees["port_on_port"])
     extra = [f for f in jax_f if f not in port_f]
     assert [f for f in jax_f if f not in extra] == port_f
-    assert [(r, p) for r, p, _, _ in extra] == [
+    assert [(r, p) for r, p, _, _ in extra if r != "metric-doc-drift"] == [
         ("untyped-raise", "ops/_build.py")]
+    # the README rows of the JAX package's own metrics, which the port's
+    # analyzer leaves to the JAX package's
+    drift = [(p, m) for r, p, _, m in extra if r == "metric-doc-drift"]
+    assert sorted(drift) == [(README, f"README metrics table names {name!r} which "
+                      "is not in metrics.KNOWN_METRICS")
+                     for name in sorted(JAX_ONLY_METRICS)]
+    with open(README) as f:
+        rows = [ln for ln in f if ln.startswith("| `perf.")]
+    assert sorted(r.split("`")[1] for r in rows
+                  if JAX_ONLY in r) == sorted(JAX_ONLY_METRICS)
 
 
 def test_port_tree_is_clean_with_shipped_baseline(trees):

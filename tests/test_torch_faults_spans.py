@@ -363,11 +363,18 @@ def test_perf_counters_and_snapshot(pkg):
     assert (snap["dispatches"], snap["h2d_bytes"], snap["d2h_bytes"]) \
         == (3, 1024, 64)
     assert snap["phases"]["step"]["count"] == 1
-    assert snap["retraces"] == 0 and snap["traces"] == 0
+    if perf is jax_perf:
+        assert snap["retraces"] == 0 and snap["traces"] == 0
+    else:   # eager PyTorch compiles nothing: no retrace counters
+        assert set(snap) == {"dispatches", "h2d_bytes", "d2h_bytes",
+                             "phases"}
 
 
 def test_perf_has_no_retrace_listener_in_eager_pytorch():
-    assert t_perf.install() is False and t_perf.installed() is False
+    assert not hasattr(t_perf, "install") and not hasattr(t_perf,
+                                                          "installed")
+    assert not {"perf.retraces", "perf.traces", "perf.compile_s"} & set(
+        t_metrics.KNOWN_METRICS)
     assert t_perf.PHASES == jax_perf.PHASES
 
 

@@ -404,7 +404,7 @@ def _snapshot(seed):
         {"value": float(v), "trace_id": f"{i:032x}", "span_id": f"{i:016x}",
          "t": 1.0 + i} for i, v in enumerate(rng.uniform(0, 1, size=3))]
     return {"counters": {"serve.completed": int(rng.integers(1000)),
-                         "route.hedges": 2, "perf.retraces": 0},
+                         "route.hedges": 2, "perf.dispatches": 0},
             "gauges": {"serve.pending": float(rng.integers(9)),
                        "route.backends_live": 2, "slo.burn": 0.5,
                        "odd name-x": 1.0, "not.numeric": "x"},

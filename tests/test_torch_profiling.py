@@ -4,8 +4,10 @@ package's.
 - ``StepTimer``'s summaries equal the JAX one's on the same observed
   durations (both wrap their package's metrics histogram).
 - ``trace(logdir)`` records CPU activity into a Chrome trace that holds an
-  open span's name and an ``annotate`` region's, and flips the span
-  forwarding flag on inside and off after, also when the body raises.
+  open span's name, a ``perf.phase``'s and an ``annotate`` region's;
+  spans detect the running profiler (any profiler, not only
+  ``trace``'s) and forward inside it and not after, also when the body
+  raises.
 - A process that has started CUDA but whose ``torch.profiler`` cannot
   record it gets an error, never a CPU-only trace.
 
@@ -29,10 +31,10 @@ from dist_keras_tpu_torch.utils import profiling
 
 @pytest.fixture(autouse=True)
 def _clean():
-    spans.set_device_trace(False)
+    assert not spans.device_trace_active()
     metrics.reset()
     yield
-    spans.set_device_trace(False)
+    assert not spans.device_trace_active()
     metrics.reset()
 
 
@@ -81,11 +83,14 @@ def _trace_events(logdir):
 
 
 def test_trace_writes_the_span_and_annotate_names(tmp_path):
+    from dist_keras_tpu_torch.observability import perf
+
     with profiling.trace(tmp_path):
         assert spans.device_trace_active()
         with spans.span("train.step"):
             with profiling.annotate("train.step.body"):
-                torch.ones(8, 8) @ torch.ones(8, 8)
+                with perf.phase("tp.forward"):
+                    torch.ones(8, 8) @ torch.ones(8, 8)
         region = profiling.annotate("again")
         for _ in range(2):
             with region:
@@ -95,11 +100,14 @@ def test_trace_writes_the_span_and_annotate_names(tmp_path):
     names = [e.get("name") for e in evs if e.get("cat") == "user_annotation"]
     assert names.count("train.step") == 1
     assert names.count("train.step.body") == 1
+    assert names.count("tp.forward") == 1
     assert names.count("again") == 2
     step = next(e for e in evs if e.get("name") == "train.step")
     body = next(e for e in evs if e.get("name") == "train.step.body")
-    assert step["ts"] <= body["ts"]
-    assert body["ts"] + body["dur"] <= step["ts"] + step["dur"]
+    fwd = next(e for e in evs if e.get("name") == "tp.forward")
+    assert step["ts"] <= body["ts"] <= fwd["ts"]
+    assert fwd["ts"] + fwd["dur"] <= body["ts"] + body["dur"] \
+        <= step["ts"] + step["dur"]
     # CPU activity only: no CUDA here, and none asked for
     assert not any(e.get("cat") == "kernel" for e in evs)
     assert any(e.get("cat") == "cpu_op" for e in evs)
@@ -114,6 +122,13 @@ def test_spans_forward_only_inside_trace(tmp_path, monkeypatch):
     assert spans.span("x") is spans.span("y")
     with profiling.trace(tmp_path):
         assert spans.span("x") is not spans.span("y")
+    assert spans.span("x") is spans.span("y")
+    # any profiler counts, not only trace()'s
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert spans.device_trace_active()
+        assert spans.span("x") is not spans.span("y")
+    assert not spans.device_trace_active()
     assert spans.span("x") is spans.span("y")
 
 

@@ -155,14 +155,23 @@ def test_perf_phases_and_transfer_bytes(tmp_path, monkeypatch):
 
 
 def test_perf_phases_equal_jax_counts(tmp_path, monkeypatch):
-    """The same phases are recorded the same number of times."""
+    """The JAX runner's phases are recorded the same number of times; the
+    port adds a call's ``shard`` and ``layout`` and each window's
+    ``window`` and ``merge``."""
     _train("port", tmp_path / "t", monkeypatch, stream_chunk_windows=2)
     _train("jax", tmp_path / "j", monkeypatch, stream_chunk_windows=2)
     counts = [{k: v["count"] for k, v in m.snapshot()["histograms"].items()
                if k.startswith("perf.phase.") or k.startswith("perf.h2d")
                or k.startswith("perf.d2h")}
               for m in (metrics, jmetrics)]
+    own = {f"perf.phase.{k}": counts[0].pop(f"perf.phase.{k}")
+           for k in ("shard", "layout", "window", "merge")}
     assert counts[0] == counts[1]
+    windows = own["perf.phase.window"]
+    assert windows > 1 and own == {"perf.phase.shard": 1,
+                                   "perf.phase.layout": 1,
+                                   "perf.phase.window": windows,
+                                   "perf.phase.merge": windows}
     for key in ("perf.h2d_bytes", "perf.dispatches", "perf.d2h_bytes"):
         assert (metrics.snapshot()["counters"][key]
                 == jmetrics.snapshot()["counters"][key]), key

@@ -23,6 +23,10 @@ launches:
   v=1 and v=2; ``make_tp_mesh``'s default and refused products;
 - 8 ranks: the (2, 2, 2) TP step (``bench_transformer_tp``'s mesh).
 
+Each TP step's last ``perf.phase`` records are its phases in order,
+``tp.grad_reduce`` among them only where a ``workers`` or ``seq`` axis
+spans ranks.
+
 The references run on the same meshes, but for two: the ``remat`` runs
 are held to the same mesh's run without remat, and every
 ``make_pp_train_step`` cell to JAX's pure 2-stage pipe at the same
@@ -109,6 +113,7 @@ torch.set_num_threads(1)
 from dist_keras_tpu_torch import comm
 from dist_keras_tpu_torch.checkpoint import Checkpointer
 from dist_keras_tpu_torch.models.transformer import transformer_apply
+from dist_keras_tpu_torch.observability import perf
 from dist_keras_tpu_torch.ops.attention import attention
 from dist_keras_tpu_torch.ops.optimizers import Optimizer, sgd
 from dist_keras_tpu_torch.parallel import collectives
@@ -161,9 +166,12 @@ for dp, tp, sp, remat in inp["tp_meshes"]:
     params = ttp.split_tp_params(params_from_jax(inp["tp_params"], "cpu"),
                                  mesh)
     opt = tx.init(params)
+    perf.reset()
     losses, grads, params = three_steps(factory(params, opt), params, opt,
                                         x, y)
+    last = [r["name"] for r in perf.records()]
     res[f"tp_{dp}_{tp}_{sp}_{remat}"] = dict(
+        phases=last[len(last) - 1 - last[::-1].index("tp.step"):],
         losses=losses,
         grads=params_to_numpy(ttp.gather_tp_params(grads, mesh)),
         params=params_to_numpy(ttp.gather_tp_params(params, mesh)),
@@ -623,6 +631,24 @@ def test_the_tp_step_matches_the_reference(tmp_path_factory, n, mesh):
     want, got, _ = _launched(n, tmp_path_factory)
     key = "tp_{}_{}_{}_{}".format(*mesh)
     _matches(got, key, want["tp_{}_{}_{}".format(*mesh[:3])])
+
+
+@pytest.mark.parametrize("n,mesh", [(n, m) for n in (2, 4, 8)
+                                    for m in TP_MESHES[n]],
+                         ids=lambda v: str(v))
+def test_the_tp_step_records_its_phases(tmp_path_factory, n, mesh):
+    """Each rank's last step: ``tp.step``'s phases in order, with
+    ``tp.grad_reduce`` exactly where a ``workers`` or ``seq`` axis spans
+    ranks (the ``model`` axis sums inside the forward and backward)."""
+    _, got, _ = _launched(n, tmp_path_factory)
+    dp, _, sp, _ = mesh
+    want = ["tp.step", "tp.forward", "tp.backward"] + (
+        ["tp.grad_reduce"] if dp > 1 or sp > 1 else []) + ["tp.optimizer"]
+    for res in got:
+        phases = res["tp_{}_{}_{}_{}".format(*mesh)]["phases"]
+        # the collectives' own phases (comm_blocked) run inside
+        assert [p for p in phases if p.startswith("tp.")] == want
+        assert phases[:3] == want[:3] and phases[-1] == "tp.optimizer"
 
 
 def test_make_tp_mesh_builds_every_product_of_the_group(tmp_path_factory):

@@ -209,6 +209,31 @@ def test_training_reduces_loss():
     assert losses[-1] < losses[0]
 
 
+def test_a_step_records_its_phases_in_order():
+    """``tp.step`` tiled by ``tp.forward``, ``tp.backward`` and
+    ``tp.optimizer``; no ``tp.grad_reduce`` without an axis across
+    ranks, and no device time on the CPU."""
+    from dist_keras_tpu_torch.observability import perf
+
+    factory, init_fn = make_tp_train_step(CFG, device="cpu")
+    params, opt = init_fn(0)
+    x, y = _data()
+    step = factory(params, opt)
+    perf.reset()
+    for _ in range(2):
+        params, opt, _ = step(params, opt, torch.from_numpy(x),
+                              torch.from_numpy(y))
+    recs = perf.records()
+    assert [r["name"] for r in recs] == [
+        "tp.step", "tp.forward", "tp.backward", "tp.optimizer"] * 2
+    for i in (0, 4):
+        outer = recs[i]
+        assert outer["parent"] is None
+        assert all(r["parent"] == outer["seq"] for r in recs[i + 1:i + 4])
+        assert sum(r["host_s"] for r in recs[i + 1:i + 4]) <= outer["host_s"]
+    assert all(r["device_s"] is None for r in recs)
+
+
 def test_cpu_training_launches_no_kernel():
     before = (tflash.flash_fwd_launches, tflash.flash_bwd_dq_launches,
               tflash.flash_bwd_dkv_launches)

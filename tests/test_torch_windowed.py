@@ -339,3 +339,30 @@ def test_master_kwargs_and_parallelism_factor_are_accepted():
     assert t.num_workers == 3 and t.parallelism_factor == 4
     assert t.mesh.shape == {"workers": 3}
     assert t.mesh.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("overlap", [False, True], ids=["blocked", "overlap"])
+def test_a_call_records_its_phases_in_order(overlap):
+    """One ``train`` call: ``shard``, then ``layout``, then per window its
+    ``window`` and its ``merge`` (2 windows an epoch, 2 epochs), inside
+    the runner's ``step``."""
+    from dist_keras_tpu_torch.observability import perf
+
+    _, tm = _dense()
+    t = tw.ADAG(tm, num_workers=WORKERS, communication_window=WINDOW,
+                worker_optimizer="sgd", batch_size=BATCH, num_epoch=EPOCHS,
+                features_col="x", label_col="y", seed=3, device="cpu",
+                comm_overlap=overlap)
+    perf.reset()
+    with pytest.warns(UserWarning):
+        t.train(TDataset(_columns()))
+    recs = [r for r in perf.records()
+            if r["name"] in ("shard", "layout", "window", "merge", "step")]
+    names = [r["name"] for r in recs]
+    assert names[:2] == ["shard", "layout"]
+    windows = [r for r in recs if r["name"] in ("window", "merge")]
+    assert [r["name"] for r in windows] == ["window", "merge"] * 2 * EPOCHS
+    step = next(r for r in recs if r["name"] == "step")
+    assert {r["parent"] for r in windows} == {step["seq"]}
+    assert recs[0]["parent"] is None and recs[1]["parent"] is None
+    assert all(r["host_s"] > 0 and r["device_s"] is None for r in recs)
