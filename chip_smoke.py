@@ -75,6 +75,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    f32; then K2, K3 and K4 in f32 at the training shape against their
    plain versions and beside SDPA's f32 backward, K4 bit for bit against
    K2 + K3.
+8b. the optimizer kernels (``csrc/multi_tensor.cu``) on the ViT-B/16
+   params tree (150 leaves, 86,528,488 parameters): 3 chained steps of
+   adam and its apply through the kernels against the plain path, bit
+   for bit, in f32 and bf16, each with a 0-d count and a stacked
+   ``(4,)`` one; each kernel alone timed beside its byte bound (24 and
+   12 B a parameter), its plain version and ``torch._fused_adam_``.
+   Phase 7's steps launch each kernel once a step (counters zeroed
+   before them); the ``kernels`` line carries those counts.
 
 9. the paper's training loop: ``SingleTrainer`` on the MNIST MLP at
    ``tests/test_examples.py``'s full tier on the card, scored through
@@ -343,6 +351,7 @@ shorter CNN pair), 16b's turns (``PROOF16``: one run of ~1 s each),
 benches (``PROOF_BENCH``: one run of ~3 s each) so that it stays well
 inside the time limit; every check still runs.
 
+``python3 chip_smoke.py --phase8b`` runs only phases 1 and 8b;
 ``python3 chip_smoke.py --phase9`` runs only phases 1 and 9 (the bench
 at full length); ``--phase10`` only phases 1 and 10 (likewise);
 ``--phase11`` only phases 1 and 11 (11a on an untrained CNN: on a host
@@ -1294,18 +1303,24 @@ def train(fa, fu, rng, dev, gpu):
     launches = run_steps(fa, fu, factory, init_fn, x, y, gpu)
     per_step = TRAIN_STEPS * TRAIN_MODEL["n_layers"]
     require(launches == {"flash_fwd": per_step, "flash_bwd_dq": per_step,
-                         "flash_bwd_dkv": per_step, "flash_bwd_fused": 0},
+                         "flash_bwd_dkv": per_step, "flash_bwd_fused": 0,
+                         "adam_update": TRAIN_STEPS,
+                         "apply_updates": TRAIN_STEPS},
             f"expected {per_step} launches of K1, K2 and K3 (one per layer "
-            f"per step) and none of K4, got {launches}")
+            f"per step), none of K4 and one of each optimizer kernel a "
+            f"step, got {launches}")
     return launches, x, y
 
 
 def run_steps(fa, fu, factory, init_fn, x, y, gpu):
-    """10 adam steps from init_fn(0) with the launch counts zeroed just
-    before and read just after; then
+    """10 adam steps from init_fn(0) with the launch counts (the
+    attention and the optimizer kernels) zeroed just before and read
+    just after; then
     tokens/s, one step's wall beside its device time, and its profile.
     -> launches."""
     import torch
+
+    from dist_keras_tpu_torch.ops import multi_tensor as mt
 
     params, opt_state = init_fn(0)
     step = factory(params, opt_state)
@@ -1314,6 +1329,7 @@ def run_steps(fa, fu, factory, init_fn, x, y, gpu):
     fa.flash_bwd_dq_launches = 0
     fa.flash_bwd_dkv_launches = 0
     fu.fused_bwd_launches = 0
+    mt.adam_update_launches = mt.apply_updates_launches = 0
     losses = []
     t0 = time.perf_counter()
     for _ in range(TRAIN_STEPS):
@@ -1324,7 +1340,9 @@ def run_steps(fa, fu, factory, init_fn, x, y, gpu):
     launches = {"flash_fwd": fa.flash_fwd_launches,
                 "flash_bwd_dq": fa.flash_bwd_dq_launches,
                 "flash_bwd_dkv": fa.flash_bwd_dkv_launches,
-                "flash_bwd_fused": fu.fused_bwd_launches}
+                "flash_bwd_fused": fu.fused_bwd_launches,
+                "adam_update": mt.adam_update_launches,
+                "apply_updates": mt.apply_updates_launches}
     print(f"  {TRAIN_STEPS} adam steps: losses "
           f"{[round(v, 5) for v in losses]}")
     print(f"  launches on the main path: {launches}")
@@ -1813,6 +1831,125 @@ def fused_vs_two(k4, k2, k3, shape, gpu, fused, two):
           f"({k4 / (k2 + k3):.3f}x); results bit-equal {same}")
     require(same, f"fused_bwd is not bit-equal to K2+K3 at {shape}")
 
+
+# -- phase 8b: the optimizer kernels on the ViT-B/16 tree --------------------
+VIT_B16 = dict(input_dim=768, seq_len=196, d_model=768, n_heads=12,
+               n_layers=12, d_ff=3072, n_classes=1000)
+OPT_WORKERS = 4     # the stacked count's rows (ADAG's worker step)
+OPT_STEPS = 3
+
+
+def optimizer_kernels(gpu, dev):
+    """Adam's update and apply kernels (``csrc/multi_tensor.cu``) on the
+    ViT-B/16 params tree: 3 chained steps against the plain path, bit for
+    bit, in f32 and bf16 with a 0-d count and a stacked ``(W,)`` one;
+    then each kernel alone timed beside its byte bound, its plain
+    version and ``torch._fused_adam_`` -> the kernels' rows."""
+    import torch
+
+    from dist_keras_tpu_torch.models.transformer import (
+        init_transformer_params,
+        transformer_config,
+    )
+    from dist_keras_tpu_torch.ops import multi_tensor as mt
+    from dist_keras_tpu_torch.ops import optimizers as opt
+    from dist_keras_tpu_torch.utils.pytree import (
+        tree_leaves,
+        tree_map,
+        tree_stack,
+    )
+
+    base = tree_map(lambda t: t.to(dev), init_transformer_params(
+        torch.Generator().manual_seed(0), transformer_config(**VIT_B16)))
+    leaves = tree_leaves(base)
+    n = sum(t.numel() for t in leaves)
+    require(len(leaves) == 150 and n == 86_528_488,
+            f"the ViT-B/16 tree has {len(leaves)} leaves of {n} parameters")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a0, p0 = mt.adam_update_launches, mt.apply_updates_launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for workers in (None, OPT_WORKERS):
+            params = tree_map(lambda t: t.to(dtype), base if workers is None
+                              else tree_stack(base, workers))
+            tx, ref = opt.adam(1e-3), opt.adam_reference(1e-3)
+            sk = tx.init(params)
+            if workers is not None:   # each worker its own count
+                sk["count"] = torch.arange(workers, dtype=torch.int32,
+                                           device=dev)
+            pk, pp, sp = params, params, sk
+            for step in range(OPT_STEPS):
+                g = tree_map(lambda t: (torch.randn(
+                    t.shape, generator=gen, device=dev)
+                    * 10.0 ** (-2 - step)).to(dtype), params)
+                uk, sk = tx.update(g, sk, pk)
+                up, sp = ref.update(g, sp, pp)
+                pk = opt.apply_updates(pk, uk)
+                pp = opt.apply_updates_reference(pp, up)
+                same = all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves((uk, sk, pk)), tree_leaves((up, sp, pp))))
+                require(same, f"the optimizer kernels differ from the plain "
+                              f"path at step {step + 1}, "
+                              f"{str(dtype)[6:]}, count of shape "
+                              f"{tuple(sk['count'].shape)}")
+            print(f"  {str(dtype)[6:]}, count of shape "
+                  f"{tuple(sk['count'].shape)}: {OPT_STEPS} chained steps of "
+                  f"adam + apply bit-equal to the plain path (updates, "
+                  f"mu, nu, count, params)")
+            del params, sk, pk, pp, sp, g, uk, up
+            torch.cuda.empty_cache()
+    launches = (mt.adam_update_launches - a0, mt.apply_updates_launches - p0)
+    require(launches == (4 * OPT_STEPS,) * 2,
+            f"expected one launch of each kernel a step, got {launches}")
+    print(f"  launches in the phase: adam_update {launches[0]}, "
+          f"apply_updates {launches[1]}")
+
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=dev) * 1e-2, base)
+    tx, ref = opt.adam(1e-3), opt.adam_reference(1e-3)
+    state = tx.init(base)
+    count = state["count"] + 1
+    c1, c2 = 1 - opt._power(0.9, count), 1 - opt._power(0.999, count)
+    upd, _ = tx.update(grads, state, base)
+    ps = [t.clone() for t in leaves]
+    mus = [torch.zeros_like(t) for t in ps]
+    nus = [torch.zeros_like(t) for t in ps]
+    steps = [torch.zeros((), device=dev) for _ in ps]
+    gs = tree_leaves(grads)
+
+    def fused_adam():   # in place: reads g, p, mu, nu, writes p, mu, nu
+        torch._fused_adam_(ps, gs, mus, nus, [], steps, lr=1e-3, beta1=0.9,
+                           beta2=0.999, weight_decay=0.0, eps=1e-8,
+                           amsgrad=False, maximize=False)
+
+    rows = []
+    for name, run, plain, nbytes, flops, lib in (
+            ("adam_update",
+             lambda: mt.adam_update(grads, state["mu"], state["nu"], c1, c2,
+                                    0.9, 0.999, 1e-8, 0.0, 1e-3, base),
+             lambda: ref.update(grads, state, base), 24 * n, 14 * n,
+             time_ms(fused_adam, sleep_ms=120)),
+            ("apply_updates", lambda: mt.apply_updates(base, upd),
+             lambda: opt.apply_updates_reference(base, upd), 12 * n, n,
+             None)):
+        # the sleeps outlast the host's enqueueing of the timed calls
+        ms_ = time_ms(run, sleep_ms=120)
+        plain_ms = time_ms(plain, reps=3, trials=3, sleep_ms=400)
+        bnd, by = bound_ms(nbytes, flops)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "dist_keras_tpu_torch/csrc/multi_tensor.cu",
+                     "replaces": None, "max_abs_err": 0.0, "ms": ms_,
+                     "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                     "library_ms": lib})
+        lib_s = ("n/a" if lib is None
+                 else f"{lib:.4f} ms (torch._fused_adam_, in place, 28 B a "
+                      f"parameter)")
+        print(f"  {name} [ViT-B/16, {len(leaves)} f32 leaves, {n} "
+              f"parameters] on {gpu}: {ms_:.4f} ms, {bnd / ms_ * 100:.1f}% "
+              f"of its bound {bnd:.4f} ms ({by}, {nbytes // n} B a "
+              f"parameter), plain {plain_ms:.4f} ms, library {lib_s}")
+    del base, leaves, grads, state, upd, ps, mus, nus, steps, gs
+    torch.cuda.empty_cache()
+    return rows
 
 
 # -- phase 9: the paper's training loop (SingleTrainer) ---------------------
@@ -9090,6 +9227,9 @@ def main(argv=None):
                          "rungs (phase 6's inputs), from the "
                          "dist_keras_tpu_torch of CHECKOUT, to compare two "
                          "trees in one run")
+    ap.add_argument("--phase8b", action="store_true",
+                    help="run only phase 1 (the card) and phase 8b (the "
+                         "optimizer kernels on the ViT-B/16 tree)")
     ap.add_argument("--phase9", action="store_true",
                     help="run only phase 1 (the card) and phase 9 (the "
                          "paper's training loop, its bench at full "
@@ -9193,6 +9333,10 @@ def main(argv=None):
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     print(f"  allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if a.phase8b:
+        print("phase 8b: the optimizer kernels on the ViT-B/16 tree")
+        optimizer_kernels(gpu, torch.device("cuda"))
+        return 0
     if a.phase9:
         print("phase 9: the paper's training loop on the card")
         train_loop(fa, fu, da, gpu)
@@ -9279,7 +9423,8 @@ def main(argv=None):
     clock.watch("phase 10's CPU half (a thread of this process)",
                 lambda: cpu_half.exception())
     t0 = time.perf_counter()
-    libs = ["flash_fwd", "flash_bwd", "fused_bwd", "paged_decode"]
+    libs = ["flash_fwd", "flash_bwd", "fused_bwd", "paged_decode",
+            "multi_tensor"]
     built = _build.build(libs)
     usage = {}
     for name in libs:   # ptxas's lines, kept beside each library
@@ -9380,6 +9525,10 @@ def main(argv=None):
     for r in rows:
         r.pop("shape")
     torch.cuda.empty_cache()
+    clock.start("8b: the optimizer kernels on the ViT-B/16 tree")
+    for r in optimizer_kernels(gpu, dev):
+        r["launches"] = train_launches[r["name"]]
+        rows.append(r)
     clock.start("9: the paper's training loop (SingleTrainer, the MNIST "
           "MLP gate, one card)")
     train_loop(fa, fu, da, gpu, bench=PROOF_BENCH)

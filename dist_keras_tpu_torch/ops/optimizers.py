@@ -26,6 +26,13 @@ device, so a step never waits for the host.  Everything runs under
 ``torch.no_grad()`` and returns new tensors (the inputs stay as they
 were, as with optax).
 
+On CUDA, :func:`adam`'s update and :func:`apply_updates` are two
+hand-written kernels over the whole tree (``ops/multi_tensor.py``),
+bit-equal to their plain versions :func:`adam_reference` and
+:func:`apply_updates_reference`, which every other tree takes.  The
+other optimizers' directions stay eager on every device; their updates
+apply through the kernel.
+
 The registry (:func:`get_optimizer`) maps the reference's Keras strings
 to these with Keras's defaults — eps 1e-7 where Keras uses it, so the
 registry's ``'adam'`` has eps 1e-7 while :func:`adam` keeps optax's
@@ -34,16 +41,25 @@ registry's ``'adam'`` has eps 1e-7 while :func:`adam` keeps optax's
 
 from __future__ import annotations
 
+import numbers
 from typing import Callable, NamedTuple
 
 import torch
 
+from dist_keras_tpu_torch.ops import multi_tensor
 from dist_keras_tpu_torch.utils.pytree import tree_leaves, tree_map
 
 
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable
+
+
+def _on_cuda(tree):
+    """Whether ``tree``'s first leaf lies on a CUDA device: the trees
+    the kernels of ``ops/multi_tensor.py`` take (or refuse)."""
+    leaves = tree_leaves(tree)
+    return bool(leaves) and leaves[0].is_cuda
 
 
 def _count_like(params):
@@ -197,9 +213,9 @@ def _scale_by_adam(b1, b2, eps, eps_root, nesterov=False):
     return Optimizer(init, update)
 
 
-def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
-    """``optax.adam``: state ``{"count", "mu", "nu"}`` with an int32
-    count; moments kept in each param's dtype."""
+def adam_reference(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
+    """Plain version of :func:`adam`: the per-leaf eager operations, on
+    any device."""
     inner = _scale_by_adam(b1, b2, eps, eps_root)
 
     @torch.no_grad()
@@ -208,6 +224,35 @@ def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
         return tree_map(lambda u: -learning_rate * u, upd), state
 
     return Optimizer(torch.no_grad()(inner.init), update)
+
+
+def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
+    """``optax.adam``: state ``{"count", "mu", "nu"}`` with an int32
+    count; moments kept in each param's dtype.
+
+    A tree on CUDA takes the update kernel (``ops/multi_tensor.py``),
+    one launch for every leaf, bit-equal to :func:`adam_reference`,
+    which every other tree takes; the bias corrections stay eager ops
+    on the count."""
+    plain = adam_reference(learning_rate, b1, b2, eps, eps_root)
+
+    @torch.no_grad()
+    def update(grads, state, params=None):
+        if not _on_cuda(grads):
+            return plain.update(grads, state, params)
+        if not isinstance(learning_rate, numbers.Real):
+            raise TypeError(
+                f"adam on CUDA takes a number as its learning rate; got "
+                f"{type(learning_rate).__name__}")
+        count = state["count"] + 1
+        c1 = 1 - _power(b1, count)
+        c2 = 1 - _power(b2, count)
+        upd, mu, nu = multi_tensor.adam_update(
+            grads, state["mu"], state["nu"], c1, c2, b1, b2, eps, eps_root,
+            learning_rate, params)
+        return upd, {"count": count, "mu": mu, "nu": nu}
+
+    return Optimizer(plain.init, update)
 
 
 def nadam(learning_rate, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0):
@@ -295,9 +340,19 @@ def adadelta(learning_rate, rho=0.9, eps=1e-6):
 
 
 @torch.no_grad()
-def apply_updates(params, updates):
-    """``optax.apply_updates``: p + u, kept in p's dtype."""
+def apply_updates_reference(params, updates):
+    """Plain version of :func:`apply_updates`, on any device."""
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+@torch.no_grad()
+def apply_updates(params, updates):
+    """``optax.apply_updates``: p + u, kept in p's dtype.  A tree on
+    CUDA takes the apply kernel (``ops/multi_tensor.py``), one launch
+    for every leaf, bit-equal to :func:`apply_updates_reference`."""
+    if _on_cuda(params):
+        return multi_tensor.apply_updates(params, updates)
+    return apply_updates_reference(params, updates)
 
 
 # --------------------------------------------------------------------------

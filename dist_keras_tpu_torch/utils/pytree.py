@@ -28,6 +28,18 @@ def tree_leaves(tree):
     return leaves
 
 
+def tree_paths(tree, path=""):
+    """The paths of the leaves of ``tree`` in :func:`tree_leaves` order,
+    as ``['blocks'][3]['wq']`` (``""`` for a bare leaf)."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items()
+                for q in tree_paths(v, f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree)
+                for q in tree_paths(v, f"{path}[{i}]")]
+    return [path]
+
+
 def tree_unflatten(tree, leaves):
     """A tree shaped like ``tree`` whose leaves are ``leaves``, in
     :func:`tree_leaves` order."""

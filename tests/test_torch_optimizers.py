@@ -9,7 +9,7 @@ import optax
 import pytest
 import torch
 
-from dist_keras_tpu_torch.ops import optimizers
+from dist_keras_tpu_torch.ops import multi_tensor, optimizers
 from dist_keras_tpu_torch.utils.bridge import params_from_jax, params_to_numpy
 
 STEPS = 5
@@ -41,11 +41,16 @@ def test_optimizer_matches_optax(name, kwargs):
     opt = getattr(optimizers, name)(**kwargs)
     tp = params_from_jax(params, "cpu")
     state = opt.init(tp)
+    launches = (multi_tensor.adam_update_launches,
+                multi_tensor.apply_updates_launches)
     for g in grads:
         upd, jstate = tx.update(g, jstate, jp)
         jp = optax.apply_updates(jp, upd)
         tupd, state = opt.update(params_from_jax(g, "cpu"), state, tp)
         tp = optimizers.apply_updates(tp, tupd)
+    # a CPU tree takes the plain path: no kernel launches
+    assert launches == (multi_tensor.adam_update_launches,
+                        multi_tensor.apply_updates_launches)
     for a, b in zip(jax.tree.leaves(params_to_numpy(tp)),
                     jax.tree.leaves(jp)):
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-6, rtol=0)
